@@ -1,16 +1,19 @@
 """CUDA traversal kernels (the counterpart of ``glaze_tpu/accel/traverse_pallas.py``).
 
-``csrc/traverse.cu`` holds two hand-written sm_90a kernels, one thread per
-ray, walking the octant-ordered ``nodes16`` slabs and the ``tri8`` rows
-(its header note says which Pallas kernels they replace and what bounds
-them). They are compiled with ``nvcc`` at first use into ``build/`` at the
-repository root, as a shared library with a plain C interface loaded
-through ctypes. A missing ``nvcc``, a failed build or a failed launch
+``csrc/traverse.cu`` holds the hand-written sm_90a walks, one thread per
+ray over the octant-ordered ``nodes16`` slabs and the ``tri8`` rows:
+closest hit and any hit, each also in a masked form that honours the
+baked 8x8 opacity cells of a tree with a payload (its header note says
+which Pallas kernels they replace and what bounds them). They are
+compiled with ``nvcc`` at first use into ``build/`` at the repository
+root, as a shared library with a plain C interface loaded through
+ctypes. A missing ``nvcc``, a failed build or a failed launch
 raises; nothing here falls back to the plain version.
 
 Each wrapper counts its launches in a plain int attribute
-(``closest_hit_soa.launches``, ``any_hit_soa.launches``), incremented
-only where the kernel is launched.
+(``closest_hit_soa.launches``, ``any_hit_soa.launches``,
+``closest_hit_soa_masked.launches``, ``any_hit_soa_masked.launches``),
+incremented only where the kernel is launched.
 """
 
 from __future__ import annotations
@@ -79,6 +82,12 @@ def _load():
         lib.glaze_any_hit.argtypes = ([p] * 10 + [i, i, ctypes.c_longlong,
                                                   ctypes.c_float, p, p])
         lib.glaze_any_hit.restype = i
+        lib.glaze_closest_hit_masked.argtypes = ([p] * 9 + [i, i, ctypes.c_longlong]
+                                                 + [p] * 6)
+        lib.glaze_closest_hit_masked.restype = i
+        lib.glaze_any_hit_masked.argtypes = ([p] * 10 + [i, i, ctypes.c_longlong,
+                                                         ctypes.c_float, p, p, p])
+        lib.glaze_any_hit_masked.restype = i
         lib.glaze_error_string.argtypes = [i]
         lib.glaze_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -109,15 +118,22 @@ def _ray_comps(bvh, origin3, direction3, extra):
     return [c.contiguous() for c in comps], r
 
 
+def _require_payload(bvh):
+    from glaze_tpu_torch.accel.bvh import has_payload
+
+    if not has_payload(bvh):
+        raise ValueError("the masked kernels need a tree with the opacity "
+                         "payload (bvh.attach_tri_payload)")
+
+
 def _oct_floats(bvh) -> int:
     """Floats per octant slab of nodes16 (M16 rows of 128)."""
     return (bvh.nodes16.shape[0] // 8) * 128
 
 
-def closest_hit_soa(bvh, origin3, direction3, t_max=None):
-    """Closest hit of SoA rays ((x, y, z) tuples of (R,) CUDA tensors) on
-    the kernel. Returns a dict of (R,) tensors ``t`` (inf on a miss),
-    ``tri`` (int32, -1 on a miss), ``u``, ``v``."""
+def _closest(bvh, origin3, direction3, t_max, masked: bool):
+    """Launches the closest-hit kernel (masked or not); returns the dict of
+    outputs, ``mixed`` included when masked."""
     dev = origin3[0].device
     r = origin3[0].shape[0]
     if t_max is None:
@@ -131,27 +147,57 @@ def closest_hit_soa(bvh, origin3, direction3, t_max=None):
     tri = torch.empty((r,), dtype=torch.int32, device=dev)
     u = torch.empty((r,), dtype=torch.float32, device=dev)
     v = torch.empty((r,), dtype=torch.float32, device=dev)
+    out = {"t": t, "tri": tri, "u": u, "v": v}
+    if masked:
+        out["mixed"] = torch.empty((r,), dtype=torch.bool, device=dev)
     if r:
         lib = _load()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.glaze_closest_hit(
-            bvh.nodes16.data_ptr(), bvh.tri8.data_ptr(),
-            *[c.data_ptr() for c in comps], r, bvh.n_nodes, _oct_floats(bvh),
-            t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), stream)
-        _check(code, "closest-hit")
-        closest_hit_soa.launches += 1
+        args = [bvh.nodes16.data_ptr(), bvh.tri8.data_ptr(),
+                *[c.data_ptr() for c in comps], r, bvh.n_nodes,
+                _oct_floats(bvh), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+                v.data_ptr()]
+        if masked:
+            code = lib.glaze_closest_hit_masked(
+                *args, out["mixed"].data_ptr(), stream)
+            _check(code, "masked closest-hit")
+            closest_hit_soa_masked.launches += 1
+        else:
+            code = lib.glaze_closest_hit(*args, stream)
+            _check(code, "closest-hit")
+            closest_hit_soa.launches += 1
     if bvh.n_tris == 0:  # empty scenes keep a placeholder leaf: all misses
         t.fill_(float("inf"))
         tri.fill_(-1)
-    return {"t": t, "tri": tri, "u": u, "v": v}
+        if masked:
+            out["mixed"].fill_(False)
+    return out
+
+
+def closest_hit_soa(bvh, origin3, direction3, t_max=None):
+    """Closest hit of SoA rays ((x, y, z) tuples of (R,) CUDA tensors) on
+    the kernel. Returns a dict of (R,) tensors ``t`` (inf on a miss),
+    ``tri`` (int32, -1 on a miss), ``u``, ``v``."""
+    return _closest(bvh, origin3, direction3, t_max, masked=False)
 
 
 closest_hit_soa.launches = 0
 
 
-def any_hit_soa(bvh, origin3, direction3, t_max, t_min=1e-3, active=None):
-    """Any hit of SoA CUDA rays with t in (t_min, t_max); lanes with
-    ``active`` False report False. Returns an (R,) bool tensor."""
+def closest_hit_soa_masked(bvh, origin3, direction3, t_max=None):
+    """:func:`closest_hit_soa` honouring the tree's baked opacity cells
+    (the tree must carry the payload): TRANSPARENT-cell hits are skipped,
+    and the extra (R,) bool ``mixed`` marks accepted MIXED-cell hits."""
+    _require_payload(bvh)
+    return _closest(bvh, origin3, direction3, t_max, masked=True)
+
+
+closest_hit_soa_masked.launches = 0
+
+
+def _any(bvh, origin3, direction3, t_max, t_min, active, masked: bool):
+    """Launches the any-hit kernel (masked or not); returns ``hit``, or
+    ``(blocked, pending)`` when masked."""
     dev = origin3[0].device
     r = origin3[0].shape[0]
     cap = torch.broadcast_to(
@@ -162,23 +208,53 @@ def any_hit_soa(bvh, origin3, direction3, t_max, t_min=1e-3, active=None):
     floats = [c.to(torch.float32) for c in comps[:7]]
     act = comps[7].contiguous()
     hit = torch.empty((r,), dtype=torch.bool, device=dev)
+    pending = torch.empty((r,), dtype=torch.bool, device=dev) if masked else None
     if r:
         lib = _load()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.glaze_any_hit(
-            bvh.nodes16.data_ptr(), bvh.tri8.data_ptr(),
-            *[c.data_ptr() for c in floats], act.data_ptr(), r, bvh.n_nodes,
-            _oct_floats(bvh), float(t_min), hit.data_ptr(), stream)
-        _check(code, "any-hit")
-        any_hit_soa.launches += 1
+        args = [bvh.nodes16.data_ptr(), bvh.tri8.data_ptr(),
+                *[c.data_ptr() for c in floats], act.data_ptr(), r,
+                bvh.n_nodes, _oct_floats(bvh), float(t_min), hit.data_ptr()]
+        if masked:
+            code = lib.glaze_any_hit_masked(*args, pending.data_ptr(), stream)
+            _check(code, "masked any-hit")
+            any_hit_soa_masked.launches += 1
+        else:
+            code = lib.glaze_any_hit(*args, stream)
+            _check(code, "any-hit")
+            any_hit_soa.launches += 1
     if bvh.n_tris == 0:
         hit.fill_(False)
-    return hit
+        if masked:
+            pending.fill_(False)
+    return (hit, pending) if masked else hit
+
+
+def any_hit_soa(bvh, origin3, direction3, t_max, t_min=1e-3, active=None):
+    """Any hit of SoA CUDA rays with t in (t_min, t_max); lanes with
+    ``active`` False report False. Returns an (R,) bool tensor."""
+    return _any(bvh, origin3, direction3, t_max, t_min, active, masked=False)
 
 
 any_hit_soa.launches = 0
 
 
+def any_hit_soa_masked(bvh, origin3, direction3, t_max, t_min=1e-3,
+                       active=None):
+    """3-state any hit of SoA CUDA rays on a tree with the opacity payload:
+    returns ``(blocked, pending)`` (R,) bool tensors: blocked = an
+    OPAQUE-cell hit in (t_min, t_max); pending = a MIXED-cell hit and not
+    blocked; TRANSPARENT cells are ignored; inactive lanes False/False."""
+    _require_payload(bvh)
+    return _any(bvh, origin3, direction3, t_max, t_min, active, masked=True)
+
+
+any_hit_soa_masked.launches = 0
+
+KERNEL_WRAPPERS = (closest_hit_soa, any_hit_soa, closest_hit_soa_masked,
+                   any_hit_soa_masked)
+
+
 def reset_launch_counts():
-    closest_hit_soa.launches = 0
-    any_hit_soa.launches = 0
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0

@@ -1,29 +1,47 @@
-// Stackless skip-link BVH walks for Hopper (sm_90a): closest hit and any hit.
+// Stackless skip-link BVH walks for Hopper (sm_90a): closest hit and any
+// hit, each with and without the baked 8x8 opacity cell masks.
 //
 // Replaces the TPU kernels of glaze_tpu/accel/traverse_pallas.py:
-//   closest_kernel  <- _closest_kernel_win (reached through _closest_call)
-//                      and its schedule variants _closest_kernel_ww,
-//                      _closest_kernel (streamed), _closest_kernel_sub,
-//                      _closest_kernel_dual: all compute the same function.
-//   anyhit_kernel   <- _anyhit_kernel_win (reached through _anyhit_call)
-//                      and _anyhit_kernel_ww, _anyhit_kernel,
-//                      _anyhit_kernel_sub.
+//   closest_kernel<false> <- _closest_kernel_win (reached through
+//                      _closest_call) and its schedule variants
+//                      _closest_kernel_ww, _closest_kernel (streamed),
+//                      _closest_kernel_sub, _closest_kernel_dual: all
+//                      compute the same function.                    (K1)
+//   closest_kernel<true>  <- _closest_kernel_win(alpha_mask=True), reached
+//                      through _closest_call_masked (mask test :669-708).
+//                                                                     (K2)
+//   anyhit_kernel<false>  <- _anyhit_kernel_win (reached through
+//                      _anyhit_call) and _anyhit_kernel_ww,
+//                      _anyhit_kernel, _anyhit_kernel_sub.           (K3)
+//   anyhit_kernel<true>   <- _anyhit_kernel_win(alpha_mask=True), reached
+//                      through _anyhit_call_masked (:875-906).       (K4)
 // The Pallas kernels walk one tree pointer per 128-ray row and queue leaf
 // work, because the TPU's VPU only runs dense (8, 128) tiles. None of
-// that carries over: here ONE THREAD WALKS ONE RAY.
+// that carries over: here ONE THREAD WALKS ONE RAY, and the masked and
+// unmasked kernels are one template, so all four share one slab test,
+// one Moller-Trumbore and one octant walk.
 //
-// Function (identical to glaze_tpu_torch.accel.bvh.closest_hit / any_hit,
-// the plain versions):
+// Function (identical to glaze_tpu_torch.accel.bvh.closest_hit / any_hit
+// and closest_hit_masked / any_hit_masked, the plain versions):
 //   * each ray picks its direction octant o = (dx>=0) + 2(dy>=0) + 4(dz>=0)
 //     and walks that octant's depth-first node order in nodes16 (node i of
 //     octant o at float offset (o*M16*16 + i)*8: bmin.xyz, bmax.xyz, meta
 //     and skip as int bits). A box hit goes to node p+1 (a leaf to its
 //     skip link after testing it), a miss to skip; p >= n_nodes ends.
 //   * a leaf holds count = (meta&7)+1 triangles from first = meta>>3;
-//     triangle k sits at float offset k*16 of tri8 as v0, e1, e2.
+//     triangle k sits at float offset k*16 of tri8 as v0, e1, e2, then
+//     (masked trees) four int32 payload words at floats 9..12.
 //   * Moller-Trumbore with |det| >= 1e-12 and t > 1e-4. Closest hit keeps a
 //     hit only when t < t_best (t_best starts at tmax); any hit stops at
 //     the first t in (t_min, tmax); inactive rays report false.
+//   * masked: an accepted hit reads the 2-bit code of its barycentric cell
+//     cu = min((int)(u*8), 7), cv = min((int)(v*8), 7), cell = cv*8 + cu,
+//     word cell>>4, shift (cell&15)*2 (the layout of
+//     scene/flatten.py _classify_alpha_cells). Closest: code 2
+//     (TRANSPARENT) drops the hit, which never shrinks t_best; mixed =
+//     the kept hit's code is 0 (MIXED). Any hit: code 1 (OPAQUE) blocks
+//     and stops the ray, code 0 sets pending and the walk goes on, code 2
+//     is ignored; pending is reported only where not blocked.
 //   * reciprocal direction: |d| < 1e-20 maps to 1e20*sign(d) and an exact
 //     0 to +1e20 -- the XLA walker's rule (glaze_tpu/accel/bvh.py:654-658),
 //     which the plain version shares. (The Pallas kernels use +1e20 for
@@ -31,7 +49,8 @@
 //   * built with --fmad=false and sums taken as x + y + z, so t/u/v are
 //     bit-identical to the plain torch version for the same triangle. Rays
 //     whose closest t ties exactly between two triangles may report either
-//     one: the octant order decides, as on the TPU.
+//     one (and, masked, either one's mixed flag): the octant order
+//     decides, as on the TPU.
 //
 // What bounds it on an H100: not bytes and not float operations. Each step
 // is a dependent gather (node row, then triangle rows) whose address comes
@@ -42,8 +61,13 @@
 // 50 MB L2 and are read through the read-only path (__ldg) as 16-byte
 // float4 loads, a node is two loads and a triangle three; rays are
 // Morton-sorted by the caller, so neighbouring threads walk similar paths;
-// and many warps per SM hide the latency of each one. Shared-memory
-// treelets, warp-cooperative packets and wider trees are later work.
+// and many warps per SM hide the latency of each one. The masks add the
+// same latency and divergence plus, per ACCEPTED hit only, the cell
+// decode and at most one 4-byte load: words 0..2 arrive with the third
+// float4 that Moller-Trumbore already loads, and word 3 (cells 48..63) is
+// read only when the cell needs it, so a miss costs exactly what it costs
+// unmasked. Shared-memory treelets, warp-cooperative packets and wider
+// trees are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,13 +103,14 @@ __device__ __forceinline__ bool slab(const float4 a, const float4 b,
   return (tn <= tf) && (tf >= kTMin) && (tn <= cap);
 }
 
-// Moller-Trumbore against triangle k of tri8; returns hit, writes t/u/v.
+// Moller-Trumbore against triangle k of tri8; returns hit, writes t/u/v
+// and the row's third float4 c (c.yzw are payload words 0..2).
 __device__ __forceinline__ bool tri_hit(const float4* __restrict__ tri8,
                                         int k, const Ray& r, float& t,
-                                        float& u, float& v) {
+                                        float& u, float& v, float4& c) {
   const float4 a = __ldg(tri8 + 4 * (size_t)k);      // v0.xyz, e1.x
   const float4 b = __ldg(tri8 + 4 * (size_t)k + 1);  // e1.yz, e2.xy
-  const float4 c = __ldg(tri8 + 4 * (size_t)k + 2);  // e2.z, payload
+  c = __ldg(tri8 + 4 * (size_t)k + 2);               // e2.z, payload 0..2
   const float v0x = a.x, v0y = a.y, v0z = a.z;
   const float e1x = a.w, e1y = b.x, e1z = b.y;
   const float e2x = b.z, e2y = b.w, e2z = c.x;
@@ -105,6 +130,29 @@ __device__ __forceinline__ bool tri_hit(const float4* __restrict__ tri8,
   v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
   t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
   return ok && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > kTMin);
+}
+
+// 2-bit opacity code of the cell at (u, v) of triangle k, for an ACCEPTED
+// hit only (u, v in [0, 1], so the float->int casts are defined). Words
+// 0..2 come from c; word 3 (payload float 12) is loaded here if needed.
+__device__ __forceinline__ int cell_code(const float* __restrict__ tri8,
+                                         int k, const float4& c, float u,
+                                         float v) {
+  const int cu = min(static_cast<int>(u * 8.0f), 7);
+  const int cv = min(static_cast<int>(v * 8.0f), 7);
+  const int cell = cv * 8 + cu;
+  const int word = cell >> 4;
+  int w;
+  if (word == 0) {
+    w = __float_as_int(c.y);
+  } else if (word == 1) {
+    w = __float_as_int(c.z);
+  } else if (word == 2) {
+    w = __float_as_int(c.w);
+  } else {
+    w = __ldg(reinterpret_cast<const int*>(tri8) + 16 * (size_t)k + 12);
+  }
+  return (w >> ((cell & 15) * 2)) & 3;
 }
 
 __device__ __forceinline__ Ray load_ray(const float* ox, const float* oy,
@@ -131,6 +179,7 @@ __device__ __forceinline__ const float4* octant_nodes(const float* nodes16,
   return reinterpret_cast<const float4*>(nodes16 + oct * oct_floats);
 }
 
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 closest_kernel(const float* __restrict__ nodes16,
                const float* __restrict__ tri8, const float* __restrict__ ox,
@@ -139,7 +188,8 @@ closest_kernel(const float* __restrict__ nodes16,
                const float* __restrict__ dz, const float* __restrict__ tmax,
                int n_rays, int n_nodes, long long oct_floats,
                float* __restrict__ t_out, int* __restrict__ tri_out,
-               float* __restrict__ u_out, float* __restrict__ v_out) {
+               float* __restrict__ u_out, float* __restrict__ v_out,
+               uint8_t* __restrict__ mixed_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
@@ -147,6 +197,7 @@ closest_kernel(const float* __restrict__ nodes16,
   const float4* tris = reinterpret_cast<const float4*>(tri8);
   float bt = tmax[i], bu = 0.0f, bv = 0.0f;
   int btri = -1;
+  bool bmix = false;
   int p = 0;
   while (p < n_nodes) {
     const float4 a = __ldg(nodes + 2 * p);
@@ -165,7 +216,13 @@ closest_kernel(const float* __restrict__ nodes16,
     const int count = (meta & 7) + 1;
     for (int k = 0; k < count; ++k) {
       float t, u, v;
-      if (tri_hit(tris, first + k, r, t, u, v) && t < bt) {
+      float4 c;
+      if (tri_hit(tris, first + k, r, t, u, v, c) && t < bt) {
+        if constexpr (kMasked) {
+          const int code = cell_code(tri8, first + k, c, u, v);
+          if (code == 2) continue;  // TRANSPARENT cell: skip the hit
+          bmix = code == 0;
+        }
         bt = t;
         btri = first + k;
         bu = u;
@@ -178,8 +235,10 @@ closest_kernel(const float* __restrict__ nodes16,
   tri_out[i] = btri;
   u_out[i] = bu;
   v_out[i] = bv;
+  if constexpr (kMasked) mixed_out[i] = btri >= 0 && bmix;
 }
 
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 anyhit_kernel(const float* __restrict__ nodes16,
               const float* __restrict__ tri8, const float* __restrict__ ox,
@@ -188,18 +247,20 @@ anyhit_kernel(const float* __restrict__ nodes16,
               const float* __restrict__ dz, const float* __restrict__ tmax,
               const uint8_t* __restrict__ active, int n_rays, int n_nodes,
               long long oct_floats, float t_min,
-              uint8_t* __restrict__ hit_out) {
+              uint8_t* __restrict__ hit_out,
+              uint8_t* __restrict__ pending_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   if (!active[i]) {
     hit_out[i] = 0;
+    if constexpr (kMasked) pending_out[i] = 0;
     return;
   }
   const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
   const float4* nodes = octant_nodes(nodes16, r, oct_floats);
   const float4* tris = reinterpret_cast<const float4*>(tri8);
   const float cap = tmax[i];
-  uint8_t hit = 0;
+  uint8_t hit = 0, pending = 0;
   int p = 0;
   while (p < n_nodes && !hit) {
     const float4 a = __ldg(nodes + 2 * p);
@@ -218,7 +279,13 @@ anyhit_kernel(const float* __restrict__ nodes16,
     const int count = (meta & 7) + 1;
     for (int k = 0; k < count; ++k) {
       float t, u, v;
-      if (tri_hit(tris, first + k, r, t, u, v) && t > t_min && t < cap) {
+      float4 c;
+      if (tri_hit(tris, first + k, r, t, u, v, c) && t > t_min && t < cap) {
+        if constexpr (kMasked) {
+          const int code = cell_code(tri8, first + k, c, u, v);
+          if (code == 0) pending = 1;  // MIXED: the caller resolves it
+          if (code != 1) continue;     // only an OPAQUE cell blocks
+        }
         hit = 1;
         break;
       }
@@ -226,9 +293,38 @@ anyhit_kernel(const float* __restrict__ nodes16,
     p = skip;
   }
   hit_out[i] = hit;
+  if constexpr (kMasked) pending_out[i] = pending && !hit;
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+template <bool kMasked>
+int launch_closest(const float* nodes16, const float* tri8, const float* ox,
+                   const float* oy, const float* oz, const float* dx,
+                   const float* dy, const float* dz, const float* tmax,
+                   int n_rays, int n_nodes, long long oct_floats,
+                   float* t_out, int* tri_out, float* u_out, float* v_out,
+                   uint8_t* mixed_out, void* stream) {
+  closest_kernel<kMasked><<<blocks_for(n_rays), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax, n_rays, n_nodes,
+      oct_floats, t_out, tri_out, u_out, v_out, mixed_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kMasked>
+int launch_anyhit(const float* nodes16, const float* tri8, const float* ox,
+                  const float* oy, const float* oz, const float* dx,
+                  const float* dy, const float* dz, const float* tmax,
+                  const uint8_t* active, int n_rays, int n_nodes,
+                  long long oct_floats, float t_min, uint8_t* hit_out,
+                  uint8_t* pending_out, void* stream) {
+  anyhit_kernel<kMasked><<<blocks_for(n_rays), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax, active, n_rays, n_nodes,
+      oct_floats, t_min, hit_out, pending_out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -241,11 +337,22 @@ int glaze_closest_hit(const float* nodes16, const float* tri8,
                       const float* tmax, int n_rays, int n_nodes,
                       long long oct_floats, float* t_out, int* tri_out,
                       float* u_out, float* v_out, void* stream) {
-  closest_kernel<<<blocks_for(n_rays), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax, n_rays, n_nodes,
-      oct_floats, t_out, tri_out, u_out, v_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_closest<false>(nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax,
+                               n_rays, n_nodes, oct_floats, t_out, tri_out,
+                               u_out, v_out, nullptr, stream);
+}
+
+int glaze_closest_hit_masked(const float* nodes16, const float* tri8,
+                             const float* ox, const float* oy,
+                             const float* oz, const float* dx,
+                             const float* dy, const float* dz,
+                             const float* tmax, int n_rays, int n_nodes,
+                             long long oct_floats, float* t_out,
+                             int* tri_out, float* u_out, float* v_out,
+                             uint8_t* mixed_out, void* stream) {
+  return launch_closest<true>(nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax,
+                              n_rays, n_nodes, oct_floats, t_out, tri_out,
+                              u_out, v_out, mixed_out, stream);
 }
 
 int glaze_any_hit(const float* nodes16, const float* tri8, const float* ox,
@@ -254,11 +361,21 @@ int glaze_any_hit(const float* nodes16, const float* tri8, const float* ox,
                   const uint8_t* active, int n_rays, int n_nodes,
                   long long oct_floats, float t_min, uint8_t* hit_out,
                   void* stream) {
-  anyhit_kernel<<<blocks_for(n_rays), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax, active, n_rays, n_nodes,
-      oct_floats, t_min, hit_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_anyhit<false>(nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax,
+                              active, n_rays, n_nodes, oct_floats, t_min,
+                              hit_out, nullptr, stream);
+}
+
+int glaze_any_hit_masked(const float* nodes16, const float* tri8,
+                         const float* ox, const float* oy, const float* oz,
+                         const float* dx, const float* dy, const float* dz,
+                         const float* tmax, const uint8_t* active,
+                         int n_rays, int n_nodes, long long oct_floats,
+                         float t_min, uint8_t* blocked_out,
+                         uint8_t* pending_out, void* stream) {
+  return launch_anyhit<true>(nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax,
+                             active, n_rays, n_nodes, oct_floats, t_min,
+                             blocked_out, pending_out, stream);
 }
 
 const char* glaze_error_string(int code) {

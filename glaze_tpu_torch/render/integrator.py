@@ -15,12 +15,32 @@ so states and images compare lane for lane.
 
 Each launch makes two traces: the closest hit of the path rays
 (:func:`trace_alpha_sorted`) and the NEE shadow rays
-(:func:`_any_hit_sorted`), both Morton-sorted for coherence and both on
-the CUDA kernels when the scene lives on the card.
+(:func:`_any_hit_sorted`, or :func:`_occlusion_sorted` with opacity
+maps), both Morton-sorted for coherence and both on the CUDA kernels when
+the scene lives on the card.
 
-Not ported in this slice (they raise): opacity maps (``alpha_rounds``),
-the ``ld`` sampler, adaptive lane masks and more than one sample in
-flight per pixel.
+Opacity maps (``alpha_rounds > 0``; raytrace_hit.rahit semantics: a hit
+whose opacity sample is < 0.5 is skipped) take one of three branches,
+chosen from what the scene carries:
+
+- the FULL MASKED TREE (``scene.bvh`` with baked 8x8 cell masks and
+  ``alpha_attr_full``, i.e. the scene has MIXED triangles): one masked
+  walk skips TRANSPARENT cells in the kernel; only MIXED-cell hits pay the
+  exact texture re-test rounds. Shadow rays take the 3-state masked any
+  hit, and only their pending lanes walk the small alpha tree;
+- the OPAQUE/ALPHA SPLIT (a scene carried without the full payload, e.g.
+  one the JAX package flattened with ``GLAZE_ALPHA_MASK=0``): an unmasked
+  walk of the opaque tree plus a walk of the alpha tree;
+- the WHOLE-SCENE RE-TRACE loop, when classification left no MIXED
+  triangle (``alpha_attr_full`` and ``bvh_alpha`` are None).
+
+The port reads none of the JAX package's environment switches and takes
+their defaults: ``GLAZE_ALPHA_PREFIX`` = 1.0 (no candidates-first sort key,
+the re-test rounds run at full width), ``GLAZE_ALPHA_MASK`` on,
+``GLAZE_ALPHA_ROUNDS`` = 1 (the renderer's round count).
+
+Not ported in this slice (they raise): the ``ld`` sampler, adaptive lane
+masks and more than one sample in flight per pixel.
 """
 
 from __future__ import annotations
@@ -289,39 +309,356 @@ def _perm_rows(perm, arrays):
     return [a[perm] for a in arrays]
 
 
-def _check_alpha(alpha_rounds: int):
-    if alpha_rounds:
-        raise NotImplementedError(fl.OPACITY_NOT_PORTED)
+def _hit_alpha(scene, hit):
+    """Opacity-map alpha at a hit (raytrace_hit.rahit semantics): 1.0 where
+    the material has no opacity texture."""
+    tri = torch.clamp(hit["tri"], min=0).long()
+    a = scene.tri_attr[tri]
+    bu = hit["u"]
+    bv = hit["v"]
+    bw = 1.0 - bu - bv
+    u = bw * a[:, fl.ATTR_UV0] + bu * a[:, fl.ATTR_UV1] + bv * a[:, fl.ATTR_UV2]
+    v = (bw * a[:, fl.ATTR_UV0 + 1] + bu * a[:, fl.ATTR_UV1 + 1]
+         + bv * a[:, fl.ATTR_UV2 + 1])
+    mat_id = a[:, fl.ATTR_MAT].to(torch.int64)
+    opacity_tex = scene.mat_tex[mat_id][:, fl.MT_OPACITY]
+    alpha = tx.sample_r_v(scene.atlas, opacity_tex, u, v)
+    return torch.where(opacity_tex != 0, alpha, torch.ones_like(alpha))
+
+
+def _cap(t_max, like):
+    """(R,) float32 cap: ``t_max`` broadcast, or +inf for None."""
+    if t_max is None:
+        return torch.full(like.shape, float("inf"), dtype=torch.float32,
+                          device=like.device)
+    return torch.broadcast_to(
+        torch.as_tensor(t_max, dtype=torch.float32, device=like.device),
+        like.shape)
+
+
+def _cull_beyond(hit, cap):
+    """Hits beyond ``cap`` become misses (t = inf, tri = -1)."""
+    beyond = hit["t"] > cap
+    return {"t": torch.where(beyond, torch.full_like(hit["t"], float("inf")),
+                             hit["t"]),
+            "tri": torch.where(beyond, torch.full_like(hit["tri"], -1),
+                               hit["tri"]),
+            "u": hit["u"], "v": hit["v"]}
+
+
+def _alpha_candidates(scene, origin, direction, cap):
+    """Lanes whose segment [T_MIN, cap] can touch alpha-tested geometry:
+    slab tests against the (few) MIXED-cluster AABBs
+    (``scene.alpha_boxes``). A miss here PROVES the alpha tree is
+    irrelevant for the lane."""
+    boxes = scene.alpha_boxes
+    inv = []
+    for i in range(3):
+        tiny = torch.abs(direction[i]) < 1e-20
+        inv.append(torch.where(
+            tiny, torch.full_like(direction[i], 1e20),
+            1.0 / torch.where(tiny, torch.ones_like(direction[i]),
+                              direction[i])))
+    out = torch.zeros(origin[0].shape, dtype=torch.bool,
+                      device=origin[0].device)
+    for b in range(boxes.shape[0]):
+        tn = torch.full(origin[0].shape, 1e-4, dtype=torch.float32,
+                        device=origin[0].device)
+        tf = cap
+        for i in range(3):
+            t0 = (boxes[b, i] - origin[i]) * inv[i]
+            t1 = (boxes[b, i + 3] - origin[i]) * inv[i]
+            tn = torch.maximum(tn, torch.minimum(t0, t1))
+            tf = torch.minimum(tf, torch.maximum(t0, t1))
+        out = out | (tn <= tf)
+    return out
+
+
+def _remap_hit(hit, tri_map):
+    """Subset-tree slot ids -> full-tree attribute rows (misses stay -1)."""
+    tri = hit["tri"]
+    g = tri_map[torch.clamp(tri, min=0).long()]
+    return dict(hit, tri=torch.where(tri >= 0, g, torch.full_like(g, -1)))
+
+
+def _miss_hit(r, device):
+    z = torch.zeros((r,), dtype=torch.float32, device=device)
+    return {"t": torch.full((r,), float("inf"), dtype=torch.float32,
+                            device=device),
+            "tri": torch.full((r,), -1, dtype=torch.int32, device=device),
+            "u": z, "v": z}
+
+
+def _hit_alpha_attr(scene, attr, hit):
+    """Opacity at a masked-walk hit from a fused (rows, 10) int32 table
+    (``alpha_attr`` in alpha-tree slot order or ``alpha_attr_full`` in
+    full-tree row order): one attribute gather and one atlas quad gather.
+    The math is :func:`_hit_alpha`'s (bilinear .r with sRGB decode); uv
+    columns are f32 bits, the atlas offset (col 6) a real int32."""
+    slot = torch.clamp(hit["tri"], min=0).long()
+    a = attr[slot]
+
+    def fcol(i):
+        return a[:, i].contiguous().view(torch.float32)
+
+    bu = hit["u"]
+    bv = hit["v"]
+    bw = 1.0 - bu - bv
+    u = bw * fcol(0) + bu * fcol(2) + bv * fcol(4)
+    v = bw * fcol(1) + bu * fcol(3) + bv * fcol(5)
+    # zero rows (alpha_attr_full's never-tested triangles) are only reached
+    # by lanes whose alpha is discarded; clamp the extents so their dead
+    # arithmetic stays finite
+    wi = torch.clamp(a[:, 7], min=1)
+    hi = torch.clamp(a[:, 8], min=1)
+    w = wi.to(torch.float32)
+    h = hi.to(torch.float32)
+    srgb = a[:, 9] > 0
+    u = u - torch.floor(u)
+    v = v - torch.floor(v)
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    x0i = torch.remainder(x0.to(torch.int32), wi)
+    y0i = torch.remainder(y0.to(torch.int32), hi)
+    quad = scene.atlas.texels[(a[:, 6] + y0i * wi + x0i).long()]
+    sc = float(np.float32(1.0 / 255.0))
+
+    def tap(k):
+        r = (quad[:, k] & 0xFF).to(torch.float32) * sc
+        return torch.where(srgb, tx.srgb_to_linear(r), r)
+
+    c00, c10, c01, c11 = tap(0), tap(1), tap(2), tap(3)
+    top = c00 * (1.0 - fx) + c10 * fx
+    bot = c01 * (1.0 - fx) + c11 * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def _alpha_retest_rounds(origin, direction, cap, hit, alpha_rounds: int,
+                         walk, alpha_fn):
+    """The exact-texture re-test loop over a closest-hit dict: a hit whose
+    opacity (``alpha_fn(hit)``) is < 0.5 re-traces with ``walk(o, d,
+    cap)`` from just past it. Hits of a masked walk carry ``mixed`` flags
+    and only MIXED-cell hits are tested (the baked masks resolved the rest
+    in the walk); hits of an unmasked walk are all tested."""
+    o = origin
+    offset = torch.zeros(origin[0].shape, dtype=torch.float32,
+                         device=origin[0].device)
+    for _ in range(alpha_rounds):
+        alpha = alpha_fn(hit)
+        transparent = (hit["tri"] >= 0) & (alpha < 0.5)
+        if "mixed" in hit:
+            transparent = transparent & hit["mixed"]
+        # hit["t"] is a distance from the ORIGINAL origin while ``o`` is
+        # already ``offset`` along the ray: step by the remainder only
+        step = torch.where(transparent, hit["t"] - offset + 1e-3,
+                           torch.zeros_like(offset))
+        o = vec.where(transparent, vec.add(o, vec.scale(direction, step)), o)
+        offset = offset + torch.where(transparent, step, torch.zeros_like(step))
+        # other lanes: cap -1 ends their walk at the root
+        re_cap = torch.where(transparent, cap - offset,
+                             torch.full_like(offset, -1.0))
+        rehit = walk(o, direction, re_cap)
+        hit = {k: torch.where(transparent,
+                              rehit[k] + offset if k == "t" else rehit[k], h)
+               for k, h in hit.items()}
+    return hit
+
+
+def _full_masked_closest(scene, origin, direction, cap, alpha_rounds: int,
+                         uncapped: bool = False):
+    """Single-walk closest leg over the full masked tree: one masked walk
+    plus the exact-texture re-test rounds of MIXED-cell hits through
+    ``alpha_attr_full`` (full-tree row order, no slot remap). Returns the
+    usual hit dict (inf/-1 on a miss or beyond ``cap``)."""
+    hit = accel.closest_hit_soa_masked_auto(
+        scene.bvh, origin, direction, None if uncapped else cap)
+    hit = _alpha_retest_rounds(
+        origin, direction, cap, hit, alpha_rounds,
+        walk=lambda o, d, c: accel.closest_hit_soa_masked_auto(
+            scene.bvh, o, d, c),
+        alpha_fn=lambda h: _hit_alpha_attr(scene, scene.alpha_attr_full, h))
+    return _cull_beyond(hit, cap)
+
+
+def _full_tree_masked(scene, alpha_rounds: int) -> bool:
+    """True when the main tree carries baked opacity cells and the scene
+    has the full-order alpha rows: the single-walk closest leg."""
+    if alpha_rounds <= 0:
+        return False
+    tri = scene.bvh.tri
+    return (tri.dim() == 2 and tri.shape[1] > 9
+            and scene.alpha_attr_full is not None)
+
+
+def _alpha_walk_refined(scene, origin, direction, cap, alpha_rounds: int):
+    """Masked alpha-tree walk plus its re-test rounds, both at full width
+    (the JAX package's candidate prefix is the full width at its default
+    GLAZE_ALPHA_PREFIX = 1.0). Returns a slot-space hit dict (inf/-1
+    beyond ``cap`` or on a miss)."""
+    hit = accel.closest_hit_soa_masked_auto(scene.bvh_alpha, origin,
+                                            direction, cap)
+    if scene.alpha_attr is not None:
+        def alpha_fn(h):
+            return _hit_alpha_attr(scene, scene.alpha_attr, h)
+    else:
+        def alpha_fn(h):
+            return _hit_alpha(scene, _remap_hit(h, scene.bvh_alpha_map))
+    hit = _alpha_retest_rounds(
+        origin, direction, cap, hit, alpha_rounds,
+        walk=lambda o, d, c: accel.closest_hit_soa_masked_auto(
+            scene.bvh_alpha, o, d, c),
+        alpha_fn=alpha_fn)
+    return _cull_beyond(hit, cap)
+
+
+def _alpha_tree_closest(scene, origin, direction, cap, alpha_rounds: int):
+    """Closest ACCEPTED (opacity >= 0.5) hit inside the alpha tree, as
+    global tri ids (t = inf / tri = -1 when none within ``cap``)."""
+    return _remap_hit(
+        _alpha_walk_refined(scene, origin, direction, cap, alpha_rounds),
+        scene.bvh_alpha_map)
+
+
+def _split_closest(scene, origin, direction, cap, capped: bool,
+                   alpha_rounds: int, cand=None):
+    """The opaque/alpha split: one unmasked walk of the opaque tree, then
+    the alpha tree up to just past the opaque hit (the epsilon keeps an
+    exactly coincident alpha surface testable). ``cand`` (the sorted
+    path's candidate mask) culls lanes that miss every alpha box."""
+    r = origin[0].shape[0]
+    if scene.bvh_opaque is not None:
+        hit_o = accel.closest_hit_soa_auto(scene.bvh_opaque, origin,
+                                           direction, cap if capped else None)
+        hit_o = _remap_hit(hit_o, scene.bvh_opaque_map)
+    else:
+        hit_o = _miss_hit(r, origin[0].device)
+    cap_a = torch.minimum(cap, hit_o["t"] + 1e-4)
+    if cand is not None:
+        cap_a = torch.where(cand, cap_a, torch.full_like(cap_a, -1.0))
+    hit_a = _alpha_tree_closest(scene, origin, direction, cap_a, alpha_rounds)
+    use_a = hit_a["t"] < hit_o["t"]
+    hit = {k: torch.where(use_a, hit_a[k], hit_o[k])
+           for k in ("t", "tri", "u", "v")}
+    return _cull_beyond(hit, cap) if capped else hit
 
 
 def trace_alpha(scene, origin, direction, t_max=None, alpha_rounds: int = 0):
-    """Closest hit (raytrace_hit.rchit); the opacity-map re-test rounds of
-    the JAX package (``alpha_rounds > 0``) are not ported yet. The
-    ``t_max`` cap applies to the trace (traceRayEXT tMax,
-    path_trace.rgen:108-110)."""
-    _check_alpha(alpha_rounds)
-    return accel.closest_hit_soa_auto(scene.bvh, origin, direction, t_max)
+    """Closest hit with alpha-tested transparency (raytrace_hit.rahit):
+    hits whose opacity sample is < 0.5 are skipped, up to ``alpha_rounds``
+    re-test rounds. ``alpha_rounds = 0`` (no opacity maps) is a plain
+    closest-hit trace. The ``t_max`` cap applies to every trace
+    (traceRayEXT tMax, path_trace.rgen:108-110). The branch (full masked
+    tree, opaque/alpha split, whole-scene re-trace) follows from what the
+    scene carries; see the module docstring."""
+    cap = _cap(t_max, origin[0])
+    if _full_tree_masked(scene, alpha_rounds):
+        return _full_masked_closest(scene, origin, direction, cap,
+                                    alpha_rounds, uncapped=t_max is None)
+    if alpha_rounds > 0 and scene.bvh_alpha is not None:
+        return _split_closest(scene, origin, direction, cap,
+                              t_max is not None, alpha_rounds)
+    hit = accel.closest_hit_soa_auto(scene.bvh, origin, direction,
+                                     None if t_max is None else cap)
+    if alpha_rounds <= 0:
+        return hit
+    hit = _alpha_retest_rounds(
+        origin, direction, cap, hit, alpha_rounds,
+        walk=lambda o, d, c: accel.closest_hit_soa_auto(scene.bvh, o, d, c),
+        alpha_fn=lambda h: _hit_alpha(scene, h))
+    return _cull_beyond(hit, cap) if t_max is not None else hit
 
 
 def trace_alpha_sorted(scene, origin, direction, t_max=None,
                        alpha_rounds: int = 0):
     """:func:`trace_alpha` on Morton-sorted rays, results in input order.
-    A negative cap culls a lane."""
-    _check_alpha(alpha_rounds)
+    A negative cap culls a lane. On the split branch, lanes whose segment
+    misses every alpha cluster box skip the alpha tree (cap -1)."""
+    split = (not _full_tree_masked(scene, alpha_rounds) and alpha_rounds > 0
+             and scene.bvh_alpha is not None)
     ins = list(origin) + list(direction)
     act = None
     if t_max is not None:
-        cap0 = torch.broadcast_to(
-            torch.as_tensor(t_max, dtype=torch.float32, device=origin[0].device),
-            origin[0].shape)
+        cap0 = _cap(t_max, origin[0])
         ins.append(cap0)
         act = cap0 > 0.0
+    cand = None
+    if split:
+        cand = _alpha_candidates(scene, origin, direction, _cap(t_max, origin[0]))
+        if act is not None:
+            cand = cand & act
+        ins.append(cand)
     perm = _trace_perm(scene, origin, direction, active=act)
     inv = _inverse_perm(perm)
     s = _perm_rows(perm, ins)
+    o, d = tuple(s[0:3]), tuple(s[3:6])
     cap = s[6] if t_max is not None else None
-    hit = trace_alpha(scene, tuple(s[0:3]), tuple(s[3:6]), cap, alpha_rounds)
+    if split:
+        hit = _split_closest(scene, o, d, _cap(cap, o[0]), t_max is not None,
+                             alpha_rounds, cand=s[-1])
+    else:
+        hit = trace_alpha(scene, o, d, cap, alpha_rounds)
     return {k: v[inv] for k, v in hit.items()}
+
+
+def _occlusion_sorted(scene, origin, direction, t_max, active,
+                      alpha_rounds: int):
+    """Alpha-aware shadow occlusion in one coherence-sorted pass.
+
+    Full masked tree: one 3-state masked any-hit walk blocks on OPAQUE
+    cells, ignores TRANSPARENT ones and reports MIXED-only lanes pending;
+    only those resolve their accepted hit in the alpha tree (or, without
+    one, in the full masked tree). Split scenes: any hit on the opaque tree
+    plus the alpha tree for unblocked candidates. Neither: the whole-scene
+    re-trace of :func:`trace_alpha_sorted`."""
+    use_masked = (_full_tree_masked(scene, alpha_rounds)
+                  and accel.masked_anyhit_ok(scene.bvh))
+    cap = _cap(t_max, origin[0])
+    if alpha_rounds <= 0 or (scene.bvh_alpha is None and not use_masked):
+        sh = trace_alpha_sorted(
+            scene, origin, direction,
+            t_max=torch.where(active, cap, torch.full_like(cap, -1.0)),
+            alpha_rounds=alpha_rounds)
+        return sh["tri"] >= 0
+    if use_masked:
+        perm = _trace_perm(scene, origin, direction, active=active)
+        inv = _inverse_perm(perm)
+        s = _perm_rows(perm, list(origin) + list(direction) + [cap, active])
+        o, d, cap_s, act = tuple(s[0:3]), tuple(s[3:6]), s[6], s[7]
+        blocked, pending = accel.any_hit_soa_masked_auto(
+            scene.bvh, o, d, cap_s, active=act)
+        probe = act & pending & ~blocked
+        cap_a = torch.where(probe, cap_s, torch.full_like(cap_s, -1.0))
+        if scene.bvh_alpha is not None:
+            # the MIXED triangles all live in the small alpha subset tree
+            tri_a = _alpha_walk_refined(scene, o, d, cap_a,
+                                        alpha_rounds)["tri"]
+        else:
+            tri_a = _full_masked_closest(scene, o, d, cap_a,
+                                         alpha_rounds)["tri"]
+        blocked = blocked | (probe & (tri_a >= 0))
+        return blocked[inv]
+    cand = _alpha_candidates(
+        scene, origin, direction,
+        torch.where(active, cap, torch.full_like(cap, -1.0))) & active
+    perm = _trace_perm(scene, origin, direction, active=active)
+    inv = _inverse_perm(perm)
+    s = _perm_rows(perm, list(origin) + list(direction) + [cap, active, cand])
+    o, d, cap_s, act, cand_s = (tuple(s[0:3]), tuple(s[3:6]), s[6], s[7],
+                                s[8])
+    if scene.bvh_opaque is not None:
+        blocked = accel.any_hit_soa_auto(scene.bvh_opaque, o, d, cap_s,
+                                         active=act)
+    else:
+        blocked = torch.zeros_like(act)
+    probe = act & ~blocked & cand_s
+    cap_a = torch.where(probe, cap_s, torch.full_like(cap_s, -1.0))
+    tri_a = _alpha_walk_refined(scene, o, d, cap_a, alpha_rounds)["tri"]
+    blocked = blocked | (probe & (tri_a >= 0))
+    return blocked[inv]
 
 
 def _any_hit_sorted(scene, origin, direction, t_max, active):
@@ -374,9 +711,13 @@ def _direct_light(scene, state_rng, wo_w, frame, hit, mat, active,
                                           ex(r_bsdf))
 
     usable = (light_pdf > 0.0) & (bsdf_pdf > 0.0)
-    _check_alpha(alpha_rounds)
-    shadow_hit = _any_hit_sorted(scene, hit["point"], wiw, dist - 1e-3,
-                                 active & usable)
+    if alpha_rounds > 0:
+        # transparent surfaces do not shadow (occlusion_tester + rahit)
+        shadow_hit = _occlusion_sorted(scene, hit["point"], wiw, dist - 1e-3,
+                                       active & usable, alpha_rounds)
+    else:
+        shadow_hit = _any_hit_sorted(scene, hit["point"], wiw, dist - 1e-3,
+                                     active & usable)
     cos_term = torch.abs(vec.dot(wiw, hit["shading_normal"]))
     weight = (usable.to(torch.float32) * (~shadow_hit).to(torch.float32)
               * cos_term / torch.clamp(light_pdf, min=1e-20))
@@ -401,7 +742,6 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
         _not_ported(f"sampler {sampler!r}")
     if lane_active is not None:
         _not_ported("adaptive sampling (lane_active)")
-    _check_alpha(alpha_rounds)
     dev = px.device
     p = px.shape[0]
     coh = resolve_coherent(coherent)
@@ -450,7 +790,8 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
     direction = vec.where(regen, cam_dir, state.direction)
     importance = torch.where(regen, spectra.one_t(p, dev), state.importance)
 
-    hit = trace_alpha_sorted(scene, origin, direction)
+    hit = trace_alpha_sorted(scene, origin, direction,
+                             alpha_rounds=alpha_rounds)
     missed = hit["tri"] < 0
 
     # ---- miss: sky radiance only on camera rays / after specular bounces
@@ -474,7 +815,8 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
     nee_active = ~missed & ~mat_specular
     ex = lambda a: _expand_block(a, p)  # noqa: E731
     rng, nee_radiance = _direct_light(scene, rng, wo_w, frame, surf, mat,
-                                      nee_active, expand=ex)
+                                      nee_active, alpha_rounds=alpha_rounds,
+                                      expand=ex)
     nee_radiance = nee_radiance * importance
     nr, ng, nb = spectra.to_rgb_t(nee_radiance)
     nee_contrib = (torch.where(nee_active, nr, zero),

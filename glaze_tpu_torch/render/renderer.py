@@ -7,10 +7,15 @@ update_camera}``, raytracer.rs:153-687). ``draw(spp)`` runs
 from the host ``np.random.default_rng(seed)`` in the same chunks as the
 JAX package, so both packages draw the same seeds for the same ``seed``.
 
+Scenes with opacity maps render with one alpha re-test round
+(``alpha_rounds``, the JAX package's default ``GLAZE_ALPHA_ROUNDS=1``),
+set at construction from the materials; without opacity maps it is 0.
+
 Not ported in this slice: checkpoints, device meshes, the display
-denoiser, the ``ld`` sampler, adaptive sampling and more than one sample
-in flight per pixel (the integrator raises NotImplementedError for the
-last three).
+denoiser, material / light edits (``update_materials_and_lights`` and its
+opaque/alpha split rebuild), the ``ld`` sampler, adaptive sampling and
+more than one sample in flight per pixel (the integrator raises
+NotImplementedError for the last three).
 """
 
 from __future__ import annotations
@@ -42,6 +47,11 @@ class Integrator(enum.Enum):
     def name_str(self) -> str:
         return "Direct light only" if self is Integrator.DIRECT else "Path tracing"
 
+
+# alpha re-test rounds when some material has an opacity map: one, the
+# JAX package's default (a second stacked MIXED-transparent layer along one
+# segment is treated opaque)
+ALPHA_ROUNDS = 1
 
 # launches per chunk of draw(); seeds are drawn per chunk exactly like the
 # JAX package's lax.scan chunks, so the seed streams line up
@@ -93,6 +103,11 @@ class RayTraceRenderer:
         self._scheduler = WorkScheduler()
         self._state = integ.init_state(self.width, self.height, self.device)
         self._request_new_frame = True
+        # ALPHA_ROUNDS when some material has an opacity map, else 0
+        from glaze_tpu_torch.scene.flatten import MT_OPACITY
+
+        has_opacity = bool(self.scene.mat_tex[:, MT_OPACITY].any())
+        self._alpha_rounds = ALPHA_ROUNDS if has_opacity else 0
 
     # -- configuration ------------------------------------------------------
     def set_integrator(self, integrator: Integrator):
@@ -134,7 +149,8 @@ class RayTraceRenderer:
                 width=self.width, height=self.height,
                 is_persp=self.camera.is_perspective,
                 direct_only=self.integrator is Integrator.DIRECT,
-                steps=n, coherent=self.coherent)
+                steps=n, alpha_rounds=self._alpha_rounds,
+                coherent=self.coherent)
             done += n
             if callback is not None:
                 if self.device.type == "cuda":

@@ -1,11 +1,13 @@
 """Scene "upload": ParsedScene -> :class:`DeviceScene` of torch tensors.
 
-torch port of :mod:`glaze_tpu.scene.flatten` for scenes WITHOUT opacity
-maps. The host stages are the JAX package's, on NumPy: instances are
-flattened to world-space triangles, per-triangle derivatives computed,
-the BVH built natively, materials / lights / textures packed, and the sky
-importance tables built as Walker/Vose alias tables. The result crosses
-to the device once, field by field (:func:`device_scene_from_numpy`).
+torch port of :mod:`glaze_tpu.scene.flatten`. The host stages are the JAX
+package's, on NumPy: instances are flattened to world-space triangles,
+per-triangle derivatives computed, the BVH built natively, materials /
+lights / textures packed, and the sky importance tables built as
+Walker/Vose alias tables. Scenes with opacity maps also get the exact
+opacity classification, the opaque/alpha subset trees and the baked 8x8
+cell masks (:func:`build_alpha_split`). The result crosses to the device
+once, field by field (:func:`device_scene_from_numpy`).
 
 Deviations from the reference renderer are the JAX package's, kept so
 both packages render the same image: AREA light pdfs use the true
@@ -22,10 +24,12 @@ import torch
 from glaze_tpu_torch.accel.bvh import (
     BVH,
     SENTINEL,
+    attach_tri_payload,
     build_bvh_np,
     bvh_from_np,
     check_tri_count,
     float_table_to,
+    pack_alpha_masks,
 )
 from glaze_tpu_torch.core import LightType, Texture
 from glaze_tpu_torch.core.distribution import Distribution2D
@@ -68,15 +72,23 @@ MT_METALNESS = 2
 MT_OPACITY = 3
 MT_NORMAL = 4
 
-OPACITY_NOT_PORTED = "opacity maps: port slice 2"
-
-# The field names of glaze_tpu.scene.flatten._SCENE_FIELDS. The opacity
-# tree split (bvh_opaque .. alpha_attr_full) and the hybrid tree (bvh_any)
-# are None in this slice.
+# The field names of glaze_tpu.scene.flatten._SCENE_FIELDS. The hybrid
+# tree (bvh_any) is not ported and stays None.
 _SCENE_FIELDS = (
     "bvh", "bvh_any",
-    "bvh_opaque", "bvh_opaque_map", "bvh_alpha", "bvh_alpha_map",
-    "alpha_attr", "alpha_attr_full", "alpha_boxes",
+    # the opaque/alpha split of scenes with opacity maps (the reference's
+    # per-BLAS OPAQUE flag as two trees), None without opacity maps; the
+    # *_map arrays take subset-tree slots to full-tree attribute rows
+    "bvh_opaque",  # BVH | None
+    "bvh_opaque_map",  # (No,) int32 | None
+    "bvh_alpha",  # BVH of the MIXED triangles | None
+    "bvh_alpha_map",  # (Na,) int32 | None
+    "alpha_attr",  # (Na, 10) int32 alpha-test rows per alpha-tree slot:
+    #                uv0/uv1/uv2 (f32 bits), atlas offset, width, height,
+    #                srgb flag | None
+    "alpha_attr_full",  # (N_bvh, 10) int32, the same rows in full-tree
+    #                     order (zero for triangles never texture-tested)
+    "alpha_boxes",  # (K, 6) f32 AABBs of the MIXED triangle clusters
     "tri_attr",  # (N, 34) f32 fused shading attributes, see ATTR_*
     "tri_material",  # (N,) int32
     "tri_pos_orig",  # (N0, 9) v0/v1/v2 in original (pre-BVH) order
@@ -112,6 +124,8 @@ _SCENE_FIELDS = (
 )
 
 _BVH_KEYS = ("nodes", "tri", "nodes16", "tri8", "n_nodes", "n_tris")
+# DeviceScene fields holding a BVH; they cross as "<name>.nodes" ...
+_TREE_FIELDS = ("bvh", "bvh_opaque", "bvh_alpha")
 
 
 class DeviceScene:
@@ -403,10 +417,300 @@ class HostSceneData(NamedTuple):
     tri_uv: object = None  # (N, 3, 2) f32 original-order uvs
 
 
-def check_no_opacity_maps(materials):
-    """Raises for scenes the first port slice does not render."""
-    if any(m.opacity != 0 for m in materials):
-        raise NotImplementedError(OPACITY_NOT_PORTED)
+def _opacity_integral(tex):
+    """(ii, h, w) opaque-texel integral image of an opacity texture. The
+    runtime test is sample_r(...) < 0.5 AFTER any sRGB decode: the decode
+    is monotonic, so the texel threshold is its inverse image, 128 raw for
+    Gray/Norm and 188 for sRGB."""
+    from glaze_tpu_torch.core.texture import TextureFormat
+
+    arr = tex.array(0)
+    if arr.ndim == 3:  # alpha-in-gray convention: sample_r reads .r
+        arr = arr[..., 0]
+    h, w = arr.shape
+    thr = 188 if tex.format() == TextureFormat.RgbaSrgb else 128
+    opaque_t = (arr >= thr)
+    # integral image with one row/col of zeros in front
+    ii = np.zeros((h + 1, w + 1), np.int64)
+    ii[1:, 1:] = opaque_t.cumsum(0).cumsum(1)
+    return ii, h, w
+
+
+def _classify_alpha_tris(tri_uv, tri_idx, tex):
+    """EXACT per-triangle opacity classification: a bilinear sample is a
+    convex combination of its 4 texels, so a triangle whose uv footprint
+    (+1 texel bilinear support) covers only opaque texels is opaque
+    everywhere, only transparent texels transparent everywhere; anything
+    else is MIXED and keeps the runtime alpha test. Returns int8 codes per
+    triangle: 0 = mixed, 1 = opaque, 2 = transparent."""
+    ii, h, w = _opacity_integral(tex)
+
+    def count(y0, y1, x0, x1):
+        """# opaque texels in rows [y0, y1) x cols [x0, x1), wrapped."""
+        total = 0
+        area = 0
+        for ya, yb in _wrap_ranges(y0, y1, h):
+            for xa, xb in _wrap_ranges(x0, x1, w):
+                total += (ii[yb, xb] - ii[ya, xb] - ii[yb, xa] + ii[ya, xa])
+                area += (yb - ya) * (xb - xa)
+        return total, area
+
+    codes = np.zeros(tri_idx.shape[0], np.int8)
+    uvs = tri_uv[tri_idx]  # (K, 3, 2)
+    # texel-space footprints (bilinear support: -0.5 offset, +1 margin)
+    xs = uvs[..., 0] * w - 0.5
+    ys = uvs[..., 1] * h - 0.5
+    x0 = np.floor(xs.min(1)).astype(np.int64)
+    x1 = np.floor(xs.max(1)).astype(np.int64) + 2
+    y0 = np.floor(ys.min(1)).astype(np.int64)
+    y1 = np.floor(ys.max(1)).astype(np.int64) + 2
+    wide = ((x1 - x0) >= w) | ((y1 - y0) >= h)
+    for k in range(tri_idx.shape[0]):
+        if wide[k]:
+            continue  # footprint wraps the whole texture: mixed
+        total, area = count(y0[k], y1[k], x0[k], x1[k])
+        if total == area:
+            codes[k] = 1
+        elif total == 0:
+            codes[k] = 2
+    return codes
+
+
+def _wrap_ranges(a, b, n):
+    """[a, b) modulo n as at most two in-bounds ranges (b - a < n)."""
+    a_m = a % n
+    span = b - a
+    if a_m + span <= n:
+        return [(a_m, a_m + span)]
+    return [(a_m, n), (0, a_m + span - n)]
+
+
+def _classify_alpha_cells(tri_uv, tri_idx, tex, grid=8):
+    """EXACT per-CELL opacity classification: each triangle's barycentric
+    domain is cut into a ``grid`` x ``grid`` lattice (cell (cu, cv) = u in
+    [cu/g, (cu+1)/g] x v in [cv/g, (cv+1)/g], the traversal kernels' cell
+    assignment), and each cell is classified by the argument of
+    :func:`_classify_alpha_tris`: the uv map is affine in (u, v), so the
+    bbox of a cell's four mapped corners (+1 texel bilinear support)
+    bounds every bilinear sample the cell can produce. Returns (K,
+    grid*grid) int8 codes at cell index cv*grid + cu: 0 = mixed,
+    1 = opaque, 2 = transparent."""
+    ii, h, w = _opacity_integral(tex)
+    total_opaque = int(ii[h, w])
+    k = tri_idx.shape[0]
+    g = grid
+    if k == 0:
+        return np.zeros((0, g * g), np.int8)
+    uvs = tri_uv[tri_idx].astype(np.float64)  # (K, 3, 2)
+    # lattice of barycentric sample points e[a] = a/g: uv is affine, so
+    # cell corners are lattice neighbours
+    e = np.arange(g + 1, dtype=np.float64) / g
+    bu = e[:, None]  # (G+1, 1) broadcast over v index
+    bv = e[None, :]
+    # (K, G+1, G+1) mapped lattice, texel space with bilinear support
+    uv0 = uvs[:, 0][:, None, None]
+    uv1 = uvs[:, 1][:, None, None]
+    uv2 = uvs[:, 2][:, None, None]
+    wgt = (1.0 - bu - bv)[None, :, :, None]
+    latt = (uv0 * wgt + uv1 * bu[None, :, :, None]
+            + uv2 * bv[None, :, :, None])  # (K, G+1, G+1, 2)
+    xs = latt[..., 0] * w - 0.5
+    ys = latt[..., 1] * h - 0.5
+
+    def cellwise(a, op):
+        return op(op(a[:, :-1, :-1], a[:, 1:, :-1]),
+                  op(a[:, :-1, 1:], a[:, 1:, 1:]))
+
+    x0 = np.floor(cellwise(xs, np.minimum)).astype(np.int64)
+    x1 = np.floor(cellwise(xs, np.maximum)).astype(np.int64) + 2
+    y0 = np.floor(cellwise(ys, np.minimum)).astype(np.int64)
+    y1 = np.floor(cellwise(ys, np.maximum)).astype(np.int64) + 2
+    wide = ((x1 - x0) >= w) | ((y1 - y0) >= h)
+    # periodic 2D prefix count F(y, x) = #opaque in [0,y) x [0,x) of the
+    # tiled texture; inclusion-exclusion needs no wrap branching. Shift to
+    # nonnegative first (differences are origin-invariant).
+    xshift = (max(0, -int(x0.min())) // w + 1) * w
+    yshift = (max(0, -int(y0.min())) // h + 1) * h
+    x0 += xshift
+    x1 += xshift
+    y0 += yshift
+    y1 += yshift
+
+    def pref(y, x):
+        qy, ry = np.divmod(y, h)
+        qx, rx = np.divmod(x, w)
+        return (qy * (qx * total_opaque + ii[h, rx])
+                + qx * ii[ry, w] + ii[ry, rx])
+
+    tot = pref(y1, x1) - pref(y0, x1) - pref(y1, x0) + pref(y0, x0)
+    area = (y1 - y0) * (x1 - x0)
+    codes = np.zeros((k, g, g), np.int8)
+    codes[(tot == area) & ~wide] = 1
+    codes[(tot == 0) & ~wide] = 2
+    # codes[k, cu, cv] -> cell index cv*g + cu (the kernels' layout)
+    return codes.transpose(0, 2, 1).reshape(k, g * g)
+
+
+def _subset_tree(tri_pos, sel, inv_full):
+    """Tree over the ORIGINAL-order triangles ``sel``: (host BVH fields,
+    int32 slot -> full-tree row map, slot -> original id), or Nones."""
+    if sel.size == 0:
+        return None, None, None
+    check_tri_count(sel.size)
+    fields, order_s = build_bvh_np(np.ascontiguousarray(tri_pos[sel]))
+    sent = order_s == SENTINEL
+    local = np.where(sent, 0, order_s).astype(np.int64)
+    m = inv_full[sel[local]].astype(np.int32)
+    m = np.where(sent, 0, m)  # sentinel slots: degenerate, never hit
+    return fields, m, sel[local]
+
+
+def _alpha_boxes(tri_pos, sel_a):
+    """AABBs of <= 64 clusters of the MIXED set (spatial median splits of
+    the largest cluster), for the elementwise candidate prefilter."""
+    cent = tri_pos[sel_a].mean(axis=1)
+    groups = [sel_a]
+    while len(groups) < 64:
+        sizes = []
+        for g in groups:
+            ext = (tri_pos[g].reshape(-1, 3).max(0)
+                   - tri_pos[g].reshape(-1, 3).min(0))
+            sizes.append(float(ext.max()) if g.size else 0.0)
+        i = int(np.argmax(sizes))
+        g = groups[i]
+        if g.size < 32 or sizes[i] <= 0.0:
+            break
+        c = cent[np.searchsorted(sel_a, g)]
+        axis = int(np.argmax(c.max(0) - c.min(0)))
+        med = np.median(c[:, axis])
+        left = g[c[:, axis] <= med]
+        right = g[c[:, axis] > med]
+        if left.size == 0 or right.size == 0:
+            break
+        groups[i] = left
+        groups.append(right)
+    return np.asarray([
+        np.concatenate([tri_pos[g].reshape(-1, 3).min(0),
+                        tri_pos[g].reshape(-1, 3).max(0)])
+        for g in groups if g.size], np.float32)
+
+
+def build_alpha_split(tri_pos, tri_mat, mat_tex, full_order, sentinel_rows,
+                      tri_uv, textures, atlas):
+    """Opaque/alpha tree split (acceleration.rs:137-141 OPAQUE-flag
+    parity), on the host. Returns a dict of the DeviceScene fields
+    ``bvh_opaque``/``bvh_alpha`` (host BVH field dicts), their maps,
+    ``alpha_attr``, ``alpha_attr_full``, ``alpha_boxes`` (NumPy or None),
+    plus ``_full_payload``: the (N_pad, 4) int32 cell masks of the full
+    tree, or None.
+
+    ``tri_pos``: (N, 3, 3) ORIGINAL-order world triangles; ``tri_mat``:
+    (N,) material ids; ``mat_tex``: (M, 5) texture table;
+    ``full_order``/``sentinel_rows``: the full tree's leaf permutation;
+    ``tri_uv``: (N, 3, 2) uvs; ``textures``: the parsed textures;
+    ``atlas``: :func:`build_atlas_np`'s dict (the fused alpha-test rows).
+    Opacity-mapped triangles are CLASSIFIED exactly: provably opaque ones
+    join the opaque tree, provably transparent ones are dropped, and only
+    the MIXED boundary triangles form the alpha tree; every triangle of
+    the full tree then gets baked 8x8 cell masks (all-OPAQUE,
+    all-TRANSPARENT, or real masks for the MIXED set). The masks are
+    always baked: the JAX package's ``GLAZE_ALPHA_MASK=0`` switch is not
+    read (a scene flattened that way still carries over through
+    :func:`device_scene_from_numpy`)."""
+    none = {"bvh_opaque": None, "bvh_opaque_map": None,
+            "bvh_alpha": None, "bvh_alpha_map": None,
+            "alpha_boxes": None, "alpha_attr": None,
+            "alpha_attr_full": None, "_full_payload": None}
+    n = tri_pos.shape[0]
+    if n == 0:
+        return none
+    tri_mat = np.asarray(tri_mat, np.int64)
+    opac_tex = np.asarray(mat_tex)[:, MT_OPACITY]
+    has_alpha = (opac_tex != 0)[tri_mat]
+    if not has_alpha.any():
+        return none
+
+    dropped = np.zeros(n, bool)
+    for t in np.unique(opac_tex[opac_tex != 0]):
+        sel = np.nonzero(has_alpha & (opac_tex[tri_mat] == t))[0]
+        if sel.size == 0 or int(t) >= len(textures):
+            continue
+        codes = _classify_alpha_tris(tri_uv, sel, textures[int(t)])
+        has_alpha[sel[codes == 1]] = False  # provably opaque
+        dropped[sel[codes == 2]] = True     # provably transparent
+    has_alpha = has_alpha & ~dropped
+    if not has_alpha.any() and not dropped.any():
+        return none
+
+    # full-tree row of each ORIGINAL tri id
+    inv_full = np.zeros(n, np.int64)
+    rows = np.nonzero(~sentinel_rows)[0]
+    inv_full[full_order[~sentinel_rows]] = rows
+
+    sel_a = np.nonzero(has_alpha)[0]
+    sel_o = np.nonzero(~(has_alpha | dropped))[0]
+    t_a, m_a, orig_a = _subset_tree(tri_pos, sel_a, inv_full)
+    t_o, m_o, _ = _subset_tree(tri_pos, sel_o, inv_full)
+
+    # FULL-TREE payload for the single-walk closest leg: all-OPAQUE cells
+    # for opaque / no-alpha triangles (never skipped, never texture-tested),
+    # all-TRANSPARENT for provably transparent ones (skipped mid-walk), real
+    # 8x8 masks for the MIXED boundary set
+    codes_by_orig = np.zeros((max(sel_a.size, 1), 64), np.int8)
+    lut = np.zeros(n, np.int64)  # orig id -> row in codes_by_orig
+    lut[sel_a] = np.arange(sel_a.size)
+    groups_t = (np.unique(opac_tex[tri_mat[sel_a]]) if sel_a.size else [])
+    for t in groups_t:
+        if int(t) == 0 or int(t) >= len(textures):
+            continue
+        sel = sel_a[opac_tex[tri_mat[sel_a]] == t]
+        codes_by_orig[lut[sel]] = _classify_alpha_cells(
+            tri_uv, sel, textures[int(t)])
+    np_pay = np.empty((full_order.shape[0], 4), np.uint32)
+    np_pay[:] = np.uint32(0x55555555)  # code 1 (OPAQUE) in all cells
+    if sel_a.size:
+        np_pay[inv_full[sel_a]] = pack_alpha_masks(
+            codes_by_orig[lut[sel_a]]).view(np.uint32)
+    if dropped.any():
+        np_pay[inv_full[np.nonzero(dropped)[0]]] = np.uint32(0xAAAAAAAA)
+    full_payload = np_pay.view(np.int32)
+
+    def attr_rows(origs):
+        """(K, 10) int32 fused alpha-test rows (uv as f32 bits, the REAL
+        int32 atlas offset, width, height, srgb flag)."""
+        k = origs.shape[0]
+        a = np.zeros((k, 10), np.int32)
+        a[:, 0:6] = (tri_uv[origs].reshape(k, 6)
+                     .astype(np.float32).view(np.int32))
+        tex_ids = opac_tex[tri_mat[origs]].astype(np.int64)
+        a[:, 6] = np.asarray(atlas["offset"])[tex_ids].astype(np.int64)
+        a[:, 7] = np.asarray(atlas["width"])[tex_ids].astype(np.int64)
+        a[:, 8] = np.asarray(atlas["height"])[tex_ids].astype(np.int64)
+        a[:, 9] = np.asarray(atlas["srgb"])[tex_ids] > 0.5
+        return a
+
+    attr_full = None
+    if sel_a.size:
+        # only MIXED rows can ever be texture-tested; the rest stay zero
+        attr_full = np.zeros((full_order.shape[0], 10), np.int32)
+        attr_full[inv_full[sel_a]] = attr_rows(sel_a)
+
+    if t_a is None:
+        # classification emptied the re-test set (a fully opaque or fully
+        # transparent map)
+        return {"bvh_opaque": t_o, "bvh_opaque_map": m_o,
+                "bvh_alpha": None, "bvh_alpha_map": None,
+                "alpha_boxes": None, "alpha_attr": None,
+                "alpha_attr_full": attr_full, "_full_payload": full_payload}
+
+    # alpha TREE payload: the same per-orig cell masks in slot order
+    # (leaf-padding slots take orig_a[0]'s mask; their rows are never hit)
+    t_a = attach_tri_payload(t_a, pack_alpha_masks(codes_by_orig[lut[orig_a]]))
+    return {"bvh_opaque": t_o, "bvh_opaque_map": m_o,
+            "bvh_alpha": t_a, "bvh_alpha_map": m_a,
+            "alpha_boxes": _alpha_boxes(tri_pos, sel_a),
+            "alpha_attr": attr_rows(orig_a),
+            "alpha_attr_full": attr_full, "_full_payload": full_payload}
 
 
 def flatten_scene_np(parsed):
@@ -416,7 +720,6 @@ def flatten_scene_np(parsed):
     ``bvh.nodes`` ... ``bvh.n_tris``, the atlas as ``atlas.texels`` ...),
     the layout :func:`device_scene_from_numpy` reads."""
     materials = parsed.materials()
-    check_no_opacity_maps(materials)
     vertices_np = getattr(parsed, "vertices_np", None)
     meshes = parsed.meshes()
     transforms = parsed.transforms()
@@ -490,6 +793,14 @@ def flatten_scene_np(parsed):
 
     mats = flatten_materials(materials)
     atlas = build_atlas_np(textures)
+    split = build_alpha_split(tri_pos, tri_mat, mats["mat_tex"], order,
+                              sentinel_rows, tri_uv=tri_uv,
+                              textures=textures, atlas=atlas)
+    # bake the full-tree opacity masks into the main tree, so the single
+    # closest walk tests alpha inline (the reference's one TLAS + rahit)
+    full_payload = split.pop("_full_payload")
+    if full_payload is not None:
+        bvh_fields = attach_tri_payload(bvh_fields, full_payload)
     lts = flatten_lights(lights, inst_mat, inst_first, inst_count)
     sky = build_sky_tables(lights, textures)
     camera = cameras[0] if cameras else None
@@ -524,6 +835,11 @@ def flatten_scene_np(parsed):
     attr[:, ATTR_MAT] = tri_mat_bvh.astype(np.float32)
 
     fields = {f"bvh.{k}": v for k, v in bvh_fields.items()}
+    for name in ("bvh_opaque", "bvh_alpha"):
+        tree = split.pop(name)
+        if tree is not None:
+            fields.update({f"{name}.{k}": v for k, v in tree.items()})
+    fields.update({k: v for k, v in split.items() if v is not None})
     fields.update({f"atlas.{k}": v for k, v in atlas.items()})
     fields.update(
         tri_attr=attr,
@@ -564,34 +880,42 @@ def _array_to(a, device) -> torch.Tensor:
 def device_scene_from_numpy(fields: dict, device) -> DeviceScene:
     """Builds the port's :class:`DeviceScene` from NumPy arrays, one field
     at a time: either :func:`flatten_scene_np`'s output or the JAX
-    package's flattened scene pulled to NumPy under the same names (the
-    BVH as ``bvh.nodes`` ... ``bvh.n_tris``, the atlas as
-    ``atlas.texels`` ...). Fields absent from ``fields`` are None."""
+    package's flattened scene pulled to NumPy under the same names (each
+    tree as ``<name>.nodes`` ... ``<name>.n_tris`` for ``bvh``,
+    ``bvh_opaque`` and ``bvh_alpha``, the atlas as ``atlas.texels`` ...).
+    Fields absent from ``fields`` are None."""
     device = torch.device(device)
-    bvh = bvh_from_np({k: fields[f"bvh.{k}"] for k in _BVH_KEYS}, device)
     atlas = atlas_from_np({k: fields[f"atlas.{k}"] for k in TextureAtlas._fields},
                           device)
     plain = {}
+    for name in _TREE_FIELDS:
+        if f"{name}.nodes" in fields:
+            plain[name] = bvh_from_np(
+                {k: fields[f"{name}.{k}"] for k in _BVH_KEYS}, device)
     for name in _SCENE_FIELDS:
-        if name in ("bvh", "atlas"):
+        if name in _TREE_FIELDS or name == "atlas":
             continue
         if fields.get(name) is not None:
             plain[name] = _array_to(fields[name], device)
-    return DeviceScene(bvh=bvh, atlas=atlas, **plain)
+    return DeviceScene(atlas=atlas, **plain)
 
 
 def device_scene_to_numpy(scene: DeviceScene) -> dict:
     """Inverse of :func:`device_scene_from_numpy` (texels as uint32)."""
     out = {}
-    for k in _BVH_KEYS:
-        v = getattr(scene.bvh, k)
-        out[f"bvh.{k}"] = v if isinstance(v, int) else v.cpu().numpy()
+    for name in _TREE_FIELDS:
+        tree = getattr(scene, name)
+        if tree is None:
+            continue
+        for k in _BVH_KEYS:
+            v = getattr(tree, k)
+            out[f"{name}.{k}"] = v if isinstance(v, int) else v.cpu().numpy()
     for k in TextureAtlas._fields:
         out[f"atlas.{k}"] = getattr(scene.atlas, k).cpu().numpy()
     out["atlas.texels"] = out["atlas.texels"].view(np.uint32)
     for name in _SCENE_FIELDS:
         v = getattr(scene, name)
-        if name in ("bvh", "atlas") or v is None:
+        if name in _TREE_FIELDS or name == "atlas" or v is None:
             continue
         out[name] = v.cpu().numpy()
     return out

@@ -63,8 +63,8 @@ def test_cli_writes_png(tmp_path):
 
 
 def test_unported_sampling_options_raise():
-    """ld, adaptive lane masks, sif > 1 and opacity rounds are not ported:
-    the integrator refuses them instead of ignoring them."""
+    """ld, adaptive lane masks and sif > 1 are not ported: the integrator
+    refuses them instead of ignoring them."""
     import glaze_tpu_torch.scenes as ps
     from glaze_tpu_torch.render import integrator as ti
     from glaze_tpu_torch.scene import flatten_scene
@@ -79,8 +79,6 @@ def test_unported_sampling_options_raise():
     with pytest.raises(NotImplementedError, match="adaptive"):
         ti.launch_step(*args, is_persp=True,
                        lane_active=torch.ones(px.shape, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="opacity maps"):
-        ti.launch_step(*args, is_persp=True, alpha_rounds=1)
     with pytest.raises(NotImplementedError, match="in flight"):
         ti.init_state(32, 16, "cpu", sif=2)
     with pytest.raises(NotImplementedError, match="in flight"):

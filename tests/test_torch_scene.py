@@ -161,17 +161,34 @@ def test_device_scene_roundtrips_every_field():
             assert getattr(scene, name) is None, name
 
 
-def test_opacity_maps_raise():
-    from glaze_tpu_torch.scene.flatten import flatten_scene
+def test_opacity_maps_raise(tmp_path):
+    """Opacity maps no longer raise: a scene whose material carries one
+    flattens to glaze_tpu's tables bit for bit, the opaque/alpha subset
+    trees, the baked cell masks and the alpha-test rows included."""
+    from glaze_tpu.parser import Serializer as JSerializer
+    from glaze_tpu.scene.flatten import flatten_scene as j_flatten
+    from glaze_tpu_torch.parser import parse as tparse
+    from glaze_tpu_torch.scene.flatten import flatten_scene, flatten_scene_np
 
-    class Cutout(ps.MatRowScene):
-        def materials(self):
-            mats = super().materials()
-            mats[-2].opacity = 1
-            return mats
+    def cutout(base):
+        class Cutout(base):
+            def materials(self):
+                mats = super().materials()
+                mats[-2].opacity = 1  # texture 1: the golden's checker
+                return mats
+        return Cutout()
 
-    with pytest.raises(NotImplementedError, match="opacity maps: port slice 2"):
-        flatten_scene(Cutout(), "cpu")
+    src = cutout(gs.MatRowScene)
+    path = tmp_path / "cutout.glaze"
+    _write(JSerializer, src, path)
+    jf = jax_scene_to_numpy(j_flatten(src)[0])
+    tf, _, _ = flatten_scene_np(tparse(str(path)))
+    assert sorted(jf) == sorted(tf)
+    assert any(k.startswith("bvh_alpha.") for k in tf)
+    for key in sorted(jf):
+        assert np.asarray(jf[key]).tobytes() == np.asarray(tf[key]).tobytes(), key
+    scene, _, _ = flatten_scene(cutout(ps.MatRowScene), "cpu")
+    assert scene.bvh.tri.shape[1] == 13 and scene.alpha_attr_full is not None
 
 
 def test_chunk_limit_raises():

@@ -6,7 +6,8 @@ are held against both JAX forms on identical tables: the XLA walker
 Triangle ids must match exactly except where two triangles tie exactly
 on t (the walk order decides those; counted, see ROADMAP F3); t/u/v
 agree within 1e-6 and any-hit flags exactly. The kernels themselves run
-only on a card: test_kernels_match_plain_on_cuda, and chip_smoke.py.
+only on a card: test_kernels_match_plain_on_cuda, and chip_smoke.py. The
+masked walkers are held against glaze_tpu in tests/test_torch_alpha.py.
 """
 
 import numpy as np
@@ -194,10 +195,51 @@ def test_walk_stats_count_work(scenes):
     assert 0 < stats.tri_tests <= stats.node_visits * B.LEAF_SIZE
 
 
+def _random_payload_tree(ts, device):
+    """The golden tree with random cell codes (0/1/2) in its payload."""
+    from glaze_tpu_torch.accel import bvh as B
+
+    rng = np.random.default_rng(34)
+    fields = {k: getattr(ts.bvh, k) for k in ("nodes", "tri", "nodes16",
+                                               "tri8", "n_nodes", "n_tris")}
+    fields = {k: v if isinstance(v, int) else v.numpy() for k, v in fields.items()}
+    codes = rng.integers(0, 3, (fields["tri"].shape[0], 64)).astype(np.int8)
+    return B.bvh_from_np(B.attach_tri_payload(
+        fields, B.pack_alpha_masks(codes)), device)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_walk_reads_own_octant(scenes, masked):
+    """The plain walkers walk each ray's own octant slab of nodes16 (the
+    kernels' order), and count the distinct node rows, triangles and
+    payload words they read."""
+    from glaze_tpu_torch.accel import bvh as B
+
+    _, ts, cam = scenes
+    bvh = _random_payload_tree(ts, "cpu") if masked else ts.bvh
+    closest = B.closest_hit_masked if masked else B.closest_hit
+    anyhit = B.any_hit_masked if masked else B.any_hit
+    o, d, tmax, active = _shadow_inputs(cam)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    tm, act = torch.from_numpy(tmax), torch.from_numpy(active)
+    slab = (bvh.nodes16.shape[0] // 8) * 16
+    for walk in (lambda st: closest(bvh, o, d, tm, stats=st),
+                 lambda st: anyhit(bvh, o, d, tm, active=act, stats=st)):
+        st = B.WalkStats()
+        walk(st)
+        assert 0 < st.distinct("nodes") <= st.node_visits
+        assert 0 < st.distinct("tris") <= st.tri_tests
+        assert (0 < st.distinct("mask_words") <= st.mask_tests) == masked
+        # rays of all 8 direction octants, each read in its own slab
+        seen = torch.nonzero(st._seen["nodes"]).flatten() // slab
+        assert torch.unique(seen).numel() == 8
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_cuda(scenes):
-    """Needs a CUDA card (skips here): both kernels against their plain
-    versions on the same CUDA tensors."""
+    """Needs a CUDA card (skips here): the four kernels (closest hit and
+    any hit, unmasked and masked) against their plain versions on the same
+    CUDA tensors."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from glaze_tpu_torch.accel import bvh as B
@@ -218,3 +260,16 @@ def test_kernels_match_plain_on_cuda(scenes):
     tm, act = torch.from_numpy(tmax).cuda(), torch.from_numpy(active).cuda()
     assert torch.equal(tc.any_hit_soa(bvh, o3, d3, tm, active=act),
                        B.any_hit(bvh, o_t, d_t, tm, active=act))
+
+    # the masked pair (K2, K4) on the same tree with random cell codes
+    mbvh = _random_payload_tree(ts, "cuda")
+    k = tc.closest_hit_soa_masked(mbvh, o3, d3, tm)
+    p = B.closest_hit_masked(mbvh, o_t, d_t, tm)
+    same = k["tri"] == p["tri"]
+    assert bool((same | (k["t"] == p["t"])).all())
+    for key in ("t", "u", "v", "mixed"):
+        assert torch.equal(k[key][same], p[key][same])
+    kb, kp = tc.any_hit_soa_masked(mbvh, o3, d3, tm, active=act)
+    pb, pp = B.any_hit_masked(mbvh, o_t, d_t, tm, active=act)
+    assert torch.equal(kb, pb) and torch.equal(kp, pp)
+    assert bool(kp.any()) and bool(kb.any())

@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 
 _BVH_KEYS = ("nodes", "tri", "nodes16", "tri8", "n_nodes", "n_tris")
+# the scene fields that hold a (single, unchunked) BVH
+_TREE_FIELDS = ("bvh", "bvh_opaque", "bvh_alpha")
 
 
 def jax_scene_to_numpy(scene) -> dict:
@@ -14,14 +16,18 @@ def jax_scene_to_numpy(scene) -> dict:
     from glaze_tpu.scene.flatten import _SCENE_FIELDS
 
     out = {}
-    for k in _BVH_KEYS:
-        v = getattr(scene.bvh, k)
-        out[f"bvh.{k}"] = v if isinstance(v, int) else np.asarray(v)
+    for name in _TREE_FIELDS:
+        tree = getattr(scene, name)
+        if tree is None:
+            continue
+        for k in _BVH_KEYS:
+            v = getattr(tree, k)
+            out[f"{name}.{k}"] = v if isinstance(v, int) else np.asarray(v)
     for k in scene.atlas._fields:
         out[f"atlas.{k}"] = np.asarray(getattr(scene.atlas, k))
     for name in _SCENE_FIELDS:
         v = getattr(scene, name)
-        if name in ("bvh", "atlas") or v is None:
+        if name in _TREE_FIELDS or name == "atlas" or v is None:
             continue
         out[name] = np.asarray(v)
     return out
