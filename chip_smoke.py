@@ -7,11 +7,14 @@ Run from the repository root, with no arguments:
 It builds the CUDA kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the rays of a real 1920x1080 launch:
 the closest-hit and any-hit walks (K1, K3) on the Sponza-class scene
-(262k triangles) with its curtain's opacity map removed, and the masked
+(262k triangles) with its curtain's opacity map removed, the masked
 walks (K2 on the full tree and on the alpha subset tree, K4) on the whole
-scene, lace curtains included. It renders both scenes through the port's
-CLI at 1920x1080, 2 spp, checks that exactly the expected kernels served
-each render, and renders the golden scene against the stored golden. Any
+scene, lace curtains included, and the fat-leaf walks (K7c, K7a) on the
+opaque scene uploaded with GLAZE_TREE=fat. It renders the scenes through
+the port's CLI at 1920x1080, 2 spp (full and opaque on the classic tree,
+then opaque with GLAZE_TREE=fat and =hybrid, and full with
+GLAZE_TREE=fat), checks that exactly the expected kernels served each
+render, and renders the golden scene against the stored golden. Any
 failed phase raises, so the script exits non-zero and prints no result.
 Without CUDA (or without the package beside it) it exits non-zero too.
 
@@ -25,6 +28,7 @@ times and bound.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -50,31 +54,74 @@ T_MIN = 1e-4  # no hit lies at t <= T_MIN (glaze_tpu_torch.accel.bvh)
 # cross, 3 mul + 2 add det, 1 div, 3 sub, 3x(3 mul + 2 add + 1 mul) for
 # u/v/t, 6 mul + 3 sub second cross, 6 compares); a cell lookup of an
 # accepted hit in the masked walks (2 mul, 2 casts, 2 min, 1 mul-add for
-# the cell, 1 shift and 1 compare for the word, 1 shift, 1 and, 1 compare)
+# the cell, 1 shift and 1 compare for the word, 1 shift, 1 and, 1 compare);
+# a fat-leaf column in K7c/K7a (csrc/traverse.cu fat_column: 19 mul + 15
+# add for det, u*det, v*det, t*det; 1 abs + 1 compare, 1 div, 1 mul for t;
+# 5 mul + 1 add for ud*det, vd*det, (ud+vd)*det, det*det; 5 compares)
 OPS_PER_NODE = 25
 OPS_PER_TRI = 56
 OPS_PER_MASK = 12
+OPS_PER_COLUMN = 48
 # bytes of one distinct table row a walk needs: a node (bmin, bmax, meta,
-# skip), a triangle's v0/e1/e2, one payload word of a cell lookup
+# skip), a triangle's v0/e1/e2, one payload word of a cell lookup, the 19
+# coefficients of a fat-leaf column
 BYTES_PER_NODE = 32
 BYTES_PER_TRI = 36
 BYTES_PER_MASK_WORD = 4
+BYTES_PER_COEF_ROW = 76
 # traversal kernel launches of one 2-spp render (6 launches per sample):
 # opaque scene: one closest hit and one any hit per launch. Full scene
 # (alpha_rounds = 1, MIXED triangles present): per launch the closest
 # trace runs K2 twice (_full_masked_closest: the walk and one re-test
 # round) and the NEE occlusion runs K4 once plus K2 twice on the alpha tree
-# (_alpha_walk_refined: the walk and one re-test round)
+# (_alpha_walk_refined: the walk and one re-test round). GLAZE_TREE=fat:
+# the opaque scene's closest hit and shadow ray take K7c and K7a; hybrid
+# takes K7c and K3 on bvh_any (_any_hit_sorted). The full scene under
+# GLAZE_TREE=fat never walks its fat tree: a fat tree carries no cell
+# masks, so _full_tree_masked is False and both traces take the
+# opaque/alpha split. Per launch: the closest trace (_split_closest) runs K1
+# on the opaque tree and K2 twice on the alpha tree (_alpha_walk_refined),
+# and the occlusion (_occlusion_sorted's candidate path) K3 on the opaque
+# tree and K2 twice on the alpha tree.
 LAUNCHES = SPP * 6
-EXPECTED_OPAQUE = {"closest_hit": LAUNCHES, "any_hit": LAUNCHES,
-                   "closest_hit_masked": 0, "any_hit_masked": 0}
-EXPECTED_FULL = {"closest_hit": 0, "any_hit": 0,
-                 "closest_hit_masked": 4 * LAUNCHES,
-                 "any_hit_masked": LAUNCHES}
+KERNELS = ("closest_hit", "any_hit", "closest_hit_masked", "any_hit_masked",
+           "closest_hit_fat", "any_hit_fat")
+
+
+def _expected(**counts):
+    return {k: counts.get(k, 0) for k in KERNELS}
+
+
+EXPECTED_OPAQUE = _expected(closest_hit=LAUNCHES, any_hit=LAUNCHES)
+EXPECTED_FULL = _expected(closest_hit_masked=4 * LAUNCHES,
+                          any_hit_masked=LAUNCHES)
+EXPECTED_FAT = _expected(closest_hit_fat=LAUNCHES, any_hit_fat=LAUNCHES)
+EXPECTED_HYBRID = _expected(closest_hit_fat=LAUNCHES, any_hit=LAUNCHES)
+EXPECTED_FAT_FULL = _expected(closest_hit=LAUNCHES, any_hit=LAUNCHES,
+                              closest_hit_masked=4 * LAUNCHES)
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def _set_tree(mode):
+    if mode is None:
+        os.environ.pop("GLAZE_TREE", None)
+    else:
+        os.environ["GLAZE_TREE"] = mode
+
+
+@contextlib.contextmanager
+def tree_env(mode):
+    """GLAZE_TREE set to ``mode`` (None: unset) inside the block, restored
+    after: the tree is chosen when a scene is uploaded."""
+    saved = os.environ.get("GLAZE_TREE")
+    _set_tree(mode)
+    try:
+        yield
+    finally:
+        _set_tree(saved)
 
 
 def card_line() -> str:
@@ -217,11 +264,12 @@ class Capture:
 
 def _table_bytes(stats):
     """The table bytes this run's rays need: each distinct node row,
-    triangle and payload word that the walk in the kernel's own order read
-    (bvh.WalkStats), once."""
+    triangle, payload word and fat-leaf coefficient row that the walk in
+    the kernel's own order read (bvh.WalkStats), once."""
     return (stats.distinct("nodes") * BYTES_PER_NODE
             + stats.distinct("tris") * BYTES_PER_TRI
-            + stats.distinct("mask_words") * BYTES_PER_MASK_WORD)
+            + stats.distinct("mask_words") * BYTES_PER_MASK_WORD
+            + stats.distinct("coef") * BYTES_PER_COEF_ROW)
 
 
 def _bytes_closest(stats, r, cap, masked):
@@ -247,26 +295,41 @@ def _bytes_anyhit(stats, r, cap, active, t_min, masked):
 
 def _bound(nbytes, stats):
     """Least time for the work: the larger of bytes over the HBM rate and
-    the walk's float operations (node visits, triangle tests and cell
-    lookups in the kernel's order) over the f32 peak."""
+    the walk's float operations (node visits, triangle tests, cell lookups
+    and fat-leaf columns in the kernel's order) over the f32 peak."""
     ops = (stats.node_visits * OPS_PER_NODE + stats.tri_tests * OPS_PER_TRI
-           + stats.mask_tests * OPS_PER_MASK)
+           + stats.mask_tests * OPS_PER_MASK
+           + stats.col_tests * OPS_PER_COLUMN)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_F32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _check_closest(entry, label, bvh, s, masked):
-    """One closest-hit kernel (K1, or K2 when ``masked``) against its plain
-    walker, walking the kernel's own octant order, on the captured rays
-    ``s``: tri (and mixed) exact except where two triangles tie exactly on
-    t (counted), t/u/v within 1 ulp. Adds the set's numbers to
-    ``entry``."""
+def _walks(name):
+    """(kernel wrapper, plain walker) of the kernel ``name``."""
     from glaze_tpu_torch.accel import bvh as B
+    from glaze_tpu_torch.accel import fat
     from glaze_tpu_torch.accel import traverse_cuda as tc
 
-    kern_fn = tc.closest_hit_soa_masked if masked else tc.closest_hit_soa
-    plain_fn = B.closest_hit_masked if masked else B.closest_hit
+    return {"closest_hit": (tc.closest_hit_soa, B.closest_hit),
+            "closest_hit_masked": (tc.closest_hit_soa_masked,
+                                   B.closest_hit_masked),
+            "closest_hit_fat": (tc.closest_hit_fat_soa, fat.closest_hit_fat),
+            "any_hit": (tc.any_hit_soa, B.any_hit),
+            "any_hit_masked": (tc.any_hit_soa_masked, B.any_hit_masked),
+            "any_hit_fat": (tc.any_hit_fat_soa, fat.any_hit_fat)}[name]
+
+
+def _check_closest(entry, label, bvh, s):
+    """One closest-hit kernel (K1, K2 or K7c, by ``entry``'s name) against
+    its plain walker, walking the kernel's own octant order, on the
+    captured rays ``s``: tri (and mixed) exact except where two triangles
+    tie exactly on t (counted), t/u/v within 1 ulp. Adds the set's numbers
+    to ``entry``."""
+    from glaze_tpu_torch.accel import bvh as B
+
+    kern_fn, plain_fn = _walks(entry["name"])
+    masked = entry["name"] == "closest_hit_masked"
     o3, d3, cap_ = s["o3"], s["d3"], s["t_max"]
     kern = kern_fn(bvh, o3, d3, cap_)
     stats = B.WalkStats()
@@ -314,15 +377,14 @@ def _check_closest(entry, label, bvh, s, masked):
         **_work(stats))
 
 
-def _check_anyhit(entry, label, bvh, s, masked):
-    """One any-hit kernel (K3, or K4 when ``masked``) against its plain
-    walker, walking the kernel's own octant order, on the captured rays
-    ``s``: every flag exact."""
+def _check_anyhit(entry, label, bvh, s):
+    """One any-hit kernel (K3, K4 or K7a, by ``entry``'s name) against its
+    plain walker, walking the kernel's own octant order, on the captured
+    rays ``s``: every flag exact."""
     from glaze_tpu_torch.accel import bvh as B
-    from glaze_tpu_torch.accel import traverse_cuda as tc
 
-    kern_fn = tc.any_hit_soa_masked if masked else tc.any_hit_soa
-    plain_fn = B.any_hit_masked if masked else B.any_hit
+    kern_fn, plain_fn = _walks(entry["name"])
+    masked = entry["name"] == "any_hit_masked"
     o3, d3, tm, act, t_min = s["o3"], s["d3"], s["t_max"], s["active"], s["t_min"]
     kern = kern_fn(bvh, o3, d3, tm, t_min=t_min, active=act)
     stats = B.WalkStats()
@@ -360,16 +422,17 @@ def _work(stats):
     """A set's work counters: visits and tests with repeats, distinct rows
     read."""
     return dict(node_visits=stats.node_visits, tri_tests=stats.tri_tests,
-                mask_tests=stats.mask_tests,
+                mask_tests=stats.mask_tests, col_tests=stats.col_tests,
                 distinct_nodes=stats.distinct("nodes"),
                 distinct_tris=stats.distinct("tris"),
-                distinct_mask_words=stats.distinct("mask_words"))
+                distinct_mask_words=stats.distinct("mask_words"),
+                distinct_coef_rows=stats.distinct("coef"))
 
 
 def _kernel_entry(name, replaces):
     return dict(name=name, route="cuda",
                 source="glaze_tpu_torch/csrc/traverse.cu", replaces=replaces,
-                library_ms=None, sets={})
+                library_ms=None, launches=0, launches_by_path={}, sets={})
 
 
 def _summarize(entry, headline):
@@ -411,12 +474,12 @@ def phase_kernels(path):
     log(f"[kernels] captured {closest[0]['o3'][0].shape[0]} lanes per launch")
     k1 = _kernel_entry("closest_hit", "glaze_tpu/accel/traverse_pallas.py:579")
     for label, s in (("camera", closest[0]), ("bounce", closest[1])):
-        _check_closest(k1, label, bvh, s, masked=False)
+        _check_closest(k1, label, bvh, s)
     _summarize(k1, ("camera", "bounce"))
     k3 = _kernel_entry("any_hit", "glaze_tpu/accel/traverse_pallas.py:817")
     for label, s in (("shadow_camera_hits", anyhit[0]),
                      ("shadow_bounce_hits", anyhit[1])):
-        _check_anyhit(k3, label, bvh, s, masked=False)
+        _check_anyhit(k3, label, bvh, s)
     _summarize(k3, ("shadow_camera_hits", "shadow_bounce_hits"))
     del r, cap
     torch.cuda.empty_cache()
@@ -461,37 +524,69 @@ def phase_masked_kernels(path):
     for label, tree, s in (("camera", scene.bvh, full[0]),
                            ("bounce", scene.bvh, full[1]),
                            *((lab, scene.bvh_alpha, c) for lab, c in alpha_sets)):
-        _check_closest(k2, label, tree, s, masked=True)
+        _check_closest(k2, label, tree, s)
     _summarize(k2, ("camera", "bounce"))
     k4 = _kernel_entry("any_hit_masked",
                        "glaze_tpu/accel/traverse_pallas.py:1733")
     for label, s in (("shadow_camera_hits", anyhit[0]),
                      ("shadow_bounce_hits", anyhit[1])):
-        _check_anyhit(k4, label, scene.bvh, s, masked=True)
+        _check_anyhit(k4, label, scene.bvh, s)
     _summarize(k4, ("shadow_camera_hits", "shadow_bounce_hits"))
     del r, cap
     torch.cuda.empty_cache()
     return {"closest_hit_masked": k2, "any_hit_masked": k4}
 
 
-def phase_main_path(label, path, workdir, report, expected):
-    """The port's CLI on a scene at 1920x1080, 2 spp, on the card; every
-    kernel counter is set to 0 just before and read just after, and must
-    equal ``expected``."""
+def phase_fat_kernels(path):
+    """K7c/K7a against their plain versions on the rays of the first two
+    launches of a 1920x1080 render of the opaque scene uploaded with
+    GLAZE_TREE=fat."""
+    from glaze_tpu_torch.accel import FatBVH
+
+    with tree_env("fat"):
+        r, cap = _capture_sample(path)
+    bvh = r.scene.bvh
+    if not isinstance(bvh, FatBVH) or r.scene.bvh_any is not None:
+        raise RuntimeError("GLAZE_TREE=fat built no fat tree")
+    closest = cap.calls["closest_hit_soa_auto"]
+    anyhit = cap.calls["any_hit_soa_auto"]
+    log(f"[kernels:fat] fat tree: {bvh.n_nodes} nodes, leaves of "
+        f"{bvh.leaf_size}, {bvh.coef.shape[0]} slots; coefficient table "
+        f"{bvh.coef.numel() * 4 / 1e6:.1f} MB, slabs "
+        f"{bvh.leafmat.numel() * 4 / 1e6:.1f} MB")
+    k7c = _kernel_entry("closest_hit_fat", "glaze_tpu/accel/traverse_fat.py:352")
+    for label, s in (("camera", closest[0]), ("bounce", closest[1])):
+        _check_closest(k7c, label, bvh, s)
+    _summarize(k7c, ("camera", "bounce"))
+    k7a = _kernel_entry("any_hit_fat", "glaze_tpu/accel/traverse_fat.py:366")
+    for label, s in (("shadow_camera_hits", anyhit[0]),
+                     ("shadow_bounce_hits", anyhit[1])):
+        _check_anyhit(k7a, label, bvh, s)
+    _summarize(k7a, ("shadow_camera_hits", "shadow_bounce_hits"))
+    del r, cap
+    torch.cuda.empty_cache()
+    return {"closest_hit_fat": k7c, "any_hit_fat": k7a}
+
+
+def phase_main_path(label, path, workdir, report, expected, tree=None):
+    """The port's CLI on a scene at 1920x1080, 2 spp, on the card, with
+    GLAZE_TREE=``tree`` around the call; every kernel counter is set to 0
+    just before and read just after, and must equal ``expected``."""
     from PIL import Image
 
     from glaze_tpu_torch import cli
     from glaze_tpu_torch.accel import traverse_cuda as tc
 
     out = os.path.join(workdir, f"sponza_{label}.png")
-    tc.reset_launch_counts()
-    code, renderer, times = cli.run([
-        path, out, "--res", f"{RES[0]}x{RES[1]}", "--spp", str(SPP),
-        "--seed", str(SEED)])
-    launches = {"closest_hit": tc.closest_hit_soa.launches,
-                "any_hit": tc.any_hit_soa.launches,
-                "closest_hit_masked": tc.closest_hit_soa_masked.launches,
-                "any_hit_masked": tc.any_hit_soa_masked.launches}
+    wrappers = dict(zip(KERNELS, (
+        tc.closest_hit_soa, tc.any_hit_soa, tc.closest_hit_soa_masked,
+        tc.any_hit_soa_masked, tc.closest_hit_fat_soa, tc.any_hit_fat_soa)))
+    with tree_env(tree):
+        tc.reset_launch_counts()
+        code, renderer, times = cli.run([
+            path, out, "--res", f"{RES[0]}x{RES[1]}", "--spp", str(SPP),
+            "--seed", str(SEED)])
+        launches = {name: fn.launches for name, fn in wrappers.items()}
     if code != 0:
         raise RuntimeError(f"CLI exited {code}")
     log(f"[main:{label}] kernel launches during the render: {launches} "
@@ -501,7 +596,8 @@ def phase_main_path(label, path, workdir, report, expected):
                            f"{expected}")
     for name, n in launches.items():
         if expected[name]:
-            report[name]["launches"] = n
+            report[name]["launches"] += n
+            report[name]["launches_by_path"][label] = n
     st = renderer._state
     accum = torch.stack(st.accum)
     if not bool(torch.isfinite(accum).all()):
@@ -613,18 +709,23 @@ def main():
     paths = phase_scene(workdir)
     report = phase_kernels(paths["opaque"])
     report.update(phase_masked_kernels(paths["full"]))
-    main_numbers = {
-        "full": phase_main_path("full", paths["full"], workdir, report,
-                                EXPECTED_FULL),
-        "opaque": phase_main_path("opaque", paths["opaque"], workdir, report,
-                                  EXPECTED_OPAQUE),
-    }
+    report.update(phase_fat_kernels(paths["opaque"]))
+    main_numbers = {}
+    for label, scene, expected, tree in (
+            ("full", "full", EXPECTED_FULL, None),
+            ("opaque", "opaque", EXPECTED_OPAQUE, None),
+            ("fat", "opaque", EXPECTED_FAT, "fat"),
+            ("hybrid", "opaque", EXPECTED_HYBRID, "hybrid"),
+            ("fat_full", "full", EXPECTED_FAT_FULL, "fat")):
+        main_numbers[label] = phase_main_path(label, paths[scene], workdir,
+                                              report, expected, tree)
     phase_golden()
     kernels = []
     for k in report.values():
         kernels.append({key: k[key] for key in (
-            "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "sets")})
+            "name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "sets")})
     log(f"[done] {time.perf_counter() - t_start:.0f} s in all")
     print(json.dumps({"main_path": main_numbers, "card": card}))
     print(json.dumps({"kernels": kernels}))

@@ -121,6 +121,19 @@ def _pack_octant_nodes(oct_tables: dict, m: int):
     return np.concatenate(packed, axis=0), nodes0
 
 
+def sorted_tri_rows(tri_verts: np.ndarray, order: np.ndarray) -> np.ndarray:
+    """(N_pad, 9) f32 (v0, e1, e2) rows of ``tri_verts`` in the tree's padded
+    leaf ``order``; SENTINEL (padding) rows are zero, degenerate, never hit."""
+    sent = order == SENTINEL
+    safe = np.where(sent, 0, order).astype(np.int64)
+    tri_sorted = tri_verts[safe]
+    tri_sorted[sent] = 0.0
+    v0 = tri_sorted[:, 0]
+    e1 = tri_sorted[:, 1] - v0
+    e2 = tri_sorted[:, 2] - v0
+    return np.concatenate([v0, e1, e2], axis=1).astype(np.float32)
+
+
 def build_bvh_np(tri_verts: np.ndarray, leaf_size: int = LEAF_SIZE):
     """Host build over (N, 3, 3) world-space triangles. Returns
     ``(fields, tri_order)``: ``fields`` holds the NumPy tables
@@ -145,14 +158,7 @@ def build_bvh_np(tri_verts: np.ndarray, leaf_size: int = LEAF_SIZE):
     m = oct_tables["bmin"].shape[1]
     order = oct_tables["tri_order"]
     nodes16, nodes0 = _pack_octant_nodes(oct_tables, m)
-    sent = order == SENTINEL
-    safe = np.where(sent, 0, order).astype(np.int64)
-    tri_sorted = tri_verts[safe]
-    tri_sorted[sent] = 0.0  # degenerate padding rows never hit
-    v0 = tri_sorted[:, 0]
-    e1 = tri_sorted[:, 1] - v0
-    e2 = tri_sorted[:, 2] - v0
-    tri = np.concatenate([v0, e1, e2], axis=1).astype(np.float32)
+    tri = sorted_tri_rows(tri_verts, order)
     fields = dict(nodes=nodes0, tri=tri, nodes16=nodes16,
                   tri8=_pack_lane_dense(tri, 8, 16), n_nodes=int(m),
                   n_tris=int(n))
@@ -332,15 +338,17 @@ def _leaf_rows(bvh: BVH, first, count):
 
 class WalkStats:
     """Work counters of one plain walk, for the chip smoke's bound: node
-    visits, triangle tests and, in the masked walks, the cell lookups of
-    hits closer than the best (``*_visits``/``*_tests``, with repeats),
-    and the DISTINCT table rows the walk read (:meth:`distinct`: node
-    rows, triangle rows, and payload words ``row*4 + word``)."""
+    visits, triangle tests, in the masked walks the cell lookups of hits
+    closer than the best, and in the fat-leaf walks the leaf columns
+    tested (``*_visits``/``*_tests``, with repeats), and the DISTINCT
+    table rows the walk read (:meth:`distinct`: node rows, triangle rows,
+    payload words ``row*4 + word``, fat-leaf coefficient rows)."""
 
     def __init__(self):
         self.node_visits = 0
         self.tri_tests = 0
         self.mask_tests = 0
+        self.col_tests = 0
         self._seen = {}
 
     def touch(self, what: str, rows, size: int):
@@ -352,7 +360,8 @@ class WalkStats:
         seen[rows] = True
 
     def distinct(self, what: str) -> int:
-        """Distinct rows of ``what`` ("nodes", "tris", "mask_words") read."""
+        """Distinct rows of ``what`` ("nodes", "tris", "mask_words",
+        "coef") read."""
         seen = self._seen.get(what)
         return 0 if seen is None else int(seen.sum())
 

@@ -1,18 +1,21 @@
 """CUDA traversal kernels (the counterpart of ``glaze_tpu/accel/traverse_pallas.py``).
 
 ``csrc/traverse.cu`` holds the hand-written sm_90a walks, one thread per
-ray over the octant-ordered ``nodes16`` slabs and the ``tri8`` rows:
-closest hit and any hit, each also in a masked form that honours the
-baked 8x8 opacity cells of a tree with a payload (its header note says
+ray over the octant-ordered ``nodes16`` slabs: closest hit and any hit on
+the classic tree's ``tri8`` rows, each also in a masked form that honours
+the baked 8x8 opacity cells of a tree with a payload, and closest hit and
+any hit on a fat-leaf tree's coefficient table (its header note says
 which Pallas kernels they replace and what bounds them). They are
 compiled with ``nvcc`` at first use into ``build/`` at the repository
 root, as a shared library with a plain C interface loaded through
-ctypes. A missing ``nvcc``, a failed build or a failed launch
-raises; nothing here falls back to the plain version.
+ctypes, and rebuilt when a source under ``csrc/`` is newer than the
+library. A missing ``nvcc``, a failed build or a failed launch raises;
+nothing here falls back to the plain version.
 
 Each wrapper counts its launches in a plain int attribute
 (``closest_hit_soa.launches``, ``any_hit_soa.launches``,
-``closest_hit_soa_masked.launches``, ``any_hit_soa_masked.launches``),
+``closest_hit_soa_masked.launches``, ``any_hit_soa_masked.launches``,
+``closest_hit_fat_soa.launches``, ``any_hit_fat_soa.launches``),
 incremented only where the kernel is launched.
 """
 
@@ -27,7 +30,8 @@ import tempfile
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "traverse.cu")
+CSRC = os.path.join(_PKG, "csrc")
+SOURCE = os.path.join(CSRC, "traverse.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 _SO = os.path.join(BUILD_DIR, "libglaze_traverse.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -48,12 +52,18 @@ def _nvcc() -> str:
     return path
 
 
+def _newest_source() -> float:
+    return max(os.path.getmtime(os.path.join(CSRC, n))
+               for n in os.listdir(CSRC))
+
+
 def build() -> str:
     """Compiles ``traverse.cu`` (if the library is missing or older than
-    the source) and returns the library path. ``build_log`` keeps nvcc's
-    output, including ``-Xptxas -v``'s register and spill report."""
+    any source under ``csrc/``) and returns the library path.
+    ``build_log`` keeps nvcc's output, including ``-Xptxas -v``'s register
+    and spill report."""
     global build_log
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(SOURCE):
+    if os.path.exists(_SO) and os.path.getmtime(_SO) >= _newest_source():
         return _SO
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -88,6 +98,12 @@ def _load():
         lib.glaze_any_hit_masked.argtypes = ([p] * 10 + [i, i, ctypes.c_longlong,
                                                          ctypes.c_float, p, p, p])
         lib.glaze_any_hit_masked.restype = i
+        lib.glaze_closest_hit_fat.argtypes = ([p] * 9 + [i, i, ctypes.c_longlong, i]
+                                              + [p] * 5)
+        lib.glaze_closest_hit_fat.restype = i
+        lib.glaze_any_hit_fat.argtypes = ([p] * 10 + [i, i, ctypes.c_longlong, i,
+                                                      ctypes.c_float, p, p])
+        lib.glaze_any_hit_fat.restype = i
         lib.glaze_error_string.argtypes = [i]
         lib.glaze_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -100,15 +116,16 @@ def _check(code: int, what: str):
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
-def _ray_comps(bvh, origin3, direction3, extra):
-    """Validates the SoA ray components and the BVH tables for a launch."""
+def _ray_comps(bvh, origin3, direction3, extra, tables=("nodes16", "tri8")):
+    """Validates the SoA ray components and the tree's ``tables`` for a
+    launch."""
     comps = list(origin3) + list(direction3) + list(extra)
     r = comps[0].shape[0]
     for c in comps:
         if not c.is_cuda or c.dim() != 1 or c.shape[0] != r:
             raise ValueError("ray components must be 1-D CUDA tensors of one "
                              "length")
-    for name in ("nodes16", "tri8"):
+    for name in tables:
         tab = getattr(bvh, name)
         if not tab.is_cuda or tab.dtype != torch.float32 or not tab.is_contiguous():
             raise ValueError(f"bvh.{name} must be a contiguous float32 CUDA "
@@ -251,8 +268,74 @@ def any_hit_soa_masked(bvh, origin3, direction3, t_max, t_min=1e-3,
 
 any_hit_soa_masked.launches = 0
 
+_FAT_TABLES = ("nodes16", "coef")
+
+
+def closest_hit_fat_soa(bvh, origin3, direction3, t_max=None):
+    """Closest hit of SoA CUDA rays on a fat-leaf tree
+    (:class:`~glaze_tpu_torch.accel.fat.FatBVH`), the contract of
+    :func:`closest_hit_soa` (``tri`` is the leaf slot; an empty scene's
+    placeholder leaf has only zero columns, so it reports misses)."""
+    dev = origin3[0].device
+    r = origin3[0].shape[0]
+    if t_max is None:
+        cap = torch.full((r,), float("inf"), dtype=torch.float32, device=dev)
+    else:
+        cap = torch.broadcast_to(
+            torch.as_tensor(t_max, dtype=torch.float32, device=dev), (r,))
+    comps, r = _ray_comps(bvh, origin3, direction3, [cap], _FAT_TABLES)
+    comps = [c.to(torch.float32) for c in comps]
+    t = torch.empty((r,), dtype=torch.float32, device=dev)
+    tri = torch.empty((r,), dtype=torch.int32, device=dev)
+    u = torch.empty((r,), dtype=torch.float32, device=dev)
+    v = torch.empty((r,), dtype=torch.float32, device=dev)
+    if r:
+        lib = _load()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.glaze_closest_hit_fat(
+            bvh.nodes16.data_ptr(), bvh.coef.data_ptr(),
+            *[c.data_ptr() for c in comps], r, bvh.n_nodes, _oct_floats(bvh),
+            bvh.leaf_size, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+            v.data_ptr(), stream)
+        _check(code, "fat closest-hit")
+        closest_hit_fat_soa.launches += 1
+    return {"t": t, "tri": tri, "u": u, "v": v}
+
+
+closest_hit_fat_soa.launches = 0
+
+
+def any_hit_fat_soa(bvh, origin3, direction3, t_max, t_min=1e-3,
+                    active=None):
+    """Any hit of SoA CUDA rays on a fat-leaf tree with t in (t_min,
+    t_max); lanes with ``active`` False report False."""
+    dev = origin3[0].device
+    r = origin3[0].shape[0]
+    cap = torch.broadcast_to(
+        torch.as_tensor(t_max, dtype=torch.float32, device=dev), (r,))
+    act = (torch.ones((r,), dtype=torch.bool, device=dev) if active is None
+           else active.to(torch.bool))
+    comps, r = _ray_comps(bvh, origin3, direction3, [cap, act], _FAT_TABLES)
+    floats = [c.to(torch.float32) for c in comps[:7]]
+    act = comps[7].contiguous()
+    hit = torch.empty((r,), dtype=torch.bool, device=dev)
+    if r:
+        lib = _load()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.glaze_any_hit_fat(
+            bvh.nodes16.data_ptr(), bvh.coef.data_ptr(),
+            *[c.data_ptr() for c in floats], act.data_ptr(), r, bvh.n_nodes,
+            _oct_floats(bvh), bvh.leaf_size, float(t_min), hit.data_ptr(),
+            stream)
+        _check(code, "fat any-hit")
+        any_hit_fat_soa.launches += 1
+    return hit
+
+
+any_hit_fat_soa.launches = 0
+
 KERNEL_WRAPPERS = (closest_hit_soa, any_hit_soa, closest_hit_soa_masked,
-                   any_hit_soa_masked)
+                   any_hit_soa_masked, closest_hit_fat_soa, any_hit_fat_soa)
 
 
 def reset_launch_counts():

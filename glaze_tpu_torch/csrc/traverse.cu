@@ -1,5 +1,6 @@
 // Stackless skip-link BVH walks for Hopper (sm_90a): closest hit and any
-// hit, each with and without the baked 8x8 opacity cell masks.
+// hit on the classic tree, each with and without the baked 8x8 opacity
+// cell masks, and on the fat-leaf tree.
 //
 // Replaces the TPU kernels of glaze_tpu/accel/traverse_pallas.py:
 //   closest_kernel<false> <- _closest_kernel_win (reached through
@@ -15,11 +16,18 @@
 //                      _anyhit_kernel, _anyhit_kernel_sub.           (K3)
 //   anyhit_kernel<true>   <- _anyhit_kernel_win(alpha_mask=True), reached
 //                      through _anyhit_call_masked (:875-906).       (K4)
+// and of glaze_tpu/accel/traverse_fat.py:
+//   closest_kernel_fat    <- _closest_kernel_fat (:352, body
+//                      _walk_and_drain :87), reached through
+//                      _closest_call_fat (:404).                    (K7c)
+//   anyhit_kernel_fat     <- _anyhit_kernel_fat (:366), reached through
+//                      _anyhit_call_fat (:434).                     (K7a)
 // The Pallas kernels walk one tree pointer per 128-ray row and queue leaf
-// work, because the TPU's VPU only runs dense (8, 128) tiles. None of
-// that carries over: here ONE THREAD WALKS ONE RAY, and the masked and
-// unmasked kernels are one template, so all four share one slab test,
-// one Moller-Trumbore and one octant walk.
+// work, because the TPU's VPU only runs dense (8, 128) tiles, and the fat
+// kernels drain a queued leaf as one MXU product. None of that carries
+// over: here ONE THREAD WALKS ONE RAY, and all six kernels share one
+// octant walk (walk<Leaf>, templated on the leaf test) and one slab test;
+// the four classic kernels also share one Moller-Trumbore.
 //
 // Function (identical to glaze_tpu_torch.accel.bvh.closest_hit / any_hit
 // and closest_hit_masked / any_hit_masked, the plain versions):
@@ -68,6 +76,41 @@
 // read only when the cell needs it, so a miss costs exactly what it costs
 // unmasked. Shared-memory treelets, warp-cooperative packets and wider
 // trees are later work.
+//
+// The fat-leaf kernels (identical to glaze_tpu_torch.accel.fat
+// closest_hit_fat / any_hit_fat, the plain versions):
+//   * the same octant walk; a leaf's meta is its LEAF INDEX L, and its T
+//     triangle slots are L*T .. L*T+T-1 (padding slots have all-zero
+//     coefficients: det 0, never valid).
+//   * features of the ray, built once in registers: o x d = (oy*dz -
+//     oz*dy, oz*dx - ox*dz, ox*dy - oy*dx), then o, d, 1.
+//   * column k of a leaf: det, u*det, v*det and t*det are the products of
+//     the features with the slab's column k in blocks 0..3. Only 19 of
+//     the 64 slab entries can be non-zero (det: rows 6..8; u and v: rows
+//     0..2 and 6..8; t: rows 3..5 and 9); the caller gathers them per slot
+//     into a (L*T, 20) table (five float4 loads a column), and each block
+//     is summed in ascending row order, one multiply then one add per
+//     term. ok = |det| >= 1e-12, inv = 1/det, t = td*inv; the inside test
+//     is ud*det >= 0, vd*det >= 0, (ud+vd)*det <= det*det (the Pallas
+//     resolve, traverse_fat.py:145-149).
+//   * closest: a column replaces the best when 1e-4 < t < t_best; scanning
+//     k = 0..T-1 with a strict < keeps the lowest column of a tie in t, the
+//     Pallas kernel's rule (:162-165); u = ud*inv, v = vd*inv. Any hit: the
+//     first column with t_min < t < tmax stops the ray; inactive rays
+//     report false.
+//
+// What bounds the fat kernels on an H100: a leaf costs T = 128 columns of
+// about 48 float operations (34 for the four sums, the rest for the
+// resolve), so a ray that enters ~5 leaves needs ~30,000 operations where
+// the classic walk needs a few thousand; the float32 rate bounds them
+// (about 1 ms for a 1080p launch), not bytes: the coefficient table (30
+// MB on the benchmark scene) fits the 50 MB L2, where the (16, 4T) slabs
+// (96.5 MB) would not, and the neighbouring rays of a Morton-sorted warp
+// mostly read the same leaf, so one load serves the warp. Dependent node
+// loads and divergence between rays in different leaves remain. No tensor
+// cores: TF32 keeps about 10 mantissa bits, which loses hits the way the
+// JAX package's DEFAULT matmul precision does (traverse_fat.py:59-67); a
+// 3xTF32 or mma leaf test is later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -179,6 +222,34 @@ __device__ __forceinline__ const float4* octant_nodes(const float* nodes16,
   return reinterpret_cast<const float4*>(nodes16 + oct * oct_floats);
 }
 
+// The octant walk of every kernel: from the root, a node whose box the ray
+// enters within cap (read anew at every node, so a closer hit prunes what
+// follows) leads to node p+1, or, for a leaf, to leaf(meta) and then the
+// skip link; a miss leads to the skip link; p >= n_nodes ends. leaf
+// returns true to end the walk at once.
+template <class Leaf>
+__device__ __forceinline__ void walk(const float4* __restrict__ nodes,
+                                     int n_nodes, const Ray& r,
+                                     const float& cap, Leaf&& leaf) {
+  int p = 0;
+  while (p < n_nodes) {
+    const float4 a = __ldg(nodes + 2 * p);
+    const float4 b = __ldg(nodes + 2 * p + 1);
+    const int meta = __float_as_int(b.z);
+    const int skip = __float_as_int(b.w);
+    if (!slab(a, b, r, cap)) {
+      p = skip;
+      continue;
+    }
+    if (meta < 0) {
+      p = p + 1;
+      continue;
+    }
+    if (leaf(meta)) return;
+    p = skip;
+  }
+}
+
 template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 closest_kernel(const float* __restrict__ nodes16,
@@ -198,20 +269,7 @@ closest_kernel(const float* __restrict__ nodes16,
   float bt = tmax[i], bu = 0.0f, bv = 0.0f;
   int btri = -1;
   bool bmix = false;
-  int p = 0;
-  while (p < n_nodes) {
-    const float4 a = __ldg(nodes + 2 * p);
-    const float4 b = __ldg(nodes + 2 * p + 1);
-    const int meta = __float_as_int(b.z);
-    const int skip = __float_as_int(b.w);
-    if (!slab(a, b, r, bt)) {
-      p = skip;
-      continue;
-    }
-    if (meta < 0) {
-      p = p + 1;
-      continue;
-    }
+  walk(nodes, n_nodes, r, bt, [&](int meta) {
     const int first = meta >> 3;
     const int count = (meta & 7) + 1;
     for (int k = 0; k < count; ++k) {
@@ -229,8 +287,8 @@ closest_kernel(const float* __restrict__ nodes16,
         bv = v;
       }
     }
-    p = skip;
-  }
+    return false;
+  });
   t_out[i] = btri >= 0 ? bt : INFINITY;
   tri_out[i] = btri;
   u_out[i] = bu;
@@ -261,20 +319,7 @@ anyhit_kernel(const float* __restrict__ nodes16,
   const float4* tris = reinterpret_cast<const float4*>(tri8);
   const float cap = tmax[i];
   uint8_t hit = 0, pending = 0;
-  int p = 0;
-  while (p < n_nodes && !hit) {
-    const float4 a = __ldg(nodes + 2 * p);
-    const float4 b = __ldg(nodes + 2 * p + 1);
-    const int meta = __float_as_int(b.z);
-    const int skip = __float_as_int(b.w);
-    if (!slab(a, b, r, cap)) {
-      p = skip;
-      continue;
-    }
-    if (meta < 0) {
-      p = p + 1;
-      continue;
-    }
+  walk(nodes, n_nodes, r, cap, [&](int meta) {
     const int first = meta >> 3;
     const int count = (meta & 7) + 1;
     for (int k = 0; k < count; ++k) {
@@ -287,13 +332,134 @@ anyhit_kernel(const float* __restrict__ nodes16,
           if (code != 1) continue;     // only an OPAQUE cell blocks
         }
         hit = 1;
-        break;
+        return true;
       }
     }
-    p = skip;
-  }
+    return false;
+  });
   hit_out[i] = hit;
   if constexpr (kMasked) pending_out[i] = pending && !hit;
+}
+
+// Features o x d of a ray (o and d are in the Ray itself).
+struct Cross {
+  float x, y, z;
+};
+
+__device__ __forceinline__ Cross ray_cross(const Ray& r) {
+  return {r.oy * r.dz - r.oz * r.dy, r.oz * r.dx - r.ox * r.dz,
+          r.ox * r.dy - r.oy * r.dx};
+}
+
+// Column ``slot`` of a fat leaf: returns whether it is a valid hit with t
+// in (lo, hi), writing t, the det-scaled ud/vd and inv = 1/det. The five
+// float4 of the slot's coefficient row hold, in order: det rows 6..8; u
+// rows 0..2, 6..8; v rows 0..2, 6..8; t rows 3..5, 9; a zero.
+__device__ __forceinline__ bool fat_column(const float4* __restrict__ coef,
+                                           int slot, const Ray& r,
+                                           const Cross& x, float lo, float hi,
+                                           float& t, float& ud, float& vd,
+                                           float& inv) {
+  const float4* row = coef + 5 * (size_t)slot;
+  const float4 c0 = __ldg(row), c1 = __ldg(row + 1), c2 = __ldg(row + 2);
+  const float4 c3 = __ldg(row + 3), c4 = __ldg(row + 4);
+  float det = c0.x * r.dx;
+  det = det + c0.y * r.dy;
+  det = det + c0.z * r.dz;
+  ud = c0.w * x.x;
+  ud = ud + c1.x * x.y;
+  ud = ud + c1.y * x.z;
+  ud = ud + c1.z * r.dx;
+  ud = ud + c1.w * r.dy;
+  ud = ud + c2.x * r.dz;
+  vd = c2.y * x.x;
+  vd = vd + c2.z * x.y;
+  vd = vd + c2.w * x.z;
+  vd = vd + c3.x * r.dx;
+  vd = vd + c3.y * r.dy;
+  vd = vd + c3.z * r.dz;
+  float td = c3.w * r.ox;
+  td = td + c4.x * r.oy;
+  td = td + c4.y * r.oz;
+  td = td + c4.z * 1.0f;
+  if (!(fabsf(det) >= 1e-12f)) return false;
+  inv = 1.0f / det;
+  t = td * inv;
+  return ud * det >= 0.0f && vd * det >= 0.0f &&
+         (ud + vd) * det <= det * det && t > lo && t < hi;
+}
+
+__global__ void __launch_bounds__(kThreads)
+closest_kernel_fat(const float* __restrict__ nodes16,
+                   const float* __restrict__ coef,
+                   const float* __restrict__ ox, const float* __restrict__ oy,
+                   const float* __restrict__ oz, const float* __restrict__ dx,
+                   const float* __restrict__ dy, const float* __restrict__ dz,
+                   const float* __restrict__ tmax, int n_rays, int n_nodes,
+                   long long oct_floats, int leaf_size,
+                   float* __restrict__ t_out, int* __restrict__ tri_out,
+                   float* __restrict__ u_out, float* __restrict__ v_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
+  const Cross x = ray_cross(r);
+  const float4* nodes = octant_nodes(nodes16, r, oct_floats);
+  const float4* cf = reinterpret_cast<const float4*>(coef);
+  float bt = tmax[i], bu = 0.0f, bv = 0.0f;
+  int btri = -1;
+  walk(nodes, n_nodes, r, bt, [&](int leaf) {
+    const int first = leaf * leaf_size;
+    for (int k = 0; k < leaf_size; ++k) {
+      float t, ud, vd, inv;
+      if (fat_column(cf, first + k, r, x, kTMin, bt, t, ud, vd, inv)) {
+        bt = t;
+        btri = first + k;
+        bu = ud * inv;
+        bv = vd * inv;
+      }
+    }
+    return false;
+  });
+  t_out[i] = btri >= 0 ? bt : INFINITY;
+  tri_out[i] = btri;
+  u_out[i] = bu;
+  v_out[i] = bv;
+}
+
+__global__ void __launch_bounds__(kThreads)
+anyhit_kernel_fat(const float* __restrict__ nodes16,
+                  const float* __restrict__ coef,
+                  const float* __restrict__ ox, const float* __restrict__ oy,
+                  const float* __restrict__ oz, const float* __restrict__ dx,
+                  const float* __restrict__ dy, const float* __restrict__ dz,
+                  const float* __restrict__ tmax,
+                  const uint8_t* __restrict__ active, int n_rays,
+                  int n_nodes, long long oct_floats, int leaf_size,
+                  float t_min, uint8_t* __restrict__ hit_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  if (!active[i]) {
+    hit_out[i] = 0;
+    return;
+  }
+  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
+  const Cross x = ray_cross(r);
+  const float4* nodes = octant_nodes(nodes16, r, oct_floats);
+  const float4* cf = reinterpret_cast<const float4*>(coef);
+  const float cap = tmax[i];
+  uint8_t hit = 0;
+  walk(nodes, n_nodes, r, cap, [&](int leaf) {
+    const int first = leaf * leaf_size;
+    for (int k = 0; k < leaf_size; ++k) {
+      float t, ud, vd, inv;
+      if (fat_column(cf, first + k, r, x, t_min, cap, t, ud, vd, inv)) {
+        hit = 1;
+        return true;
+      }
+    }
+    return false;
+  });
+  hit_out[i] = hit;
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -376,6 +542,33 @@ int glaze_any_hit_masked(const float* nodes16, const float* tri8,
   return launch_anyhit<true>(nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax,
                              active, n_rays, n_nodes, oct_floats, t_min,
                              blocked_out, pending_out, stream);
+}
+
+int glaze_closest_hit_fat(const float* nodes16, const float* coef,
+                          const float* ox, const float* oy, const float* oz,
+                          const float* dx, const float* dy, const float* dz,
+                          const float* tmax, int n_rays, int n_nodes,
+                          long long oct_floats, int leaf_size, float* t_out,
+                          int* tri_out, float* u_out, float* v_out,
+                          void* stream) {
+  closest_kernel_fat<<<blocks_for(n_rays), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      nodes16, coef, ox, oy, oz, dx, dy, dz, tmax, n_rays, n_nodes,
+      oct_floats, leaf_size, t_out, tri_out, u_out, v_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int glaze_any_hit_fat(const float* nodes16, const float* coef,
+                      const float* ox, const float* oy, const float* oz,
+                      const float* dx, const float* dy, const float* dz,
+                      const float* tmax, const uint8_t* active, int n_rays,
+                      int n_nodes, long long oct_floats, int leaf_size,
+                      float t_min, uint8_t* hit_out, void* stream) {
+  anyhit_kernel_fat<<<blocks_for(n_rays), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      nodes16, coef, ox, oy, oz, dx, dy, dz, tmax, active, n_rays, n_nodes,
+      oct_floats, leaf_size, t_min, hit_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* glaze_error_string(int code) {

@@ -17,7 +17,9 @@ Each launch makes two traces: the closest hit of the path rays
 (:func:`trace_alpha_sorted`) and the NEE shadow rays
 (:func:`_any_hit_sorted`, or :func:`_occlusion_sorted` with opacity
 maps), both Morton-sorted for coherence and both on the CUDA kernels when
-the scene lives on the card.
+the scene lives on the card. The closest hit walks ``scene.bvh`` (a
+fat-leaf tree under ``GLAZE_TREE=fat|hybrid``), the shadow rays the
+classic ``scene.bvh_any`` of a hybrid scene, else ``scene.bvh``.
 
 Opacity maps (``alpha_rounds > 0``; raytrace_hit.rahit semantics: a hit
 whose opacity sample is < 0.5 is skipped) take one of three branches,
@@ -28,9 +30,10 @@ chosen from what the scene carries:
   walk skips TRANSPARENT cells in the kernel; only MIXED-cell hits pay the
   exact texture re-test rounds. Shadow rays take the 3-state masked any
   hit, and only their pending lanes walk the small alpha tree;
-- the OPAQUE/ALPHA SPLIT (a scene carried without the full payload, e.g.
-  one the JAX package flattened with ``GLAZE_ALPHA_MASK=0``): an unmasked
-  walk of the opaque tree plus a walk of the alpha tree;
+- the OPAQUE/ALPHA SPLIT (a scene without the full payload: a fat-leaf
+  main tree, which carries none, or one the JAX package flattened with
+  ``GLAZE_ALPHA_MASK=0``): an unmasked walk of the opaque tree plus a
+  walk of the alpha tree, for shadow rays too;
 - the WHOLE-SCENE RE-TRACE loop, when classification left no MIXED
   triangle (``alpha_attr_full`` and ``bvh_alpha`` are None).
 
@@ -160,11 +163,23 @@ def pixel_coords_np(width: int, height: int):
     return px.astype(np.int32), py.astype(np.int32)
 
 
+def _pixel_coords_t(width: int, height: int, device):
+    """:func:`pixel_coords_np` computed on ``device``: (px, py) int64."""
+    pw, ph = padded_dims(width, height)
+    i = torch.arange(pw * ph, dtype=torch.int64, device=device)
+    tiles_x = pw // TILE_W
+    tile = i // (TILE_W * TILE_H)
+    within = i % (TILE_W * TILE_H)
+    px = (tile % tiles_x) * TILE_W + within % TILE_W
+    py = (tile // tiles_x) * TILE_H + within // TILE_W
+    return px, py
+
+
 def pixel_coords(width: int, height: int, device):
-    """Tile-swizzled (px, py) float32 lane coordinates, each (P,)."""
-    px, py = pixel_coords_np(width, height)
-    return (torch.from_numpy(px.astype(np.float32)).to(device),
-            torch.from_numpy(py.astype(np.float32)).to(device))
+    """Tile-swizzled (px, py) float32 lane coordinates, each (P,), built
+    on ``device``."""
+    px, py = _pixel_coords_t(width, height, device)
+    return px.to(torch.float32), py.to(torch.float32)
 
 
 def camera_rays(ndc_x, ndc_y, cam2world, screen2cam, is_persp: bool):
@@ -663,14 +678,16 @@ def _occlusion_sorted(scene, origin, direction, t_max, active,
 
 def _any_hit_sorted(scene, origin, direction, t_max, active):
     """Shadow trace on Morton-sorted rays; inactive lanes sort to the tail
-    (the kernel retires them at once)."""
+    (the kernel retires them at once). Walks the classic any-hit tree of
+    a hybrid scene (``bvh_any``) where there is one, else ``bvh``."""
     perm = _trace_perm(scene, origin, direction, active=active)
     inv = _inverse_perm(perm)
     cap = torch.broadcast_to(
         torch.as_tensor(t_max, dtype=torch.float32, device=origin[0].device),
         origin[0].shape)
     s = _perm_rows(perm, list(origin) + list(direction) + [cap, active])
-    hit = accel.any_hit_soa_auto(scene.bvh, tuple(s[0:3]), tuple(s[3:6]),
+    tree = scene.bvh_any if scene.bvh_any is not None else scene.bvh
+    hit = accel.any_hit_soa_auto(tree, tuple(s[0:3]), tuple(s[3:6]),
                                  s[6], active=s[7])
     return hit[inv]
 
@@ -911,11 +928,12 @@ def _fold_display(accum, count, exposure):
 
 
 def render_image(state: PathState, exposure, width: int, height: int):
-    """Accumulated sum -> display image (H, W, 3) uint8, unswizzled and
-    cropped."""
-    img = _fold_display(state.accum, state.count, exposure).cpu().numpy()
-    px, py = pixel_coords_np(width, height)
+    """Accumulated sum -> display image (H, W, 3) uint8 NumPy, folded,
+    unswizzled and cropped on the state's device; only the cropped image
+    crosses to the host."""
+    img = _fold_display(state.accum, state.count, exposure)
+    px, py = _pixel_coords_t(width, height, img.device)
     pw, ph = padded_dims(width, height)
-    full = np.zeros((ph, pw, 3), np.uint8)
-    full[py, px] = img
-    return full[:height, :width]
+    full = torch.zeros((ph * pw, 3), dtype=torch.uint8, device=img.device)
+    full[py * pw + px] = img
+    return full.view(ph, pw, 3)[:height, :width].cpu().numpy()

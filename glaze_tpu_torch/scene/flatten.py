@@ -2,12 +2,16 @@
 
 torch port of :mod:`glaze_tpu.scene.flatten`. The host stages are the JAX
 package's, on NumPy: instances are flattened to world-space triangles,
-per-triangle derivatives computed, the BVH built natively, materials /
+per-triangle derivatives computed, the tree(s) that ``GLAZE_TREE``
+selects built natively (:func:`glaze_tpu_torch.accel.build_bvh_auto_np`:
+classic, fat-leaf, or fat-leaf plus a classic any-hit tree), materials /
 lights / textures packed, and the sky importance tables built as
 Walker/Vose alias tables. Scenes with opacity maps also get the exact
 opacity classification, the opaque/alpha subset trees and the baked 8x8
-cell masks (:func:`build_alpha_split`). The result crosses to the device
-once, field by field (:func:`device_scene_from_numpy`).
+cell masks (:func:`build_alpha_split`; the masks are baked into a classic
+main tree only, a fat one carries none). The result crosses to the device
+once, field by field (:func:`device_scene_from_numpy`), where a fat tree
+gathers its coefficient table.
 
 Deviations from the reference renderer are the JAX package's, kept so
 both packages render the same image: AREA light pdfs use the true
@@ -21,16 +25,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from glaze_tpu_torch.accel import build_bvh_auto_np, tree_from_np
 from glaze_tpu_torch.accel.bvh import (
     BVH,
     SENTINEL,
     attach_tri_payload,
     build_bvh_np,
-    bvh_from_np,
     check_tri_count,
     float_table_to,
     pack_alpha_masks,
 )
+from glaze_tpu_torch.accel.fat import FAT_KEYS
 from glaze_tpu_torch.core import LightType, Texture
 from glaze_tpu_torch.core.distribution import Distribution2D
 from glaze_tpu_torch.core.spectrum import CIE_Y, INVY_SUM, rgb_to_spectrum_np
@@ -72,10 +77,10 @@ MT_METALNESS = 2
 MT_OPACITY = 3
 MT_NORMAL = 4
 
-# The field names of glaze_tpu.scene.flatten._SCENE_FIELDS. The hybrid
-# tree (bvh_any) is not ported and stays None.
+# The field names of glaze_tpu.scene.flatten._SCENE_FIELDS
 _SCENE_FIELDS = (
-    "bvh", "bvh_any",
+    "bvh",  # BVH, or FatBVH under GLAZE_TREE=fat|hybrid
+    "bvh_any",  # the classic any-hit BVH of GLAZE_TREE=hybrid | None
     # the opaque/alpha split of scenes with opacity maps (the reference's
     # per-BLAS OPAQUE flag as two trees), None without opacity maps; the
     # *_map arrays take subset-tree slots to full-tree attribute rows
@@ -124,8 +129,9 @@ _SCENE_FIELDS = (
 )
 
 _BVH_KEYS = ("nodes", "tri", "nodes16", "tri8", "n_nodes", "n_tris")
-# DeviceScene fields holding a BVH; they cross as "<name>.nodes" ...
-_TREE_FIELDS = ("bvh", "bvh_opaque", "bvh_alpha")
+# DeviceScene fields holding a tree; they cross as "<name>.nodes" ...
+# (a fat tree as "<name>.leafmat" ... "<name>.leaf_size", see FAT_KEYS)
+_TREE_FIELDS = ("bvh", "bvh_any", "bvh_opaque", "bvh_alpha")
 
 
 class DeviceScene:
@@ -784,9 +790,8 @@ def flatten_scene_np(parsed):
     )
 
     # like the JAX package, an empty scene builds its tree over the one
-    # degenerate placeholder triangle
-    check_tri_count(tri_pos.shape[0])
-    bvh_fields, order = build_bvh_np(tri_pos)
+    # degenerate placeholder triangle; GLAZE_TREE picks the tree(s)
+    bvh_fields, order, any_fields = build_bvh_auto_np(tri_pos)
     order = np.asarray(order)
     sentinel_rows = order == SENTINEL
     order = np.where(sentinel_rows, 0, order).astype(np.int64)
@@ -797,9 +802,10 @@ def flatten_scene_np(parsed):
                               sentinel_rows, tri_uv=tri_uv,
                               textures=textures, atlas=atlas)
     # bake the full-tree opacity masks into the main tree, so the single
-    # closest walk tests alpha inline (the reference's one TLAS + rahit)
+    # closest walk tests alpha inline (the reference's one TLAS + rahit);
+    # a fat tree takes none and the integrator takes the opaque/alpha split
     full_payload = split.pop("_full_payload")
-    if full_payload is not None:
+    if full_payload is not None and "leafmat" not in bvh_fields:
         bvh_fields = attach_tri_payload(bvh_fields, full_payload)
     lts = flatten_lights(lights, inst_mat, inst_first, inst_count)
     sky = build_sky_tables(lights, textures)
@@ -835,6 +841,8 @@ def flatten_scene_np(parsed):
     attr[:, ATTR_MAT] = tri_mat_bvh.astype(np.float32)
 
     fields = {f"bvh.{k}": v for k, v in bvh_fields.items()}
+    if any_fields is not None:
+        fields.update({f"bvh_any.{k}": v for k, v in any_fields.items()})
     for name in ("bvh_opaque", "bvh_alpha"):
         tree = split.pop(name)
         if tree is not None:
@@ -882,16 +890,19 @@ def device_scene_from_numpy(fields: dict, device) -> DeviceScene:
     at a time: either :func:`flatten_scene_np`'s output or the JAX
     package's flattened scene pulled to NumPy under the same names (each
     tree as ``<name>.nodes`` ... ``<name>.n_tris`` for ``bvh``,
-    ``bvh_opaque`` and ``bvh_alpha``, the atlas as ``atlas.texels`` ...).
-    Fields absent from ``fields`` are None."""
+    ``bvh_any``, ``bvh_opaque`` and ``bvh_alpha``, a fat tree with
+    ``<name>.leafmat`` and ``<name>.leaf_size`` in place of ``tri8``; the
+    atlas as ``atlas.texels`` ...). Fields absent from ``fields`` are
+    None."""
     device = torch.device(device)
     atlas = atlas_from_np({k: fields[f"atlas.{k}"] for k in TextureAtlas._fields},
                           device)
     plain = {}
     for name in _TREE_FIELDS:
         if f"{name}.nodes" in fields:
-            plain[name] = bvh_from_np(
-                {k: fields[f"{name}.{k}"] for k in _BVH_KEYS}, device)
+            keys = FAT_KEYS if f"{name}.leafmat" in fields else _BVH_KEYS
+            plain[name] = tree_from_np(
+                {k: fields[f"{name}.{k}"] for k in keys}, device)
     for name in _SCENE_FIELDS:
         if name in _TREE_FIELDS or name == "atlas":
             continue
@@ -907,7 +918,7 @@ def device_scene_to_numpy(scene: DeviceScene) -> dict:
         tree = getattr(scene, name)
         if tree is None:
             continue
-        for k in _BVH_KEYS:
+        for k in FAT_KEYS if hasattr(tree, "leafmat") else _BVH_KEYS:
             v = getattr(tree, k)
             out[f"{name}.{k}"] = v if isinstance(v, int) else v.cpu().numpy()
     for k in TextureAtlas._fields:

@@ -121,3 +121,47 @@ def test_traverse_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         traverse_cuda.any_hit_soa(bvh, o3, d3, torch.ones(4))
     assert traverse_cuda.closest_hit_soa.launches == before
+
+
+@pytest.mark.parametrize("size", [(32, 16), (100, 37)])
+def test_pixel_layout_built_on_the_scene_device(size, monkeypatch):
+    """The launch's pixel coordinates and the display unswizzle run on the
+    render's device: no host-built table crosses to it, and only the
+    cropped (H, W, 3) image crosses back."""
+    import numpy as np
+
+    from glaze_tpu_torch.render import integrator as ti
+
+    w, h = size
+    ref_px, ref_py = ti.pixel_coords_np(w, h)
+    p = ref_px.shape[0]
+    rng = np.random.default_rng(60)
+    state = ti.init_state(w, h, "cpu")._replace(
+        accum=tuple(torch.from_numpy(rng.uniform(0, 4, p).astype(np.float32))
+                    for _ in range(3)),
+        count=torch.full((p,), 2.0))
+    # the host image the display conversion must produce
+    img = ti._fold_display(state.accum, state.count, 1.0).numpy()
+    want = np.zeros((ref_py.max() + 1, ref_px.max() + 1, 3), np.uint8)
+    want[ref_py, ref_px] = img
+    want = want[:h, :w]
+
+    def no_host_table(*a, **k):
+        raise AssertionError("built on the host")
+
+    monkeypatch.setattr(ti, "pixel_coords_np", no_host_table)
+    monkeypatch.setattr(torch, "from_numpy", no_host_table)
+    px, py = ti.pixel_coords(w, h, "cpu")
+    assert px.dtype == torch.float32 and px.device.type == "cpu"
+    assert np.array_equal(px.numpy(), ref_px) and np.array_equal(py.numpy(), ref_py)
+    crossed = []
+    orig_cpu = torch.Tensor.cpu
+
+    def spy_cpu(self, *a, **k):
+        crossed.append(tuple(self.shape))
+        return orig_cpu(self, *a, **k)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", spy_cpu)
+    got = ti.render_image(state, 1.0, w, h)
+    assert crossed == [(h, w, 3)]
+    assert got.shape == (h, w, 3) and np.array_equal(got, want)

@@ -6,8 +6,11 @@ from __future__ import annotations
 import numpy as np
 
 _BVH_KEYS = ("nodes", "tri", "nodes16", "tri8", "n_nodes", "n_tris")
-# the scene fields that hold a (single, unchunked) BVH
-_TREE_FIELDS = ("bvh", "bvh_opaque", "bvh_alpha")
+# a glaze_tpu FatBVH (GLAZE_TREE=fat|hybrid) crosses with its slabs
+_FAT_KEYS = ("nodes", "tri", "nodes16", "leafmat", "n_nodes", "n_tris",
+             "leaf_size")
+# the scene fields that hold a (single, unchunked) tree
+_TREE_FIELDS = ("bvh", "bvh_any", "bvh_opaque", "bvh_alpha")
 
 
 def jax_scene_to_numpy(scene) -> dict:
@@ -20,7 +23,7 @@ def jax_scene_to_numpy(scene) -> dict:
         tree = getattr(scene, name)
         if tree is None:
             continue
-        for k in _BVH_KEYS:
+        for k in _FAT_KEYS if hasattr(tree, "leafmat") else _BVH_KEYS:
             v = getattr(tree, k)
             out[f"{name}.{k}"] = v if isinstance(v, int) else np.asarray(v)
     for k in scene.atlas._fields:
