@@ -4,8 +4,14 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from the sources in the checkout and holds each
-against its plain PyTorch version on the rays of a real 1920x1080 launch:
+It builds the CUDA kernels from the sources in the checkout (one nvcc for
+each library, started together). It drives the probe tools of
+glaze_tpu_torch.tools (the fat-leaf drain T1, the walk-overhead walk T2,
+the product chains T3a/T3b and the slab-rate loop T4) through their entry
+points at the tools' sizes, T2 on the 1080p camera rays of the
+Sponza-class scene, and holds each probe kernel against its plain
+version. Then it holds each traversal kernel against its plain PyTorch
+version on the rays of a real 1920x1080 launch:
 the closest-hit and any-hit walks (K1, K3) on the Sponza-class scene
 (262k triangles) with its curtain's opacity map removed, the masked
 walks (K2 on the full tree and on the alpha subset tree, K4) on the whole
@@ -100,6 +106,33 @@ EXPECTED_HYBRID = _expected(closest_hit_fat=LAUNCHES, any_hit=LAUNCHES)
 EXPECTED_FAT_FULL = _expected(closest_hit=LAUNCHES, any_hit=LAUNCHES,
                               closest_hit_masked=4 * LAUNCHES)
 
+# The probe kernels' bounds: the dense tensor rates of TF32 and bf16 (NVIDIA
+# H100 SXM data sheet) and the non-tensor bf16 rate of packed bf16x2
+# arithmetic, twice the f32 rate (NVIDIA H100 Tensor Core GPU Architecture
+# white paper, H100 SXM5: 133.8 TFLOP/s). A kernel that runs on fewer
+# blocks than SMs gets that share of each peak.
+PEAK_TF32 = 495e12
+PEAK_BF16_TC = 989e12
+PEAK_BF16 = 133.8e12
+SMS = 132
+# f32 operations of a drain: per (triangle, ray) resolve (|det| and its
+# compare, 1/det, t, ud*det, vd*det, ud+vd and its product, det*det, 5
+# compares); per ray and leaf the features (3 sub for o', 6 mul + 3 sub
+# for o' x d)
+OPS_RESOLVE = 14
+OPS_FEATURES = 12
+AIMED_BLOCKS = 16    # T1 check on rays aimed at triangle centroids
+SHORT_CHAIN = 16     # T3a/T3b kernel-against-plain chains
+T_RTOL = 1e-4        # drain t, relative (summation order of exact products)
+UV_ATOL = 5e-3       # drain u/v: ud, vd agree to a few ulps of terms ~20,
+#                      divided by a grazing det of ~0.01
+CHAIN_RTOL = 1e-5    # chain sums, relative to their largest magnitude
+PROBES = (("fat_drain", "tools/bench_mxu.py:95"),
+          ("walk_overhead", "tools/exp_overhead.py:50"),
+          ("dot_chain", "tools/bench_dot.py:29"),
+          ("resolve_chain", "tools/bench_dot.py:112"),
+          ("slab_rate", "tools/bench_bf16_slab.py:38"))
+
 
 def log(msg):
     print(msg, flush=True)
@@ -132,24 +165,6 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_time(fn, runs: int, warmup: int = 1) -> float:
-    """Median milliseconds of ``fn`` over ``runs`` timed calls (CUDA
-    events, after ``warmup`` untimed calls)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def ulp_diff(a, b):
     """|a - b| in float32 units in the last place (finite, same-sign)."""
     ai = a.contiguous().view(torch.int32).to(torch.int64)
@@ -161,17 +176,338 @@ def ulp_diff(a, b):
 
 
 def phase_build():
-    from glaze_tpu_torch.accel import traverse_cuda as tc
+    """Builds traverse.cu, probes.cu and the native host library at once
+    (one compiler process each) and prints each ptxas report."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from glaze_tpu_torch import native
+    from glaze_tpu_torch.accel import traverse_cuda as tc
+    from glaze_tpu_torch.tools import probes_cuda as pc
 
     t0 = time.perf_counter()
-    tc.build()
-    native.get_lib()
-    log(f"[build] traverse.cu + native host library in "
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(f) for f in (tc.build, pc.build, native.get_lib)]
+        for job in jobs:
+            job.result()
+    log(f"[build] traverse.cu + probes.cu + native host library in "
         f"{time.perf_counter() - t0:.2f} s")
-    for line in tc.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    for lib, text in (("traverse", tc.build_log), ("probes", pc.build_log)):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
+                log(f"[build] {lib} ptxas: {line.strip()}")
+
+
+def _probe_bound(nbytes, tc_flops=0.0, tc_peak=PEAK_TF32, ops=0.0,
+                 ops_peak=PEAK_F32, blocks=SMS):
+    """Least time of a probe's work on ``blocks`` blocks (one SM each, at
+    most all SMs): the largest of bytes over the HBM rate, tensor-core
+    FLOPs over ``tc_peak`` and other operations over ``ops_peak``, each
+    peak cut to the SMs the blocks occupy. Returns (ms, bound_by)."""
+    share = min(blocks, SMS) / SMS
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(tc_flops / (tc_peak * share), ops / (ops_peak * share))
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _drain_diff(kern, plain, label):
+    """T1/T3b outputs ((8, R) t, tri, u, v) of kernel and plain: tri exact
+    except where both hit and t agrees within T_RTOL (a near tie of two
+    columns, counted); t within T_RTOL, u/v within UV_ATOL. Returns the
+    numbers; raises on a disagreement."""
+    (tk, ik, uk, vk), (tp, ip, up, vp) = kern, plain
+    same = ik == ip
+    both = (ik >= 0) & (ip >= 0)
+    near = both & ((tk - tp).abs() <= T_RTOL * tp.abs())
+    ties = int((~same & near).sum())
+    bad = int((~same & ~near).sum())
+    hit = same & (ip >= 0)
+    rel = float(((tk - tp).abs() / tp.abs())[hit].max()) if bool(hit.any()) else 0.0
+    duv = max(float((uk - up)[hit].abs().max()), float((vk - vp)[hit].abs().max())) \
+        if bool(hit.any()) else 0.0
+    err = max(float((tk - tp)[hit].abs().max()), duv) if bool(hit.any()) else 0.0
+    miss_same = bool(torch.equal(tk[~(ip >= 0)], tp[~(ip >= 0)]))
+    log(f"[probes] {label}: {int((ip[0] >= 0).sum())} hits of {ip.shape[1]} "
+        f"rays, {bad} mismatches, {ties} near ties (t within {T_RTOL:g}), "
+        f"rel t err {rel:.2e}, u/v err {duv:.2e}")
+    if bad or rel > T_RTOL or duv > UV_ATOL or not miss_same:
+        raise RuntimeError(f"{label}: kernel disagrees with the plain drain")
+    return dict(mismatches=bad, ties=ties, rel_t_err=rel, uv_err=duv,
+                max_abs_err=err)
+
+
+def _aimed_rays(T, device, seed=13):
+    """(8, AIMED_BLOCKS * 128) rays from the tool's box aimed at centroids
+    of the tool's triangle cloud (bench_mxu.probe_inputs), so that most
+    rays hit."""
+    from glaze_tpu_torch.tools import bench_mxu as bm
+
+    tri = bm.probe_inputs(T)[0]["tri"]
+    rng = np.random.default_rng(seed)
+    n = AIMED_BLOCKS * 128
+    o = rng.uniform(-22, 22, (n, 3)).astype(np.float32)
+    d = (tri.mean(1)[rng.integers(0, tri.shape[0], n)] - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = np.zeros((8, n), np.float32)
+    rays[0:3] = o.T
+    rays[3:6] = d.T
+    return torch.from_numpy(rays).to(device)
+
+
+def probes_t1(entry, results):
+    """T1: each (T, precision) run's check drain against the plain drain,
+    the tool's agreement with f64, times and bounds per (reps, blocks)."""
+    from glaze_tpu_torch.tools import bench_mxu as bm
+    from glaze_tpu_torch.tools.common import timed_call
+
+    for res in results:
+        T, prec = res["T"], res["precision"]
+        mats, centres, rays, order = res["inputs"]
+        plain, p_ms = timed_call(lambda: bm.drain_probe_plain(
+            mats, centres, rays, order, T, prec))
+        s = _drain_diff(res["outputs"], plain, f"T1 T={T} {prec}")
+        aimed = _aimed_rays(T, mats.device)
+        kern = bm.drain_probe(mats, centres, aimed, order, T, prec)
+        hits = _drain_diff(kern, bm.drain_probe_plain(
+            mats, centres, aimed, order, T, prec), f"T1 T={T} {prec} aimed")
+        s.update(hit_agree_f64=res["hit_agree"], id_agree_f64=res["id_agree"],
+                 rel_t_err_f64=res["rel_t_err"], check_plain_ms=p_ms,
+                 aimed={k: hits[k] for k in ("mismatches", "ties",
+                                             "rel_t_err", "uv_err")},
+                 clock_mhz=res["clock_mhz"], timings={})
+        s["max_abs_err"] = max(s["max_abs_err"], hits["max_abs_err"])
+        L, w = mats.shape[0] // 16, mats.shape[1]
+        passes = 3 if prec == "highest" else 1
+        peak = PEAK_TF32 if prec == "highest" else PEAK_BF16_TC
+        for (reps, blocks), ms in res["times"].items():
+            r = 128 * blocks
+            nbytes = L * 16 * w * 4 + L * 12 + reps * 4 + r * 6 * 4 + r * 16
+            b_ms, b_by = _probe_bound(
+                nbytes, passes * 2 * 4 * T * 128 * 16 * reps * blocks, peak,
+                reps * blocks * 128 * (OPS_FEATURES + OPS_RESOLVE * T),
+                blocks=blocks)
+            ns = ms * 1e6 / reps
+            s["timings"][f"reps{reps}_blocks{blocks}"] = dict(
+                ms=ms, bound_ms=b_ms, bound_by=b_by, ns_per_row_leaf=ns,
+                cycles_per_row_leaf=ns * res["clock_mhz"] / 1e3)
+        entry["sets"][f"T{T}_{prec}"] = s
+        if T == 128 and prec == "highest":
+            head = s["timings"]["reps8192_blocks1"]
+            _, plain_ms = timed_call(lambda: bm.drain_probe_plain(
+                mats, centres, rays, res["orders"][8192], T, prec))
+            entry.update(ms=head["ms"], bound_ms=head["bound_ms"],
+                         bound_by=head["bound_by"], plain_ms=plain_ms,
+                         headline="T=128 highest, reps 8192, one block")
+    entry["max_abs_err"] = max(s["max_abs_err"] for s in entry["sets"].values())
+
+
+def _matmul_chain(mat, feat, prec, reps):
+    """The T3a chain with torch.matmul for each product (fp32 with TF32
+    off for highest, bf16 for default, three bf16 products for split3):
+    the library yardstick, launch-bound (four or more launches a step)."""
+    mt = mat.t().contiguous()
+    mh = mt.to(torch.bfloat16)
+    ml = (mt - mh.float()).to(torch.bfloat16)
+    acc = torch.zeros((8, 128), dtype=torch.float32, device=mat.device)
+    for _ in range(reps):
+        f = torch.where(feat > acc[0, 0], feat, -feat)
+        if prec == "highest":
+            out = torch.matmul(mt, f)
+        else:
+            fh = f.to(torch.bfloat16)
+            out = torch.matmul(mh, fh).float()
+            if prec == "split3":
+                fl = (f - fh.float()).to(torch.bfloat16)
+                out = out + torch.matmul(mh, fl).float() + torch.matmul(ml, fh).float()
+        acc = acc + out.reshape(-1, 8, 128).sum(0)
+    return acc
+
+
+def probes_t3a(entry, results):
+    """T3a: each case's kernel against the plain chain on a short chain
+    (to the first feedback flip), the torch.matmul chain's time, bounds."""
+    from glaze_tpu_torch.tools import bench_dot as bd
+    from glaze_tpu_torch.tools.common import cuda_ms, timed_call
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for res in results:
+        mat, feat = res["inputs"]
+        prec, T, batch, reps = res["precision"], res["T"], res["batch"], res["reps"]
+        label = f"T3a T={T} batch={batch} {prec}"
+        k, tk = bd.dot_chain_probe(mat, feat, prec, SHORT_CHAIN, trace=True)
+        p, tp = bd.dot_chain_plain(mat, feat, prec, SHORT_CHAIN, trace=True)
+        first, flips = bd.first_flip(feat, tk, tp)
+        steps = SHORT_CHAIN if first is None else first
+        if first is not None:
+            k, _ = bd.dot_chain_probe(mat, feat, prec, steps)
+            p, _ = bd.dot_chain_plain(mat, feat, prec, steps)
+        err = float((k - p).abs().max())
+        scale = float(p.abs().max())
+        log(f"[probes] {label}: {flips} feedback flips in {SHORT_CHAIN} steps, "
+            f"compared over {steps}: max abs err {err:.3e} of {scale:.3e}")
+        if steps == 0 or err > CHAIN_RTOL * scale:
+            raise RuntimeError(f"{label}: kernel disagrees with the plain chain")
+        _matmul_chain(mat, feat, prec, SHORT_CHAIN)  # warm-up
+        lib_ms = cuda_ms(lambda: _matmul_chain(mat, feat, prec, reps), 1,
+                         warmup=0)
+        w = mat.shape[1]
+        passes = 1 if prec == "default" else 3
+        peak = PEAK_TF32 if prec == "highest" else PEAK_BF16_TC
+        b_ms, b_by = _probe_bound(
+            16 * w * 4 + 16 * 128 * 4 + 8 * 128 * 4,
+            passes * 2 * w * 128 * 16 * reps, peak,
+            reps * (w * 128 + 16 * 128 + 8 * 128), blocks=1)
+        entry["sets"][f"T{T}_b{batch}_{prec}"] = dict(
+            ms=res["ms"], cycles_per_dot=res["cycles_per_dot"],
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, flips=flips,
+            compared_steps=steps, max_abs_err=err)
+        if (T, batch, prec) == (128, 1, "highest"):
+            _, plain_ms = timed_call(lambda: bd.dot_chain_plain(mat, feat, prec, reps))
+            entry.update(ms=res["ms"], bound_ms=b_ms, bound_by=b_by,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         headline="T=128 batch=1 highest, reps 4096")
+    entry["max_abs_err"] = max(s["max_abs_err"] for s in entry["sets"].values())
+
+
+def probes_t3b(entry, results):
+    """T3b: the kernel against the plain chain on a short chain, bounds."""
+    from glaze_tpu_torch.tools import bench_dot as bd
+    from glaze_tpu_torch.tools.common import timed_call
+
+    for res in results:
+        T, reps = res["T"], res["reps"]
+        mat, feat = res["inputs"]
+        k = bd.resolve_chain_probe(mat, feat, T, SHORT_CHAIN)
+        p = bd.as_rows(bd.resolve_chain_plain(mat, feat, T, SHORT_CHAIN),
+                       bd.T_INIT)
+        s = _drain_diff(k, p, f"T3b T={T} ({SHORT_CHAIN} steps)")
+        b_ms, b_by = _probe_bound(
+            16 * 4 * T * 4 + 16 * 128 * 4 + 128 * 16,
+            3 * 2 * 4 * T * 128 * 16 * reps, PEAK_TF32,
+            reps * 128 * (OPS_RESOLVE * T + 16), blocks=1)
+        s.update(ms=res["ms"], cycles=res["cycles"], bound_ms=b_ms,
+                 bound_by=b_by)
+        entry["sets"][f"T{T}"] = s
+        if T == 128:
+            _, plain_ms = timed_call(lambda: bd.resolve_chain_plain(mat, feat, T, reps))
+            entry.update(ms=res["ms"], bound_ms=b_ms, bound_by=b_by,
+                         plain_ms=plain_ms, headline="T=128, reps 4096")
+    entry["max_abs_err"] = max(s["max_abs_err"] for s in entry["sets"].values())
+
+
+def probes_t2(entry, bvh, o3, d3, results):
+    """T2: each (variant, packet) run on the 1080p camera rays against the
+    plain walk of the same rays (iterations and outputs exact; A within 1
+    ulp per added term), bounds from the plain walk's counts."""
+    from glaze_tpu_torch.tools import exp_overhead as eo
+    from glaze_tpu_torch.tools.common import timed_call
+
+    r = o3[0].shape[0]
+    for res in results:
+        v, packet = res["variant"], res["packet"]
+        stats = {}
+        (tp, ip), p_ms = timed_call(lambda: eo.walk_overhead_plain(
+            bvh, o3, d3, v, packet, stats))
+        tk, ik = res["t"], res["iters"]
+        ulps = int(ulp_diff(tk, tp).max())
+        same_iters = bool(torch.equal(ik, ip))
+        log(f"[probes] T2 {v} packet {packet}: {ip.numel()} packets, "
+            f"{float(ip.float().mean()):.1f} iterations each (max "
+            f"{int(ip.max())}), iterations {'equal' if same_iters else 'DIFFER'}, "
+            f"outputs max {ulps} ulp apart, plain walk {p_ms / 1e3:.1f} s")
+        if not same_iters or ulps > (8 if v == "A" else 0):
+            raise RuntimeError(f"T2 {v}/{packet}: kernel disagrees with the plain walk")
+        n_packets = r // packet
+        slab_tests = int(ip.sum()) * packet
+        tri_tests = int(stats["leaf_bodies"].sum()) * 8 * packet if v == "A" else 0
+        nbytes = (r * (6 * 4 + 4) + n_packets * 4
+                  + stats["nodes_read"] * BYTES_PER_NODE
+                  + stats["tri_rows_read"] * 8 * BYTES_PER_TRI)
+        b_ms, b_by = _probe_bound(nbytes, ops=slab_tests * OPS_PER_NODE
+                                  + tri_tests * OPS_PER_TRI)
+        entry["sets"][f"{v}_packet{packet}"] = dict(
+            rays=r, ms=res["ms"], plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+            mean_iters=res["mean_iters"], max_iters=int(ip.max()),
+            sm_cycles_per_iter=res["cycles_per_iter"],
+            leaf_bodies=int(stats["leaf_bodies"].sum()),
+            nodes_read=stats["nodes_read"], max_ulp=ulps,
+            max_abs_err=float((tk - tp).abs().max()))
+        if (v, packet) == ("A", 2048):
+            entry.update(ms=res["ms"], plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by=b_by, headline="A, packet 2048, 1080p rays")
+    entry["max_abs_err"] = max(s["max_abs_err"] for s in entry["sets"].values())
+
+
+def probes_t4(entry, results):
+    """T4: each dtype and size against the plain loop (every element
+    exact), bounds (f32 at 67 TFLOP/s, packed bf16 at 133.8)."""
+    from glaze_tpu_torch.tools import bench_bf16_slab as bs
+    from glaze_tpu_torch.tools.common import timed_call
+
+    for res in results:
+        o, i, nodes = res["inputs"]
+        name = "bf16" if res["dtype"] == torch.bfloat16 else "f32"
+        plain, p_ms = timed_call(lambda: bs.slab_rate_plain(o, i, nodes, res["iters"]))
+        differ = int((res["out"] != plain).sum())
+        log(f"[probes] T4 {name} {res['rows']} rows: {differ} of "
+            f"{plain.numel()} elements differ from the plain loop")
+        if differ:
+            raise RuntimeError(f"T4 {name}: kernel disagrees with the plain loop")
+        n = o.numel()
+        per_thread = 2 if name == "bf16" else 1
+        b_ms, b_by = _probe_bound(
+            n * o.element_size() * 3 + nodes.numel() * 4,
+            ops=n * res["iters"] * bs.OPS_PER_TEST,
+            ops_peak=PEAK_BF16 if name == "bf16" else PEAK_F32,
+            blocks=-(-n // (256 * per_thread)))
+        entry["sets"][f"{name}_{res['rows']}rows"] = dict(
+            ms=res["ms"], gtest_per_s=res["rate"], plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
+        if (name, res["rows"]) == ("bf16", bs.FILL_ROWS):
+            entry.update(ms=res["ms"], plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by=b_by, headline=f"bf16, {bs.FILL_ROWS} rows")
+    entry["max_abs_err"] = 0.0
+
+
+def phase_probes():
+    """The probes path: the tools' entry points on the card with every
+    probe counter set to 0 just before and read just after; then each
+    probe kernel against its plain version (launches not counted)."""
+    from glaze_tpu_torch.tools import (bench_bf16_slab, bench_dot, bench_mxu,
+                                       exp_overhead)
+    from glaze_tpu_torch.tools import probes_cuda as pc
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    pc.reset_launch_counts()
+    t1 = bench_mxu.measure(dev)
+    t3a = bench_dot.measure(dev)
+    t3b = bench_dot.measure(dev, resolve=True)
+    bvh, o3, d3, t2 = exp_overhead.measure(dev)
+    t4 = bench_bf16_slab.measure(dev)
+    counts = {fn.__name__: fn.launches for fn in pc.KERNEL_WRAPPERS}
+    log(f"[probes] kernel launches of the probes path: {counts} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not all(counts.values()):
+        raise RuntimeError(f"a probe kernel was never launched: {counts}")
+    entries = {name: _kernel_entry(name, replaces) for name, replaces in PROBES}
+    for name, e in entries.items():
+        e.update(source="glaze_tpu_torch/csrc/probes.cu",
+                 launches_by_path={"probes": counts[name]})
+    probes_t1(entries["fat_drain"], t1)
+    probes_t3a(entries["dot_chain"], t3a)
+    probes_t3b(entries["resolve_chain"], t3b)
+    probes_t2(entries["walk_overhead"], bvh, o3, d3, t2)
+    probes_t4(entries["slab_rate"], t4)
+    for e in entries.values():
+        lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.3f} ms"
+        log(f"[probes] {e['name']}: kernel {e['ms']:.3f} ms, plain "
+            f"{e['plain_ms']:.1f} ms, bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}), library {lib} ({e['headline']})")
+    del bvh, o3, d3, t1, t2, t3a, t3b, t4
+    torch.cuda.empty_cache()
+    log(f"[probes] {time.perf_counter() - t0:.1f} s in all")
+    return entries
 
 
 def phase_scene(workdir):
@@ -327,6 +663,7 @@ def _check_closest(entry, label, bvh, s):
     tie exactly on t (counted), t/u/v within 1 ulp. Adds the set's numbers
     to ``entry``."""
     from glaze_tpu_torch.accel import bvh as B
+    from glaze_tpu_torch.tools.common import cuda_ms
 
     kern_fn, plain_fn = _walks(entry["name"])
     masked = entry["name"] == "closest_hit_masked"
@@ -367,8 +704,8 @@ def _check_closest(entry, label, bvh, s):
         f"{err:g}, plain walk {plain_wall:.1f} s")
     if n_bad or ulps > 1:
         raise RuntimeError(f"{entry['name']} kernel disagrees on {label} rays")
-    k_ms = cuda_time(lambda: kern_fn(bvh, o3, d3, cap_), 5)
-    p_ms = cuda_time(lambda: plain_fn(
+    k_ms = cuda_ms(lambda: kern_fn(bvh, o3, d3, cap_), 5)
+    p_ms = cuda_ms(lambda: plain_fn(
         bvh, torch.stack(o3, -1), torch.stack(d3, -1), cap_), 1, warmup=0)
     b_ms, b_by = _bound(nbytes, stats)
     entry["sets"][label] = dict(
@@ -382,6 +719,7 @@ def _check_anyhit(entry, label, bvh, s):
     plain walker, walking the kernel's own octant order, on the captured
     rays ``s``: every flag exact."""
     from glaze_tpu_torch.accel import bvh as B
+    from glaze_tpu_torch.tools.common import cuda_ms
 
     kern_fn, plain_fn = _walks(entry["name"])
     masked = entry["name"] == "any_hit_masked"
@@ -406,9 +744,9 @@ def _check_anyhit(entry, label, bvh, s):
         f"{plain_wall:.1f} s")
     if n_bad:
         raise RuntimeError(f"{entry['name']} kernel disagrees on {label} rays")
-    k_ms = cuda_time(lambda: kern_fn(bvh, o3, d3, tm, t_min=t_min,
+    k_ms = cuda_ms(lambda: kern_fn(bvh, o3, d3, tm, t_min=t_min,
                                      active=act), 5)
-    p_ms = cuda_time(lambda: plain_fn(
+    p_ms = cuda_ms(lambda: plain_fn(
         bvh, torch.stack(o3, -1), torch.stack(d3, -1), tm, t_min=t_min,
         active=act), 1, warmup=0)
     b_ms, b_by = _bound(nbytes, stats)
@@ -571,11 +909,13 @@ def phase_fat_kernels(path):
 def phase_main_path(label, path, workdir, report, expected, tree=None):
     """The port's CLI on a scene at 1920x1080, 2 spp, on the card, with
     GLAZE_TREE=``tree`` around the call; every kernel counter is set to 0
-    just before and read just after, and must equal ``expected``."""
+    just before and read just after, and must equal ``expected`` (every
+    probe counter 0)."""
     from PIL import Image
 
     from glaze_tpu_torch import cli
     from glaze_tpu_torch.accel import traverse_cuda as tc
+    from glaze_tpu_torch.tools import probes_cuda as pc
 
     out = os.path.join(workdir, f"sponza_{label}.png")
     wrappers = dict(zip(KERNELS, (
@@ -583,12 +923,16 @@ def phase_main_path(label, path, workdir, report, expected, tree=None):
         tc.any_hit_soa_masked, tc.closest_hit_fat_soa, tc.any_hit_fat_soa)))
     with tree_env(tree):
         tc.reset_launch_counts()
+        pc.reset_launch_counts()
         code, renderer, times = cli.run([
             path, out, "--res", f"{RES[0]}x{RES[1]}", "--spp", str(SPP),
             "--seed", str(SEED)])
         launches = {name: fn.launches for name, fn in wrappers.items()}
+        probe_launches = {fn.__name__: fn.launches for fn in pc.KERNEL_WRAPPERS}
     if code != 0:
         raise RuntimeError(f"CLI exited {code}")
+    if any(probe_launches.values()):
+        raise RuntimeError(f"{label} render launched probes {probe_launches}")
     log(f"[main:{label}] kernel launches during the render: {launches} "
         f"(expected {expected})")
     if launches != expected:
@@ -706,6 +1050,7 @@ def main():
     workdir = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     phase_build()
+    probes = phase_probes()
     paths = phase_scene(workdir)
     report = phase_kernels(paths["opaque"])
     report.update(phase_masked_kernels(paths["full"]))
@@ -720,12 +1065,14 @@ def main():
         main_numbers[label] = phase_main_path(label, paths[scene], workdir,
                                               report, expected, tree)
     phase_golden()
+    report.update(probes)
     kernels = []
     for k in report.values():
         kernels.append({key: k[key] for key in (
             "name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "sets")})
+            "bound_by", "library_ms", "sets") + (
+                ("headline",) if "headline" in k else ())})
     log(f"[done] {time.perf_counter() - t_start:.0f} s in all")
     print(json.dumps({"main_path": main_numbers, "card": card}))
     print(json.dumps({"kernels": kernels}))

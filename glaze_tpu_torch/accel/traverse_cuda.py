@@ -6,11 +6,12 @@ the classic tree's ``tri8`` rows, each also in a masked form that honours
 the baked 8x8 opacity cells of a tree with a payload, and closest hit and
 any hit on a fat-leaf tree's coefficient table (its header note says
 which Pallas kernels they replace and what bounds them). They are
-compiled with ``nvcc`` at first use into ``build/`` at the repository
-root, as a shared library with a plain C interface loaded through
-ctypes, and rebuilt when a source under ``csrc/`` is newer than the
-library. A missing ``nvcc``, a failed build or a failed launch raises;
-nothing here falls back to the plain version.
+compiled with ``nvcc`` at first use into ``build/libglaze_traverse.so``
+at the repository root (:mod:`glaze_tpu_torch.cuda_build`: rebuilt when
+``traverse.cu`` is newer than the library), a shared library with a
+plain C interface loaded through ctypes. A missing ``nvcc``, a failed
+build or a failed launch raises; nothing here falls back to the plain
+version.
 
 Each wrapper counts its launches in a plain int attribute
 (``closest_hit_soa.launches``, ``any_hit_soa.launches``,
@@ -22,63 +23,27 @@ incremented only where the kernel is launched.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PKG, "csrc")
-SOURCE = os.path.join(CSRC, "traverse.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-_SO = os.path.join(BUILD_DIR, "libglaze_traverse.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+from glaze_tpu_torch import cuda_build
+
+SOURCE = "traverse.cu"
+LIBRARY = "libglaze_traverse.so"
 
 _lib = None
 build_log = ""
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError("nvcc not found: the CUDA traversal kernels "
-                           "cannot be built")
-    return path
-
-
-def _newest_source() -> float:
-    return max(os.path.getmtime(os.path.join(CSRC, n))
-               for n in os.listdir(CSRC))
-
-
 def build() -> str:
-    """Compiles ``traverse.cu`` (if the library is missing or older than
-    any source under ``csrc/``) and returns the library path.
-    ``build_log`` keeps nvcc's output, including ``-Xptxas -v``'s register
-    and spill report."""
+    """Compiles ``traverse.cu`` if the library is missing or older than it
+    and returns the library path. ``build_log`` keeps nvcc's output of the
+    last build, including ``-Xptxas -v``'s register and spill report."""
     global build_log
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= _newest_source():
-        return _SO
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp, SOURCE]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log[-6000:]}")
-        os.replace(tmp, _SO)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return _SO
+    so, log = cuda_build.build(SOURCE, LIBRARY)
+    if log:
+        build_log = log
+    return so
 
 
 def _load():

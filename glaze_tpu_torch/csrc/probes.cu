@@ -1,0 +1,761 @@
+// Probe kernels for Hopper (sm_90a): the TPU measurement tools of tools/
+// as CUDA kernels, driven by the entry points of glaze_tpu_torch/tools/.
+// None of them is on the render path; each answers one question about
+// the leaf test or the walk loop of the traversal kernels (traverse.cu).
+//
+// Replaces the Pallas kernels of
+//   drain_kernel<P, false>       <- tools/bench_mxu.py:95 make_kernel
+//                                   (pallas_call :189)             (T1)
+//   drain_kernel<kHighest, true> <- tools/bench_dot.py:112
+//                                   run_resolve_case (:167)        (T3b)
+//   dot_chain_kernel<P>          <- tools/bench_dot.py:29 run_case
+//                                   (:76)                          (T3a)
+//   walk_overhead_kernel<V, N>   <- tools/exp_overhead.py:50
+//                                   make_kernel (:148)             (T2)
+//   slab_rate_f32 / slab_rate_bf16 <- tools/bench_bf16_slab.py:38
+//                                   _make_kernel, reached through
+//                                   run (:87, pallas_call :94)     (T4)
+//
+// Precision of the products (the tools' names, their counterparts here;
+// the accumulator is f32 throughout, K = 16 is the tools' F, 10 rows used
+// by the ray features):
+//   highest: 3xTF32 on mma.sync m16n8k8 tf32: hi = cvt.rna.tf32(x),
+//            lo = cvt.rna.tf32(x - hi); hi*hi + hi*lo + lo*hi.
+//   default: one bf16 pass on mma.sync m16n8k16 bf16, inputs rounded to
+//            nearest even (__floats2bfloat162_rn).
+//   split3:  bench_dot.py:50-63's hi/lo bf16 split, three bf16 passes
+//            hi*hi + hi*lo + lo*hi.
+// Products of TF32 or bf16 operands are exact in the f32 accumulator;
+// results differ from the plain torch versions (which sum the same exact
+// products in float64) only in the order and rounding of the sums.
+//
+// drain_kernel (T1, T3b). Function: for each step k of a leaf order, the
+// product of the leaf's (16, 4T) slab, transposed, with the (16, 128)
+// features of a block's 128 rays gives det, u*det, v*det and t*det of
+// every (triangle, ray) pair; the det-scaled closest-hit resolve of
+// bench_mxu.py:138-163 (|det| >= 1e-12, 1e-4 < t < t_best, the lowest
+// column on an exact tie of t, tri = leaf*T + column) updates the ray's
+// best. Features (T1): [o' x d, o', d, 1, 0...] with o' = o - the leaf's
+// centre; (T3b) feat + carry, where the carry grows by ray 0's least
+// valid t of the step times 1e-30 (bench_dot.py:132, :161).
+// Bound on an H100: one block is one SM. Per (128 rays, leaf) the product
+// is 4T x 128 x 16 multiply-adds per pass (3 passes at highest), and the
+// resolve ~14 f32 operations per (triangle, ray) pair; the slab (16 x 4T
+// floats) comes from L2. At T = 128 and highest the product (6.3 MFLOP,
+// 1.7 us at one SM's share of the TF32 rate) outweighs the resolve
+// (230k operations, 0.45 us at its share of the f32 rate); at default the
+// resolve bounds it. In this simple design the resolve's serial scan, one
+// thread per ray with 4 warps per SM, is latency-bound well above both.
+// Design: one block of 4 warps per 128 rays, a loop over the leaf order.
+// Each step copies the slab into shared memory (float4 loads, rows padded
+// by 8 floats so the fragment loads do not conflict) and writes the ray
+// features beside it; each warp owns 32 rays (four n8 tiles, B fragments
+// split once per step in registers) and walks the m16 tiles of a chunk of
+// 32 triangles (det, u, v, t rows), writing the accumulators to shared
+// memory; then each thread resolves its own ray over the chunk's
+// triangles in ascending order. No cp.async double buffering, no wgmma:
+// later work.
+//
+// dot_chain_kernel (T3a). Function: reps dependent products of a (16, W)
+// matrix with f = where(feat > acc[0,0], feat, -feat), each folded into
+// the (8, 128) acc as acc + sum(out.reshape(-1, 8, 128), 0). Bound: the
+// tensor-core rate of one SM (one block). Design: the matrix stays in
+// shared memory for the whole chain; a thread's accumulator fragments
+// hold rows g and g+8 of every m16 tile, both fold row g, so the fold is
+// register-local; acc[0, 0] crosses the block through shared memory, one
+// __syncthreads per step.
+//
+// walk_overhead_kernel (T2). Function: a packet of rays walks octant 0 of
+// nodes16 from node 0 behind one pointer, with no t cap; it enters a node
+// (p + 1) when any ray of the packet hits its box (_slab), a leaf or a
+// miss goes to the skip link, p >= n_nodes ends. Leaf bodies (when any ray
+// hits the leaf): A adds, per ray that hits the leaf box, the t of every
+// Moller-Trumbore hit among the 8 triangles of the leaf's tri8 row; B adds
+// 1 per leaf; C has no leaf body; D descends on p % 3 != 2 with no vote at
+// all (its slab tests are kept alive by a product with a runtime zero).
+// Outputs t per ray (0 for C and D, as the tool writes them) and each
+// packet's iteration count. Packet 2048 is the tool's (one block of 1024
+// threads, 2 rays each, __syncthreads_or); packet 32 is one warp
+// (__any_sync), the card's natural packet. Bound: latency of the
+// dependent node loads and of the vote, not bytes or operations.
+//
+// slab_rate_f32 / slab_rate_bf16 (T4). Function: bench_bf16_slab.py:49-83
+// per element, iters times: the node row k % 64 (by lane, from shared
+// memory), 6 add/sub, 6 mul, 10 min/max, 2 compares, the hit count and
+// the capped t; out = acc + t_cap. f32: one element per thread; bf16: one
+// __nv_bfloat162 (two neighbouring lanes) per thread with packed
+// __hsub2/__hadd2/__hmul2/__hmin2/__hmax2 and packed compares (a bf16
+// compare is exact, as in f32). Bound: the non-tensor f32 or bf16 rate.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace {
+
+constexpr int kF = 16;       // feature rows: the K of every product
+constexpr int kRays = 128;   // rays (columns) of one drain or chain block
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTilesPerWarp = kRays / 8 / kWarps;  // n8 tiles of a warp
+constexpr int kLd = kRays + 8;  // padded row stride of features / outputs
+constexpr int kChunk = 32;      // triangles resolved per pass
+constexpr float kTMin = 1e-4f;
+constexpr float kDetEps = 1e-12f;
+
+enum Prec { kHighest = 0, kDefault = 1, kSplit3 = 2 };
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  uint32_t r;
+  memcpy(&r, &v, 4);
+  return r;
+}
+
+__device__ __forceinline__ __nv_bfloat162 from_bits(uint32_t r) {
+  __nv_bfloat162 v;
+  memcpy(&v, &r, 4);
+  return v;
+}
+
+// (x0, x1) -> packed bf16 hi (x0 in the low half) and lo = bf16(x - hi).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Operand fragments of one m16 x n8 x k16 tile, hi (and lo) parts. TF32
+// takes two k8 steps: a[4 * step + r], b[2 * step + r]; bf16 one k16 step:
+// a[0..3], b[0..1] (PTX ISA, mma.m16n8k8 .tf32 and mma.m16n8k16 .bf16
+// fragment layouts; g = lane / 4, q = lane % 4).
+struct FragA {
+  uint32_t hi[8], lo[8];
+};
+struct FragB {
+  uint32_t hi[4], lo[4];
+};
+
+// A(m, k) = a[k * lda + m]: the (16, M) matrix in shared memory, read as
+// its transpose; the tile's rows are m0 .. m0 + 15.
+template <int P>
+__device__ __forceinline__ FragA load_a(const float* a, int lda, int m0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  FragA f;
+  if constexpr (P == kHighest) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float* k0 = a + (8 * s + q) * lda + m0 + g;
+      const float* k4 = k0 + 4 * lda;
+      split_tf32(k0[0], f.hi[4 * s], f.lo[4 * s]);
+      split_tf32(k0[8], f.hi[4 * s + 1], f.lo[4 * s + 1]);
+      split_tf32(k4[0], f.hi[4 * s + 2], f.lo[4 * s + 2]);
+      split_tf32(k4[8], f.hi[4 * s + 3], f.lo[4 * s + 3]);
+    }
+  } else {
+    const float* k0 = a + 2 * q * lda + m0 + g;  // rows k = 2q, 2q + 1
+    const float* k8 = k0 + 8 * lda;              // rows k = 2q + 8, 2q + 9
+    split_bf16(k0[0], k0[lda], f.hi[0], f.lo[0]);
+    split_bf16(k0[8], k0[lda + 8], f.hi[1], f.lo[1]);
+    split_bf16(k8[0], k8[lda], f.hi[2], f.lo[2]);
+    split_bf16(k8[8], k8[lda + 8], f.hi[3], f.lo[3]);
+  }
+  return f;
+}
+
+// B(k, n) = b[k * ldb + n]; the tile's columns are n0 .. n0 + 7.
+template <int P>
+__device__ __forceinline__ FragB load_b(const float* b, int ldb, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  FragB f;
+  if constexpr (P == kHighest) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float* k0 = b + (8 * s + q) * ldb + n0 + g;
+      split_tf32(k0[0], f.hi[2 * s], f.lo[2 * s]);
+      split_tf32(k0[4 * ldb], f.hi[2 * s + 1], f.lo[2 * s + 1]);
+    }
+  } else {
+    const float* k0 = b + 2 * q * ldb + n0 + g;
+    split_bf16(k0[0], k0[ldb], f.hi[0], f.lo[0]);
+    split_bf16(k0[8 * ldb], k0[9 * ldb], f.hi[1], f.lo[1]);
+  }
+  return f;
+}
+
+template <int P>
+__device__ __forceinline__ void mma_tile(float c[4], const FragA& a,
+                                         const FragB& b) {
+  if constexpr (P == kHighest) {
+    mma_tf32(c, a.hi, b.hi);
+    mma_tf32(c, a.hi + 4, b.hi + 2);
+    mma_tf32(c, a.hi, b.lo);
+    mma_tf32(c, a.hi + 4, b.lo + 2);
+    mma_tf32(c, a.lo, b.hi);
+    mma_tf32(c, a.lo + 4, b.hi + 2);
+  } else {
+    mma_bf16(c, a.hi, b.hi);
+    if constexpr (P == kSplit3) {
+      mma_bf16(c, a.hi, b.lo);
+      mma_bf16(c, a.lo, b.hi);
+    }
+  }
+}
+
+struct DrainArgs {
+  const float* mats;     // (n_leaves * 16, w) leaf slabs
+  int w, T, n_leaves;
+  const float* centres;  // (n_leaves, 3), T1
+  const int* order;      // (reps,) leaf of each step
+  int reps;
+  const float *ox, *oy, *oz, *dx, *dy, *dz;  // (R,) rays, T1
+  const float* feat;     // (16, 128) features, T3b
+  float t_init;
+  float *t_out, *u_out, *v_out;
+  int* tri_out;
+};
+
+template <int P, bool kCarry>
+__global__ void __launch_bounds__(kThreads) drain_kernel(const DrainArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  const int T = p.T;
+  const int lda = 4 * T + 8;
+  float* mat_s = smem;                   // (16, 4T) slab of the step's leaf
+  float* feat_s = mat_s + kF * lda;      // (16, 128) features
+  float* out_s = feat_s + kF * kLd;      // (4 * chunk, 128) products
+  __shared__ float carry_s;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int ray = blockIdx.x * kRays + tid;
+  const int chunk = T < kChunk ? T : kChunk;
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  if constexpr (kCarry) {
+    if (tid == 0) carry_s = 0.0f;
+  } else {
+    ox = p.ox[ray];
+    oy = p.oy[ray];
+    oz = p.oz[ray];
+    dx = p.dx[ray];
+    dy = p.dy[ray];
+    dz = p.dz[ray];
+    feat_s[9 * kLd + tid] = 1.0f;
+    for (int k = 10; k < kF; ++k) feat_s[k * kLd + tid] = 0.0f;
+  }
+  float bt = p.t_init, bu = 0.0f, bv = 0.0f;
+  int btri = -1;
+  for (int step = 0; step < p.reps; ++step) {
+    const int leaf = p.order[step];
+    if (leaf < 0 || leaf >= p.n_leaves) __trap();
+    __syncthreads();  // the last step is done with the slab; carry is set
+    const float4* src = reinterpret_cast<const float4*>(
+        p.mats + (size_t)leaf * kF * p.w);
+    for (int i = tid; i < kF * T; i += kThreads) {
+      const int k = i / T, m4 = i - k * T;
+      *reinterpret_cast<float4*>(mat_s + k * lda + 4 * m4) =
+          __ldg(src + (size_t)k * (p.w / 4) + m4);
+    }
+    if constexpr (kCarry) {
+      const float carry = carry_s;
+      for (int k = 0; k < kF; ++k)
+        feat_s[k * kLd + tid] = __ldg(p.feat + k * kRays + tid) + carry;
+    } else {
+      const float px = ox - __ldg(p.centres + 3 * leaf);
+      const float py = oy - __ldg(p.centres + 3 * leaf + 1);
+      const float pz = oz - __ldg(p.centres + 3 * leaf + 2);
+      feat_s[0 * kLd + tid] = py * dz - pz * dy;
+      feat_s[1 * kLd + tid] = pz * dx - px * dz;
+      feat_s[2 * kLd + tid] = px * dy - py * dx;
+      feat_s[3 * kLd + tid] = px;
+      feat_s[4 * kLd + tid] = py;
+      feat_s[5 * kLd + tid] = pz;
+      feat_s[6 * kLd + tid] = dx;
+      feat_s[7 * kLd + tid] = dy;
+      feat_s[8 * kLd + tid] = dz;
+    }
+    __syncthreads();
+    FragB fb[kTilesPerWarp];
+#pragma unroll
+    for (int j = 0; j < kTilesPerWarp; ++j)
+      fb[j] = load_b<P>(feat_s, kLd, (warp * kTilesPerWarp + j) * 8);
+    bool won = false;  // this step improved the ray's best (T3b's carry)
+    for (int k0 = 0; k0 < T; k0 += chunk) {
+      // out_s row r = quantity * chunk + c (det, ud, vd, td of triangle
+      // k0 + c) is column quantity * T + k0 + c of the slab
+      for (int row0 = 0; row0 < 4 * chunk; row0 += 16) {
+        const int quantity = row0 / chunk;
+        const FragA fa =
+            load_a<P>(mat_s, lda, quantity * T + k0 + row0 - quantity * chunk);
+#pragma unroll
+        for (int j = 0; j < kTilesPerWarp; ++j) {
+          float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_tile<P>(c, fa, fb[j]);
+          const int n = (warp * kTilesPerWarp + j) * 8 + 2 * q;
+          *reinterpret_cast<float2*>(out_s + (row0 + g) * kLd + n) =
+              make_float2(c[0], c[1]);
+          *reinterpret_cast<float2*>(out_s + (row0 + g + 8) * kLd + n) =
+              make_float2(c[2], c[3]);
+        }
+      }
+      __syncthreads();
+      for (int c = 0; c < chunk; ++c) {
+        const float det = out_s[c * kLd + tid];
+        const float ud = out_s[(chunk + c) * kLd + tid];
+        const float vd = out_s[(2 * chunk + c) * kLd + tid];
+        const float td = out_s[(3 * chunk + c) * kLd + tid];
+        const bool ok = fabsf(det) >= kDetEps;
+        const float inv = ok ? 1.0f / det : 0.0f;
+        const float t = td * inv;
+        if (ok && ud * det >= 0.0f && vd * det >= 0.0f &&
+            (ud + vd) * det <= det * det && t > kTMin && t < bt) {
+          bt = t;
+          btri = leaf * T + k0 + c;
+          bu = ud * inv;
+          bv = vd * inv;
+          won = true;
+        }
+      }
+      __syncthreads();
+    }
+    if constexpr (kCarry) {
+      if (tid == 0) carry_s = carry_s + (won ? bt : INFINITY) * 1e-30f;
+    }
+  }
+  p.t_out[ray] = bt;
+  p.tri_out[ray] = btri;
+  p.u_out[ray] = bu;
+  p.v_out[ray] = bv;
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+dot_chain_kernel(const float* __restrict__ mat, int w,
+                 const float* __restrict__ feat, int reps,
+                 float* __restrict__ out, float* __restrict__ trace) {
+  extern __shared__ __align__(16) float smem[];
+  const int lda = w + 8;
+  float* mat_s = smem;               // (16, W), resident for the chain
+  float* f_s = mat_s + kF * lda;     // (16, 128) signed features
+  __shared__ float a00_s;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const float4* src = reinterpret_cast<const float4*>(mat);
+  for (int i = tid; i < kF * (w / 4); i += kThreads) {
+    const int k = i / (w / 4), m4 = i - k * (w / 4);
+    *reinterpret_cast<float4*>(mat_s + k * lda + 4 * m4) = __ldg(src + i);
+  }
+  float fcol[kF];
+#pragma unroll
+  for (int k = 0; k < kF; ++k) fcol[k] = __ldg(feat + k * kRays + tid);
+  float acc[kTilesPerWarp][2] = {};
+  if (tid == 0) a00_s = 0.0f;
+  __syncthreads();
+  for (int step = 0; step < reps; ++step) {
+    const float a00 = a00_s;
+#pragma unroll
+    for (int k = 0; k < kF; ++k)
+      f_s[k * kLd + tid] = fcol[k] > a00 ? fcol[k] : -fcol[k];
+    __syncthreads();
+    FragB fb[kTilesPerWarp];
+#pragma unroll
+    for (int j = 0; j < kTilesPerWarp; ++j)
+      fb[j] = load_b<P>(f_s, kLd, (warp * kTilesPerWarp + j) * 8);
+    float s[kTilesPerWarp][2] = {};
+    for (int m0 = 0; m0 < w; m0 += 16) {
+      const FragA fa = load_a<P>(mat_s, lda, m0);
+#pragma unroll
+      for (int j = 0; j < kTilesPerWarp; ++j) {
+        float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_tile<P>(c, fa, fb[j]);
+        s[j][0] += c[0] + c[2];  // rows g and g + 8 both fold into row g
+        s[j][1] += c[1] + c[3];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kTilesPerWarp; ++j) {
+      acc[j][0] += s[j][0];
+      acc[j][1] += s[j][1];
+    }
+    if (tid == 0) {  // row 0, column 0: warp 0, g = q = 0, tile 0
+      a00_s = acc[0][0];
+      if (trace != nullptr) trace[step] = acc[0][0];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < kTilesPerWarp; ++j) {
+    const int n = (warp * kTilesPerWarp + j) * 8 + 2 * q;
+    out[g * kRays + n] = acc[j][0];
+    out[g * kRays + n + 1] = acc[j][1];
+  }
+}
+
+// T2 -------------------------------------------------------------------
+
+enum Variant { kA = 0, kB = 1, kC = 2, kD = 3 };
+
+// glaze_tpu/accel/traverse_pallas.py _safe_inv: every |d| < 1e-20 -> +1e20
+__device__ __forceinline__ float pallas_inv(float d) {
+  return fabsf(d) < 1e-20f ? 1e20f : 1.0f / d;
+}
+
+struct PRay {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+};
+
+// _slab with t_cap = inf: a = bmin.xyz, bmax.x; b = bmax.yz, meta, skip
+__device__ __forceinline__ bool slab_nocap(const float4 a, const float4 b,
+                                           const PRay& r) {
+  const float t0x = (a.x - r.ox) * r.ix;
+  const float t1x = (a.w - r.ox) * r.ix;
+  const float t0y = (a.y - r.oy) * r.iy;
+  const float t1y = (b.x - r.oy) * r.iy;
+  const float t0z = (a.z - r.oz) * r.iz;
+  const float t1z = (b.y - r.oz) * r.iz;
+  const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                         fminf(t0z, t1z));
+  const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                         fmaxf(t0z, t1z));
+  return (tn <= tf) && (tf >= kTMin) && (tn <= INFINITY);
+}
+
+// _tri_hit_rows: Moller-Trumbore against triangle k of tri8.
+__device__ __forceinline__ bool mt_hit(const float4* __restrict__ tri8, int k,
+                                       const PRay& r, float& t) {
+  const float4 a = __ldg(tri8 + 4 * (size_t)k);
+  const float4 b = __ldg(tri8 + 4 * (size_t)k + 1);
+  const float4 c = __ldg(tri8 + 4 * (size_t)k + 2);
+  const float v0x = a.x, v0y = a.y, v0z = a.z;
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c.x;
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool ok = fabsf(det) >= kDetEps;
+  const float inv = ok ? 1.0f / det : 0.0f;
+  const float tvx = r.ox - v0x;
+  const float tvy = r.oy - v0y;
+  const float tvz = r.oz - v0z;
+  const float u = (tvx * px + tvy * py + tvz * pz) * inv;
+  const float qx = tvy * e1z - tvz * e1y;
+  const float qy = tvz * e1x - tvx * e1z;
+  const float qz = tvx * e1y - tvy * e1x;
+  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
+  t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+  return ok && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > kTMin);
+}
+
+struct WalkArgs {
+  const float* nodes16;
+  const float* tri8;
+  int n_nodes;
+  const float *ox, *oy, *oz, *dx, *dy, *dz;
+  int n_rays;
+  float zero;  // 0.0f, from the caller: keeps D's slab tests alive
+  float* t_out;
+  int* iters_out;
+};
+
+template <int V, int kPacket>
+__global__ void __launch_bounds__(kPacket == 2048 ? 1024 : 256)
+walk_overhead_kernel(const WalkArgs p) {
+  constexpr int kPer = kPacket == 2048 ? 2 : 1;  // rays per thread
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int packet = kPacket == 2048 ? blockIdx.x : gid >> 5;
+  if (packet * kPacket >= p.n_rays) return;  // whole packets only
+  PRay r[kPer];
+  int idx[kPer];
+  float acc[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    idx[j] = kPacket == 2048 ? packet * kPacket + threadIdx.x + 1024 * j : gid;
+    r[j].ox = p.ox[idx[j]];
+    r[j].oy = p.oy[idx[j]];
+    r[j].oz = p.oz[idx[j]];
+    r[j].dx = p.dx[idx[j]];
+    r[j].dy = p.dy[idx[j]];
+    r[j].dz = p.dz[idx[j]];
+    r[j].ix = pallas_inv(r[j].dx);
+    r[j].iy = pallas_inv(r[j].dy);
+    r[j].iz = pallas_inv(r[j].dz);
+    acc[j] = 0.0f;
+  }
+  const float4* nodes = reinterpret_cast<const float4*>(p.nodes16);  // octant 0
+  const float4* tris = reinterpret_cast<const float4*>(p.tri8);
+  int ptr = 0, iters = 0;
+  float hits = 0.0f;
+  while (ptr < p.n_nodes) {
+    ++iters;
+    const float4 a = __ldg(nodes + 2 * ptr);
+    const float4 b = __ldg(nodes + 2 * ptr + 1);
+    const int meta = __float_as_int(b.z);
+    const int skip = __float_as_int(b.w);
+    const bool is_leaf = meta >= 0;
+    bool hit[kPer];
+    bool mine = false;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      hit[j] = slab_nocap(a, b, r[j]);
+      mine = mine || hit[j];
+    }
+    if constexpr (V == kD) {
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) hits += hit[j] ? 1.0f : 0.0f;
+      ptr = (ptr % 3 != 2 && !is_leaf) ? ptr + 1 : skip;
+      continue;
+    }
+    const bool any = kPacket == 2048 ? __syncthreads_or(mine) != 0
+                                     : __any_sync(0xffffffffu, mine) != 0;
+    if constexpr (V == kB) {
+      if (any && is_leaf) {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) acc[j] = acc[j] + 1.0f;
+      }
+    } else if constexpr (V == kA) {
+      if (any && is_leaf) {
+        const int first = (meta >> 3) & ~7;  // the leaf's whole tri8 row
+        for (int k = 0; k < 8; ++k) {
+#pragma unroll
+          for (int j = 0; j < kPer; ++j) {
+            float t;
+            const bool h = mt_hit(tris, first + k, r[j], t);
+            acc[j] = acc[j] + ((h && hit[j]) ? t : 0.0f);
+          }
+        }
+      }
+    }
+    ptr = (any && !is_leaf) ? ptr + 1 : skip;
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)
+    p.t_out[idx[j]] = V == kD ? acc[j] + hits * p.zero : acc[j];
+  if ((kPacket == 2048 ? threadIdx.x : (threadIdx.x & 31)) == 0)
+    p.iters_out[packet] = iters;
+}
+
+// T4 -------------------------------------------------------------------
+
+constexpr int kSlabThreads = 256;
+constexpr int kNodeRows = 64;
+constexpr int kLanes = 128;
+
+__device__ __forceinline__ void load_nodes(const float* __restrict__ nodes,
+                                           float* nodes_s) {
+  for (int i = threadIdx.x; i < kNodeRows * kLanes; i += blockDim.x)
+    nodes_s[i] = __ldg(nodes + i);
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kSlabThreads)
+slab_rate_f32(const float* __restrict__ o, const float* __restrict__ in,
+              const float* __restrict__ nodes, int n, int iters, float one,
+              float* __restrict__ out) {
+  __shared__ float nodes_s[kNodeRows * kLanes];
+  load_nodes(nodes, nodes_s);
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const int lane = e % kLanes;
+  const float ox = o[e], ix = in[e];
+  float t_cap = ox * one, acc = 0.0f;
+  for (int k = 0; k < iters; ++k) {
+    const float b = nodes_s[(k % kNodeRows) * kLanes + lane];
+    const float t0x = (b - ox) * ix;
+    const float t1x = (b + ox) * ix;
+    const float t0y = (b - ox * one) * ix;
+    const float t1y = (b + ox * one) * ix;
+    const float t0z = (b - ix) * ox;
+    const float t1z = (b + ix) * ox;
+    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                           fminf(t0z, t1z));
+    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                           fmaxf(t0z, t1z));
+    const bool hit = (tn <= tf) && (tf >= 0.0f);
+    acc = acc + (hit ? 1.0f : 0.0f);
+    t_cap = hit ? fminf(t_cap, tf) : t_cap;
+  }
+  out[e] = acc + t_cap;
+}
+
+__global__ void __launch_bounds__(kSlabThreads)
+slab_rate_bf16(const __nv_bfloat162* __restrict__ o,
+               const __nv_bfloat162* __restrict__ in,
+               const float* __restrict__ nodes, int n2, int iters, float one_f,
+               __nv_bfloat162* __restrict__ out) {
+  __shared__ float nodes_s[kNodeRows * kLanes];
+  load_nodes(nodes, nodes_s);
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;  // element pair
+  if (e >= n2) return;
+  const int lane = 2 * (e % (kLanes / 2));
+  const __nv_bfloat162 one = __float2bfloat162_rn(one_f);
+  const __nv_bfloat162 zero = __float2bfloat162_rn(0.0f);
+  const __nv_bfloat162 ox = o[e], ix = in[e];
+  __nv_bfloat162 t_cap = __hmul2(ox, one), acc = zero;
+  for (int k = 0; k < iters; ++k) {
+    const float2 nb =
+        *reinterpret_cast<const float2*>(nodes_s + (k % kNodeRows) * kLanes + lane);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(nb.x, nb.y);
+    const __nv_bfloat162 oxo = __hmul2(ox, one);
+    const __nv_bfloat162 t0x = __hmul2(__hsub2(b, ox), ix);
+    const __nv_bfloat162 t1x = __hmul2(__hadd2(b, ox), ix);
+    const __nv_bfloat162 t0y = __hmul2(__hsub2(b, oxo), ix);
+    const __nv_bfloat162 t1y = __hmul2(__hadd2(b, oxo), ix);
+    const __nv_bfloat162 t0z = __hmul2(__hsub2(b, ix), ox);
+    const __nv_bfloat162 t1z = __hmul2(__hadd2(b, ix), ox);
+    const __nv_bfloat162 tn = __hmax2(
+        __hmax2(__hmin2(t0x, t1x), __hmin2(t0y, t1y)), __hmin2(t0z, t1z));
+    const __nv_bfloat162 tf = __hmin2(
+        __hmin2(__hmax2(t0x, t1x), __hmax2(t0y, t1y)), __hmax2(t0z, t1z));
+    // 1.0 or 0.0 per half; bf16 1.0 is 0x3F80, so bit 7 marks a hit
+    const __nv_bfloat162 hit = __hmul2(__hle2(tn, tf), __hge2(tf, zero));
+    acc = __hadd2(acc, hit);
+    const uint32_t m = ((bits(hit) >> 7) & 0x00010001u) * 0xFFFFu;
+    t_cap = from_bits((bits(__hmin2(t_cap, tf)) & m) | (bits(t_cap) & ~m));
+  }
+  out[e] = __hadd2(acc, t_cap);
+}
+
+// ----------------------------------------------------------------------
+
+// Launches kernel<<<blocks, threads, smem, stream>>>(args...), first
+// allowing dynamic shared memory above the 48 KB default where needed.
+template <class Kernel, class... Args>
+int launch(Kernel kernel, int blocks, int threads, size_t smem,
+           cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<blocks, threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int P, bool kCarry>
+int launch_drain(const DrainArgs& a, int n_rays, cudaStream_t s) {
+  const int chunk = a.T < kChunk ? a.T : kChunk;
+  const size_t smem =
+      sizeof(float) * (kF * (4 * a.T + 8) + kF * kLd + 4 * chunk * kLd);
+  return launch(drain_kernel<P, kCarry>, n_rays / kRays, kThreads, smem, s, a);
+}
+
+template <int P>
+int launch_chain(const float* mat, int w, const float* feat, int reps,
+                 float* out, float* trace, cudaStream_t s) {
+  const size_t smem = sizeof(float) * (kF * (w + 8) + kF * kLd);
+  return launch(dot_chain_kernel<P>, 1, kThreads, smem, s, mat, w, feat, reps,
+                out, trace);
+}
+
+template <int V>
+int launch_walk(const WalkArgs& a, int packet, cudaStream_t s) {
+  if (packet == 2048)
+    return launch(walk_overhead_kernel<V, 2048>, a.n_rays / 2048, 1024, 0, s,
+                  a);
+  return launch(walk_overhead_kernel<V, 32>, (a.n_rays + 255) / 256, 256, 0,
+                s, a);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry launches on ``stream`` and returns cudaGetLastError() (0 = ok);
+// shapes are checked by the Python wrappers (glaze_tpu_torch/tools/
+// probes_cuda.py). prec: 0 highest, 1 default, 2 split3.
+
+int glaze_probe_drain(int prec, int carry, const float* mats, int w, int T,
+                      int n_leaves, const float* centres, const int* order,
+                      int reps, const float* ox, const float* oy,
+                      const float* oz, const float* dx, const float* dy,
+                      const float* dz, const float* feat, int n_rays,
+                      float t_init, float* t_out, int* tri_out, float* u_out,
+                      float* v_out, void* stream) {
+  const DrainArgs a{mats, w,  T,  n_leaves, centres, order, reps, ox,
+                    oy,   oz, dx, dy,       dz,      feat,  t_init, t_out,
+                    u_out, v_out, tri_out};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (carry) return launch_drain<kHighest, true>(a, n_rays, s);
+  if (prec == kHighest) return launch_drain<kHighest, false>(a, n_rays, s);
+  return launch_drain<kDefault, false>(a, n_rays, s);
+}
+
+int glaze_probe_dot_chain(int prec, const float* mat, int w, const float* feat,
+                          int reps, float* out, float* trace, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (prec == kHighest)
+    return launch_chain<kHighest>(mat, w, feat, reps, out, trace, s);
+  if (prec == kDefault)
+    return launch_chain<kDefault>(mat, w, feat, reps, out, trace, s);
+  return launch_chain<kSplit3>(mat, w, feat, reps, out, trace, s);
+}
+
+int glaze_probe_walk(int variant, int packet, const float* nodes16,
+                     const float* tri8, int n_nodes, const float* ox,
+                     const float* oy, const float* oz, const float* dx,
+                     const float* dy, const float* dz, int n_rays, float zero,
+                     float* t_out, int* iters_out, void* stream) {
+  const WalkArgs a{nodes16, tri8, n_nodes, ox,   oy,    oz,
+                   dx,      dy,   dz,      n_rays, zero, t_out, iters_out};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case kA: return launch_walk<kA>(a, packet, s);
+    case kB: return launch_walk<kB>(a, packet, s);
+    case kC: return launch_walk<kC>(a, packet, s);
+    default: return launch_walk<kD>(a, packet, s);
+  }
+}
+
+int glaze_probe_slab_rate(int bf16, const void* o, const void* in,
+                          const float* nodes, int n, int iters, float one,
+                          void* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    const int n2 = n / 2;
+    return launch(slab_rate_bf16, (n2 + kSlabThreads - 1) / kSlabThreads,
+                  kSlabThreads, 0, s, static_cast<const __nv_bfloat162*>(o),
+                  static_cast<const __nv_bfloat162*>(in), nodes, n2, iters,
+                  one, static_cast<__nv_bfloat162*>(out));
+  }
+  return launch(slab_rate_f32, (n + kSlabThreads - 1) / kSlabThreads,
+                kSlabThreads, 0, s, static_cast<const float*>(o),
+                static_cast<const float*>(in), nodes, n, iters, one,
+                static_cast<float*>(out));
+}
+
+const char* glaze_probe_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -479,8 +479,10 @@ def test_masked_kernels_refuse_cpu_and_missing_nvcc(lace, monkeypatch):
         tc.any_hit_soa_masked(ts.bvh_opaque, o3, d3, torch.ones(4))
     assert tc.closest_hit_soa_masked.launches == 0
     assert tc.any_hit_soa_masked.launches == 0
-    monkeypatch.setattr(tc.shutil, "which", lambda name: None)
-    monkeypatch.setattr(tc.os.path, "exists", lambda path: False)
+    from glaze_tpu_torch import cuda_build
+
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         tc.build()
 

@@ -291,6 +291,7 @@ def test_masked_dispatch_on_fat_tree(monkeypatch):
 def test_fat_wrappers_refuse_cpu_tensors(monkeypatch):
     """The fat kernels' wrappers launch or raise: CPU rays are an error,
     and so is a failed build."""
+    from glaze_tpu_torch import cuda_build
     from glaze_tpu_torch.accel import fat, traverse_cuda as tc
 
     tri = np.asarray([[[0, 0, 0], [1, 0, 0], [0, 1, 0]]], np.float32)
@@ -305,9 +306,9 @@ def test_fat_wrappers_refuse_cpu_tensors(monkeypatch):
     assert (tc.closest_hit_fat_soa.launches,
             tc.any_hit_fat_soa.launches) == before
     monkeypatch.setattr(tc, "_lib", None)
-    monkeypatch.setattr(tc, "_nvcc", lambda: (_ for _ in ()).throw(
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
-    monkeypatch.setattr(tc, "_SO", os.path.join(str(tc.BUILD_DIR), "absent.so"))
+    monkeypatch.setattr(tc, "LIBRARY", "absent.so")
     with pytest.raises(RuntimeError, match="nvcc"):
         tc._load()
     tc.reset_launch_counts()
@@ -315,27 +316,41 @@ def test_fat_wrappers_refuse_cpu_tensors(monkeypatch):
 
 
 def test_build_follows_every_csrc_source(monkeypatch, tmp_path):
-    """build() rebuilds when any file under csrc/ is newer than the
-    library (here: tries nvcc, which this machine lacks)."""
+    """A library is rebuilt when its own source or a header it includes
+    (directly or through another header) is newer than it (here: it tries
+    nvcc, stubbed to raise); another library's source does not touch
+    it."""
+    from glaze_tpu_torch import cuda_build
     from glaze_tpu_torch.accel import traverse_cuda as tc
 
     src = tmp_path / "csrc"
     src.mkdir()
-    (src / "traverse.cu").write_text("//")
-    (src / "extra.cuh").write_text("//")
-    so = tmp_path / "lib.so"
+    build_dir = tmp_path / "build"
+    build_dir.mkdir()
+    for name, text in (("traverse.cu", '#include "extra.cuh"\n'),
+                       ("extra.cuh", '#include "nested.cuh"\n'),
+                       ("nested.cuh", "//"), ("probes.cu", "//")):
+        (src / name).write_text(text)
+        os.utime(src / name, (1000, 1000))
+    so = build_dir / tc.LIBRARY
     so.write_text("")
-    os.utime(src / "traverse.cu", (1000, 1000))
     os.utime(so, (2000, 2000))
-    os.utime(src / "extra.cuh", (1000, 1000))
-    monkeypatch.setattr(tc, "CSRC", str(src))
-    monkeypatch.setattr(tc, "_SO", str(so))
+    monkeypatch.setattr(cuda_build, "CSRC", str(src))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(build_dir))
     assert tc.build() == str(so)  # up to date: no compiler needed
-    os.utime(src / "extra.cuh", (3000, 3000))
-    monkeypatch.setattr(tc, "_nvcc", lambda: (_ for _ in ()).throw(
+    os.utime(src / "probes.cu", (3000, 3000))
+    assert tc.build() == str(so)  # another library's source
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
+    assert cuda_build.build("traverse.cu", tc.LIBRARY) == (str(so), "")
+    assert cuda_build.local_headers("traverse.cu") == ["extra.cuh", "nested.cuh"]
+    os.utime(src / "nested.cuh", (3000, 3000))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_build.build("traverse.cu", tc.LIBRARY)
+    os.utime(src / "traverse.cu", (3000, 3000))
     with pytest.raises(RuntimeError, match="nvcc"):
         tc.build()
+    assert sorted(os.listdir(build_dir)) == [tc.LIBRARY]  # no temp left
 
 
 # ---------------------------------------------------------------------------

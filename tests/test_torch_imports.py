@@ -10,7 +10,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "glaze_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "glaze_tpu", "tools"}
 
 
 def _port_sources():
@@ -34,13 +34,85 @@ def test_port_sources_found():
     files = _port_sources()
     assert len(files) > 30
     assert any(f.endswith(os.path.join("accel", "traverse_cuda.py")) for f in files)
+    assert any(f.endswith(os.path.join("tools", "probes_cuda.py")) for f in files)
+
+
+@pytest.mark.parametrize("source,bad", [
+    ("import tools.bench_mxu\n", "tools"),
+    ("from tools import exp_overhead\n", "tools"),
+    ("from glaze_tpu_torch.tools import bench_mxu\n", None),
+    ("from . import common\n", None),
+])
+def test_forbidden_roots_cover_the_tpu_tools(source, bad, tmp_path):
+    """The import walk flags the TPU tools' package and not the port's own
+    glaze_tpu_torch.tools."""
+    path = tmp_path / "m.py"
+    path.write_text(source)
+    roots = [name for _, name in _imported_roots(str(path))]
+    assert [r for r in roots if r in FORBIDDEN] == ([bad] if bad else [])
+
+
+# each tool at a size the CPU runs in seconds
+TOOL_ARGS = {
+    "bench_mxu": ["16", "highest"],
+    "bench_dot": ["--reps", "1"],
+    "exp_overhead": ["--rays", "2048", "D"],
+    "bench_bf16_slab": ["--iters", "1"],
+}
+
+
+@pytest.mark.parametrize("tool", sorted(TOOL_ARGS))
+def test_tool_entry_points_need_cuda_unless_cpu(tool, monkeypatch, capsys):
+    """python -m glaze_tpu_torch.tools.<tool> runs on cuda by default and
+    raises without it; --device cpu runs the plain versions."""
+    import importlib
+
+    mod = importlib.import_module(f"glaze_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(TOOL_ARGS[tool])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(TOOL_ARGS[tool] + ["--device", "cuda"])
+    assert mod.main(TOOL_ARGS[tool] + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "not measured" in out or "hit agree" in out
+
+
+def test_probe_wrappers_refuse_cpu_tensors():
+    """The probe kernels' wrappers launch or raise: a CPU tensor is an
+    error there (the tools choose the plain version before), and no launch
+    is counted."""
+    import numpy as np
+
+    from glaze_tpu_torch.accel import build_bvh
+    from glaze_tpu_torch.tools import probes_cuda as pc
+
+    before = {fn.__name__: fn.launches for fn in pc.KERNEL_WRAPPERS}
+    mats = torch.zeros((16, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        pc.fat_drain(mats, torch.zeros((1, 3)), torch.zeros(4, dtype=torch.int32),
+                     (torch.zeros(128),) * 3, (torch.ones(128),) * 3, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        pc.resolve_chain(mats, torch.zeros((16, 128)), 16, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        pc.dot_chain(mats, torch.zeros((16, 128)), "highest", 4)
+    tri = np.asarray([[[0, 0, 0], [1, 0, 0], [0, 1, 0]]], np.float32)
+    bvh, _ = build_bvh(tri, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        pc.walk_overhead(bvh.nodes16, bvh.tri8, bvh.n_nodes,
+                         (torch.zeros(32),) * 3, (torch.ones(32),) * 3, "A", 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        pc.slab_rate(torch.zeros((2, 128)), torch.ones((2, 128)),
+                     torch.zeros((64, 128)), 4)
+    assert {fn.__name__: fn.launches for fn in pc.KERNEL_WRAPPERS} == before
 
 
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_or_glaze_tpu_import(path):
     """Exact top-level names: 'glaze_tpu_torch' is allowed, 'glaze_tpu' is
-    not (a prefix test would confuse the two)."""
+    not (a prefix test would confuse the two), nor the TPU tools' package
+    'tools' (glaze_tpu_torch.tools keeps its own copies)."""
     bad = [(line, name) for line, name in _imported_roots(path)
            if name in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"

@@ -1,0 +1,490 @@
+"""The probe tools (glaze_tpu_torch.tools) against the TPU tools in tools/.
+
+On the CPU each probe's plain torch version (the kernel's counterpart) is
+held against the tool's own Pallas kernel, run in interpret mode, on the
+same NumPy inputs; nothing in tools/ changes for that. XLA:CPU computes an
+f32 product at DEFAULT precision in full f32, so the port's ``default``
+(one bf16 pass) is held against a NumPy model of that pass instead.
+Tolerances:
+
+* drain products (T1, T3b) at ``highest``: the port sums the exact
+  3xTF32 partial products (hi*hi + hi*lo + lo*hi, about 21 bits of each
+  operand), XLA:CPU the f32 products, so t agrees to 1e-4 relative and u,
+  v (det-scaled, divided by det) to 1e-3 absolute; the winning triangle
+  exactly. Kernel against plain (on a card): the same products summed in
+  another order, t to 1e-4 relative, u, v to 5e-3.
+* product chains (T3a): the (8, 128) sums agree to 1e-5 of their largest
+  magnitude (a few f32 ulps of the summands).
+* the walk (T2): iteration counts and B/C/D outputs exactly; A's sums of
+  t within 1e-4 relative (XLA:CPU rounds Moller-Trumbore differently,
+  ROADMAP F8).
+* slab rates (T4): f32 and bf16 outputs exactly.
+
+The kernels run only on a card: the ``cuda``-marked tests hold each
+against its plain version at small sizes, and chip_smoke.py at the tools'
+sizes.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental import pallas as pl  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from glaze_tpu_torch.tools import (bench_bf16_slab, bench_dot,  # noqa: E402
+                                   bench_mxu, exp_overhead, probes_cuda)
+
+T_RTOL = 1e-4
+UV_ATOL = 1e-3
+# kernel against plain: the same exact products summed in another order;
+# ud, vd agree to a few ulps of terms ~20, divided by a grazing det ~0.01
+KERNEL_UV_ATOL = 5e-3
+CHAIN_RTOL = 1e-5
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """pallas_call in interpret mode for the tools' kernels."""
+    orig = pl.pallas_call
+
+    def call(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    monkeypatch.setattr(pl, "pallas_call", call)
+
+
+@pytest.fixture
+def first_result(monkeypatch):
+    """The first array each tool run hands to jax.block_until_ready (its
+    untimed call, on the unperturbed inputs)."""
+    seen = []
+    orig = jax.block_until_ready
+
+    def spy(x):
+        seen.append(x)
+        return orig(x)
+
+    monkeypatch.setattr(jax, "block_until_ready", spy)
+    return seen
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# T1: the fat-leaf drain
+
+
+def _cloud(T, seed=5, leaves=3):
+    """A triangle cloud of ``leaves`` leaves and 128 rays aimed at its
+    triangles' centroids (so that most rays hit), with a leaf order that
+    visits every leaf, some twice."""
+    rng = np.random.default_rng(seed)
+    n = leaves * T - 3  # a padded last leaf
+    base = rng.uniform(-20, 20, (n, 1, 3))
+    tri = (base + rng.uniform(-0.6, 0.6, (n, 3, 3))).astype(np.float32)
+    o = rng.uniform(-22, 22, (128, 3)).astype(np.float32)
+    tgt = tri.mean(1)[rng.integers(0, n, 128)]
+    d = (tgt - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = np.zeros((8, 128), np.float32)
+    rays[0:3] = o.T
+    rays[3:6] = d.T
+    order = np.concatenate([rng.permutation(leaves),
+                            rng.integers(0, leaves, leaves)]).astype(np.int32)
+    return tri, rays, order
+
+
+@pytest.mark.parametrize("T", [16, 32, 128])
+def test_leaf_matrices_bit_equal_to_tool(T):
+    from tools import bench_mxu as tool
+
+    tri, _, _ = _cloud(T)
+    m_t, c_t = tool.leaf_matrices(tri, T)
+    m_p, c_p = bench_mxu.leaf_matrices(tri, T)
+    assert m_p.dtype == m_t.dtype and np.array_equal(m_p, m_t)
+    assert np.array_equal(c_p, c_t)
+
+
+def _port_drain(mats, centres, rays, order, T, precision):
+    L = mats.shape[0]
+    out = bench_mxu.drain_probe(
+        torch.from_numpy(mats.reshape(L * 16, -1)), torch.from_numpy(centres),
+        torch.from_numpy(rays), torch.from_numpy(order), T, precision)
+    return [x.numpy() for x in out]
+
+
+def _assert_drain_close(got, want, label, uv_atol=UV_ATOL):
+    (tp, ip, up, vp), (tw, iw, uw, vw) = got, want
+    assert np.array_equal(ip, iw), f"{label}: tri differs"
+    hit = iw[0] >= 0
+    assert hit.sum() >= 32, f"{label}: only {hit.sum()} hits"
+    assert np.array_equal(tp[:, ~hit], tw[:, ~hit])
+    assert np.array_equal(tp[1:], tw[1:]) and np.array_equal(up[1:], uw[1:])
+    rel = np.abs(tp[0, hit] - tw[0, hit]) / tw[0, hit]
+    assert rel.max() <= T_RTOL, f"{label}: rel t err {rel.max()}"
+    assert np.abs(up - uw).max() <= uv_atol and np.abs(vp - vw).max() <= uv_atol
+
+
+@pytest.mark.parametrize("T", [16, 32])
+def test_drain_highest_matches_tool_kernel(T, interpret):
+    from tools import bench_mxu as tool
+
+    tri, rays, order = _cloud(T)
+    mats, centres = tool.leaf_matrices(tri, T)
+    L = mats.shape[0]
+    fn = tool.make_kernel(T, L, len(order), "highest")
+    want = [np.asarray(x) for x in fn(
+        jnp.asarray(order), jnp.asarray(mats.reshape(L * 16, -1)),
+        jnp.asarray(centres), jnp.asarray(rays))]
+    got = _port_drain(mats, centres, rays, order, T, "highest")
+    _assert_drain_close(got, want, f"T={T} highest")
+
+
+def _bf16(x):
+    return np.asarray(x, np.float32).astype(jnp.bfloat16).astype(np.float64)
+
+
+def _np_drain_bf16(mats, centres, rays, order, T):
+    """NumPy model of the drain at ``default``: one bf16 pass (operands
+    rounded to nearest even, exact products summed in float64, rounded to
+    f32), then the tool's resolve (bench_mxu.py:138-163) step by step."""
+    r = rays.shape[1]
+    bt = np.full(r, np.inf, np.float32)
+    bi = np.full(r, -1, np.int32)
+    bu = np.zeros(r, np.float32)
+    bv = np.zeros(r, np.float32)
+    o, d = rays[0:3], rays[3:6]
+    for leaf in order:
+        c = centres[leaf]
+        px, py, pz = o[0] - c[0], o[1] - c[1], o[2] - c[2]
+        feat = np.zeros((16, r), np.float32)
+        feat[0:3] = [py * d[2] - pz * d[1], pz * d[0] - px * d[2],
+                     px * d[1] - py * d[0]]
+        feat[3:6] = [px, py, pz]
+        feat[6:9] = d
+        feat[9] = 1.0
+        out = (_bf16(mats[leaf][:, :4 * T]).T @ _bf16(feat)).astype(np.float32)
+        det, ud, vd, td = (out[i * T:(i + 1) * T] for i in range(4))
+        ok = np.abs(det) >= bench_mxu.DET_EPS
+        with np.errstate(divide="ignore", invalid="ignore"):
+            inv = np.where(ok, np.float32(1.0) / np.where(det == 0, 1, det), 0)
+            inv = inv.astype(np.float32)
+            t = td * inv
+            valid = (ok & (ud * det >= 0) & (vd * det >= 0)
+                     & ((ud + vd) * det <= det * det) & (t > 1e-4) & (t < bt))
+        tt = np.where(valid, t, np.inf)
+        tmin = tt.min(0)
+        w = np.where(tt <= tmin, np.arange(T)[:, None], T).min(0)
+        better = tmin < bt
+        cols = np.minimum(w, T - 1)
+        bt = np.where(better, tmin, bt).astype(np.float32)
+        bi = np.where(better, leaf * T + w, bi).astype(np.int32)
+        bu = np.where(better, (ud * inv)[cols, np.arange(r)], bu)
+        bv = np.where(better, (vd * inv)[cols, np.arange(r)], bv)
+    return bt, bi, bu, bv
+
+
+@pytest.mark.parametrize("T", [16, 64])
+def test_drain_default_matches_bf16_model(T):
+    tri, rays, order = _cloud(T, seed=9)
+    mats, centres = bench_mxu.leaf_matrices(tri, T)
+    tp, ip, up, vp = _port_drain(mats, centres, rays, order, T, "default")
+    tm, im, um, vm = _np_drain_bf16(mats, centres, rays, order, T)
+    assert np.array_equal(ip[0], im)
+    hit = im >= 0
+    assert hit.sum() >= 16
+    assert np.allclose(tp[0], tm, rtol=1e-6, atol=0)
+    assert np.allclose(up[0], um, atol=1e-6) and np.allclose(vp[0], vm, atol=1e-6)
+
+
+@pytest.mark.parametrize("x", [1.0, -1.0, 1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11,
+                               -(1.0 + 2 ** -11), 3.0e38, float("inf")])
+def test_tf32_round_is_nearest_away(x):
+    """cvt.rna.tf32.f32: 10 mantissa bits, ties away from zero."""
+    got = float(bench_mxu.tf32_round(torch.tensor([x], dtype=torch.float32)))
+    f = np.float32(x)
+    if not np.isfinite(f):
+        assert got == x
+        return
+    m, e = np.frexp(np.float64(f))           # f = m * 2**e, 0.5 <= |m| < 1
+    q = np.abs(m) * 2 ** 11                  # 11 significant bits
+    want = np.sign(m) * np.floor(q + 0.5) * 2.0 ** (e - 11)
+    assert got == np.float32(want)
+
+
+def test_drain_run_entry_on_cpu(capsys):
+    res = bench_mxu.run(16, "highest", "cpu")
+    assert res["hit_agree"] == 1.0 and res["id_agree"] == 1.0
+    assert res["times"] == {}
+    assert "hit agree" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# T3a / T3b: product chains
+
+
+def _chain_cases():
+    return [(16, 1, "highest", False), (16, 2, "default", True),
+            (32, 1, "highest", False)]
+
+
+@pytest.mark.parametrize("T,batch,precision,split3", _chain_cases())
+def test_dot_chain_matches_tool_kernel(T, batch, precision, split3,
+                                       interpret, first_result):
+    from tools import bench_dot as tool
+
+    tool.run_case(T, batch, precision, split3, reps=8)
+    want = np.asarray(first_result[0])
+    mat, feat = bench_dot.chain_inputs(4 * T * batch, "cpu")
+    got, _ = bench_dot.dot_chain_probe(mat, feat,
+                                       "split3" if split3 else precision, 8)
+    err = np.abs(got.numpy() - want).max()
+    assert err <= CHAIN_RTOL * np.abs(want).max(), err
+
+
+def test_dot_chain_default_matches_bf16_model():
+    """XLA:CPU ignores DEFAULT for f32 products: the one-pass bf16 chain is
+    held against a NumPy model of it."""
+    mat, feat = bench_dot.chain_inputs(128, "cpu")
+    got, trace = bench_dot.dot_chain_probe(mat, feat, "default", 8, trace=True)
+    m, f0 = mat.numpy(), feat.numpy()
+    acc = np.zeros((8, 128), np.float32)
+    for _ in range(8):
+        f = np.where(f0 > acc[0, 0], f0, -f0)
+        out = (_bf16(m).T @ _bf16(f)).astype(np.float32)
+        acc = acc + out.reshape(-1, 8, 128).sum(0)
+    assert np.abs(got.numpy() - acc).max() <= CHAIN_RTOL * np.abs(acc).max()
+    assert trace.shape == (8,) and float(trace[-1]) == float(got[0, 0])
+
+
+def test_first_flip_finds_the_first_differing_step():
+    feat = torch.tensor([[0.5, -1.0, 2.0]])
+    a = torch.tensor([0.1, 0.2, 0.3, 0.4])
+    assert bench_dot.first_flip(feat, a, a.clone()) == (None, 0)
+    b = torch.tensor([0.1, 0.6, 0.3, 0.7])   # 0.6 flips step 2, 0.7 none
+    assert bench_dot.first_flip(feat, a, b) == (2, 1)
+
+
+def test_resolve_chain_matches_tool_kernel(interpret, first_result):
+    from tools import bench_dot as tool
+
+    tool.run_resolve_case(16, reps=6)
+    want = [np.asarray(x) for x in first_result[0]]
+    mat, feat = bench_dot.chain_inputs(64, "cpu")
+    got = [x.numpy() for x in bench_dot.resolve_chain_probe(mat, feat, 16, 6)]
+    _assert_drain_close(got, want, "resolve chain")
+
+
+# ---------------------------------------------------------------------------
+# T2: the walk loop
+
+
+@pytest.fixture(scope="module")
+def soup():
+    """A 512-triangle soup, its tree in both packages (bit-equal tables),
+    and one packet of 2048 rays from a corner into it."""
+    from glaze_tpu.accel.bvh import build_bvh as jax_build
+
+    from glaze_tpu_torch.accel.bvh import build_bvh
+
+    rng = np.random.default_rng(41)
+    base = rng.uniform(-4, 4, (512, 1, 3))
+    tri = (base + rng.uniform(-0.5, 0.5, (512, 3, 3))).astype(np.float32)
+    jb, _ = jax_build(tri)
+    pb, _ = build_bvh(tri, "cpu")
+    o = np.tile(np.asarray([[-6.0, -5.0, -7.0]], np.float32), (2048, 1))
+    o += rng.uniform(-0.3, 0.3, o.shape).astype(np.float32)
+    d = rng.uniform(-4, 4, (2048, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return jb, pb, o, d
+
+
+def test_soup_tables_bit_equal(soup):
+    jb, pb, _, _ = soup
+    assert pb.n_nodes == jb.n_nodes
+    for name in ("nodes16", "tri8", "nodes"):
+        j = np.asarray(getattr(jb, name)).view(np.int32)
+        p = getattr(pb, name).numpy().view(np.int32)
+        assert np.array_equal(j, p), name
+
+
+def _tool_walk(jb, o, d, variant, monkeypatch):
+    monkeypatch.setenv("GLAZE_XLA_CACHE", "0")  # the tool enables the cache
+    from glaze_tpu.accel.traverse_pallas import (LANES, PACKET_ROWS, _hbm,
+                                                 _ray_blk, _table_scratch)
+    from tools import exp_overhead as tool
+
+    grid_spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=1, grid=(1,),
+        in_specs=[_hbm(jb.nodes16), _hbm(jb.tri8)]
+        + [_ray_blk() for _ in range(6)],
+        out_specs=_ray_blk(),
+        scratch_shapes=_table_scratch(jb.nodes16, jb.tri8))
+    call = pl.pallas_call(
+        tool.make_kernel(variant, jb.n_nodes), grid_spec=grid_spec,
+        out_shape=jax.ShapeDtypeStruct((PACKET_ROWS, LANES), jnp.float32),
+        interpret=True)
+    comps = [jnp.asarray(a[:, i].reshape(PACKET_ROWS, LANES))
+             for a in (o, d) for i in range(3)]
+    out = call(jnp.zeros((1,), jnp.int32), jb.nodes16, jb.tri8, *comps)
+    return np.asarray(out).reshape(-1)
+
+
+def _port_walk(pb, o, d, variant, packet, stats=None):
+    o3 = tuple(torch.from_numpy(o[:, i].copy()) for i in range(3))
+    d3 = tuple(torch.from_numpy(d[:, i].copy()) for i in range(3))
+    if stats is not None:
+        return exp_overhead.walk_overhead_plain(pb, o3, d3, variant, packet,
+                                                stats)
+    return exp_overhead.walk_overhead(pb, o3, d3, variant, packet)
+
+
+@pytest.mark.parametrize("variant", ["A", "B", "C", "D"])
+def test_walk_matches_tool_kernel(soup, variant, monkeypatch):
+    jb, pb, o, d = soup
+    want = _tool_walk(jb, o, d, variant, monkeypatch)
+    stats = {}
+    t, iters = _port_walk(pb, o, d, variant, 2048, stats)
+    t = t.numpy()
+    assert iters.shape == (1,) and int(iters[0]) > 10
+    if variant == "A":
+        assert (want > 0).sum() >= 64
+        assert np.array_equal(t > 0, want > 0)
+        rel = np.abs(t - want) / np.maximum(want, 1e-6)
+        assert rel.max() <= T_RTOL, rel.max()
+    else:
+        assert np.array_equal(t, want)
+    if variant == "B":  # +1 per leaf entered: the leaf bodies, every ray
+        assert np.all(t == float(stats["leaf_bodies"][0]))
+    if variant == "D":
+        assert int(iters[0]) == exp_overhead.d_walk_length(pb)
+
+
+def test_d_walk_length_is_the_tools_host_loop(soup):
+    """The tool's host loop (exp_overhead.py:128-136) on glaze_tpu's tree."""
+    jb, pb, _, _ = soup
+    skp = np.asarray(jb.nodes[:, 7]).view(np.int32)
+    meta = np.asarray(jb.nodes[:, 6]).view(np.int32)
+    ptr, d_iters = 0, 0
+    while 0 <= ptr < jb.n_nodes:
+        d_iters += 1
+        ptr = ptr + 1 if (ptr % 3 != 2 and meta[ptr] < 0) else skp[ptr]
+    assert exp_overhead.d_walk_length(pb) == d_iters
+
+
+@pytest.mark.parametrize("variant", ["A", "B", "C"])
+def test_walk_packet_vote_is_per_packet(soup, variant):
+    """64 copies of one 32-ray group in a 2048-ray packet vote as the
+    group does alone in a packet of 32."""
+    _, pb, o, d = soup
+    idx = np.tile(np.arange(32), 64)
+    t_big, it_big = _port_walk(pb, o[idx], d[idx], variant, 2048)
+    t_small, it_small = _port_walk(pb, o[:32], d[:32], variant, 32)
+    assert int(it_big[0]) == int(it_small[0])
+    assert np.array_equal(t_big.numpy()[:32], t_small.numpy())
+
+
+# ---------------------------------------------------------------------------
+# T4: the slab-test rate
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_slab_rate_matches_tool_kernel(dtype, monkeypatch):
+    from tools import bench_bf16_slab as tool
+
+    monkeypatch.setattr(tool, "ITERS", 24)
+    tdt = bench_bf16_slab.DTYPES[dtype]
+    jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16}[dtype]
+    o, i, nodes = bench_bf16_slab.slab_inputs(tdt, 16, "cpu")
+    to_j = lambda x: jnp.asarray(x.float().numpy()).astype(jdt)  # noqa: E731
+    want = pl.pallas_call(
+        tool._make_kernel(jdt), out_shape=jax.ShapeDtypeStruct((16, 128), jdt),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 3,
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM), interpret=True,
+    )(to_j(o), to_j(i), jnp.asarray(nodes.numpy()))
+    got = bench_bf16_slab.slab_rate_probe(o, i, nodes, 24)
+    assert got.dtype == tdt
+    assert np.array_equal(got.float().numpy(),
+                          np.asarray(want.astype(jnp.float32)))
+
+
+# ---------------------------------------------------------------------------
+# the kernels, on a card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [16, 32, 64, 128])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_drain_kernel_matches_plain_on_cuda(T, precision):
+    dev = _cuda()
+    tri, rays, order = _cloud(T, seed=3)
+    mats, centres = bench_mxu.leaf_matrices(tri, T)
+    args = (torch.from_numpy(mats.reshape(-1, mats.shape[2])).to(dev),
+            torch.from_numpy(centres).to(dev), torch.from_numpy(rays).to(dev),
+            torch.from_numpy(order).to(dev), T, precision)
+    got = [x.cpu().numpy() for x in bench_mxu.drain_probe(*args)]
+    want = [x.cpu().numpy() for x in bench_mxu.drain_probe_plain(*args)]
+    _assert_drain_close(got, want, f"T={T} {precision} kernel", KERNEL_UV_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default", "split3"])
+def test_dot_chain_kernel_matches_plain_on_cuda(precision):
+    dev = _cuda()
+    mat, feat = bench_dot.chain_inputs(512, dev)
+    got, tr_k = bench_dot.dot_chain_probe(mat, feat, precision, 6, trace=True)
+    want, tr_p = bench_dot.dot_chain_plain(mat, feat, precision, 6, trace=True)
+    first, _ = bench_dot.first_flip(feat, tr_k, tr_p)
+    if first is not None:
+        pytest.skip(f"the feedback flipped on rounding at step {first}")
+    err = float((got - want).abs().max())
+    assert err <= CHAIN_RTOL * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_resolve_chain_kernel_matches_plain_on_cuda():
+    dev = _cuda()
+    mat, feat = bench_dot.chain_inputs(256, dev)
+    got = [x.cpu().numpy() for x in bench_dot.resolve_chain_probe(mat, feat, 64, 4)]
+    want = [x.cpu().numpy() for x in bench_dot.as_rows(
+        bench_dot.resolve_chain_plain(mat, feat, 64, 4), bench_dot.T_INIT)]
+    _assert_drain_close(got, want, "resolve chain kernel", KERNEL_UV_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["A", "B", "C", "D"])
+@pytest.mark.parametrize("packet", [2048, 32])
+def test_walk_kernel_matches_plain_on_cuda(soup, variant, packet):
+    dev = _cuda()
+    _, pb, o, d = soup
+    bvh = pb.to(dev)
+    o3 = tuple(torch.from_numpy(o[:, i].copy()).to(dev) for i in range(3))
+    d3 = tuple(torch.from_numpy(d[:, i].copy()).to(dev) for i in range(3))
+    t, iters = exp_overhead.walk_overhead(bvh, o3, d3, variant, packet)
+    tp, ip = exp_overhead.walk_overhead_plain(bvh, o3, d3, variant, packet)
+    assert torch.equal(iters, ip)
+    assert torch.equal(t, tp)  # --fmad=false: A's sums bit for bit too
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_slab_rate_kernel_matches_plain_on_cuda(dtype):
+    dev = _cuda()
+    o, i, nodes = bench_bf16_slab.slab_inputs(
+        bench_bf16_slab.DTYPES[dtype], 32, dev)
+    got = bench_bf16_slab.slab_rate_probe(o, i, nodes, 64)
+    want = bench_bf16_slab.slab_rate_plain(o, i, nodes, 64)
+    assert torch.equal(got, want)
+
