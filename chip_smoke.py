@@ -132,6 +132,18 @@ PROBES = (("fat_drain", "tools/bench_mxu.py:95"),
           ("dot_chain", "tools/bench_dot.py:29"),
           ("resolve_chain", "tools/bench_dot.py:112"),
           ("slab_rate", "tools/bench_bf16_slab.py:38"))
+# The closest walks before their warp-synchronous redesign (one lane per
+# ray running its own leaf loop): ms per launch on each set, measured by
+# this script with those kernels on the card named here.
+EARLIER_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+EARLIER_MS = {
+    "closest_hit": {"camera": 0.8867200016975403, "bounce": 1.1428159475326538},
+    "closest_hit_masked": {"camera": 0.8770239949226379,
+                           "bounce": 1.1416319608688354,
+                           "alpha_tree_launch1": 0.2499839961528778,
+                           "alpha_tree_launch5": 0.24614399671554565},
+    "closest_hit_fat": {"camera": 4.345823764801025, "bounce": 8.828096389770508},
+}
 
 
 def log(msg):
@@ -195,6 +207,12 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"[build] {lib} ptxas: {line.strip()}")
+    attrs = tc.kernel_attrs()
+    for name, a in attrs.items():
+        log(f"[build] {name}: {a['registers']} registers, {a['local_bytes']} "
+            f"local bytes per thread, {a['blocks_per_sm']} blocks of "
+            f"{tc.THREADS_PER_BLOCK} per SM (occupancy {a['occupancy']:.2f})")
+    return attrs
 
 
 def _probe_bound(nbytes, tc_flops=0.0, tc_peak=PEAK_TF32, ops=0.0,
@@ -669,7 +687,7 @@ def _check_closest(entry, label, bvh, s):
     masked = entry["name"] == "closest_hit_masked"
     o3, d3, cap_ = s["o3"], s["d3"], s["t_max"]
     kern = kern_fn(bvh, o3, d3, cap_)
-    stats = B.WalkStats()
+    stats = B.WalkStats(per_lane=True)
     t0 = time.perf_counter()
     plain = plain_fn(bvh, torch.stack(o3, -1), torch.stack(d3, -1), cap_,
                      stats=stats)
@@ -698,10 +716,11 @@ def _check_closest(entry, label, bvh, s):
     nbytes, live = _bytes_closest(stats, r, cap_, masked)
     if live == 0:
         raise RuntimeError(f"{entry['name']} {label}: no live lane to compare")
+    warp = stats.warp_counters()
     log(f"[kernels] {entry['name']} {label}: {int((plain['tri'] >= 0).sum())} "
         f"hits of {r} rays ({live} live){extra}, {n_bad} mismatches, "
         f"{n_tie} exact-t ties (excluded), max {ulps} ulp, max abs err "
-        f"{err:g}, plain walk {plain_wall:.1f} s")
+        f"{err:g}, plain walk {plain_wall:.1f} s; {_warp_text(warp)}")
     if n_bad or ulps > 1:
         raise RuntimeError(f"{entry['name']} kernel disagrees on {label} rays")
     k_ms = cuda_ms(lambda: kern_fn(bvh, o3, d3, cap_), 5)
@@ -711,7 +730,7 @@ def _check_closest(entry, label, bvh, s):
     entry["sets"][label] = dict(
         rays=r, live=live, mismatches=n_bad, ties=n_tie, max_abs_err=err,
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-        **_work(stats))
+        warp=warp, **_work(stats))
 
 
 def _check_anyhit(entry, label, bvh, s):
@@ -725,7 +744,7 @@ def _check_anyhit(entry, label, bvh, s):
     masked = entry["name"] == "any_hit_masked"
     o3, d3, tm, act, t_min = s["o3"], s["d3"], s["t_max"], s["active"], s["t_min"]
     kern = kern_fn(bvh, o3, d3, tm, t_min=t_min, active=act)
-    stats = B.WalkStats()
+    stats = B.WalkStats(per_lane=True)
     t0 = time.perf_counter()
     plain = plain_fn(bvh, torch.stack(o3, -1), torch.stack(d3, -1), tm,
                      t_min=t_min, active=act, stats=stats)
@@ -739,9 +758,10 @@ def _check_anyhit(entry, label, bvh, s):
         what = f"{int(plain.sum())} blocked"
     r = o3[0].shape[0]
     nbytes, live = _bytes_anyhit(stats, r, tm, act, t_min, masked)
+    warp = stats.warp_counters()
     log(f"[kernels] {entry['name']} {label}: {int(act.sum())} active of "
         f"{r} rays ({live} live), {what}, {n_bad} mismatches, plain walk "
-        f"{plain_wall:.1f} s")
+        f"{plain_wall:.1f} s; {_warp_text(warp)}")
     if n_bad:
         raise RuntimeError(f"{entry['name']} kernel disagrees on {label} rays")
     k_ms = cuda_ms(lambda: kern_fn(bvh, o3, d3, tm, t_min=t_min,
@@ -753,7 +773,14 @@ def _check_anyhit(entry, label, bvh, s):
     entry["sets"][label] = dict(
         rays=r, active=int(act.sum()), live=live, mismatches=n_bad,
         max_abs_err=float(n_bad), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-        bound_by=b_by, bytes=nbytes, **_work(stats))
+        bound_by=b_by, bytes=nbytes, warp=warp, **_work(stats))
+
+
+def _warp_text(warp):
+    return (f"warps of 32 rays: node-walk SIMD efficiency "
+            f"{warp['simd_efficiency']:.3f}, {warp['mean_leaves_per_lane']:.2f} "
+            f"leaves per lane, {warp['mean_warp_max_leaves']:.2f} per warp's "
+            f"busiest lane")
 
 
 def _work(stats):
@@ -782,10 +809,93 @@ def _summarize(entry, headline):
         ms=statistics.mean(v["ms"] for v in sets),
         plain_ms=statistics.mean(v["plain_ms"] for v in sets),
         bound_ms=statistics.mean(v["bound_ms"] for v in sets),
-        bound_by=sets[-1]["bound_by"])
-    log(f"[kernels] {entry['name']}: kernel {entry['ms']:.3f} ms, plain "
-        f"{entry['plain_ms']:.1f} ms, bound {entry['bound_ms']:.4f} ms "
+        bound_by=sets[-1]["bound_by"],
+        warp={k: v["warp"] for k, v in entry["sets"].items()})
+    earlier = ""
+    if entry["name"] in EARLIER_MS:
+        before = EARLIER_MS[entry["name"]]
+        for k, v in entry["sets"].items():
+            v["earlier_ms"] = before[k]
+        entry.update(earlier_ms=statistics.mean(before[k] for k in headline),
+                     earlier_card=EARLIER_CARD)
+        earlier = f" (before the redesign {entry['earlier_ms']:.3f} ms)"
+    log(f"[kernels] {entry['name']}: kernel {entry['ms']:.3f} ms{earlier}, "
+        f"plain {entry['plain_ms']:.1f} ms, bound {entry['bound_ms']:.4f} ms "
         f"({entry['bound_by']}) per launch, mean of {list(headline)}")
+
+
+def phase_walk_cases():
+    """The closest kernels (K1, K2 and its refill variant, K7c) against
+    their plain walkers, bit for bit, on the small cases of
+    glaze_tpu_torch.accel.walk_cases: exact ties, 1/31/33/257 rays, one
+    long lane per warp."""
+    from glaze_tpu_torch.accel import traverse_cuda as tc
+    from glaze_tpu_torch.accel import walk_cases as wc
+
+    def refill(tree, o3, d3, t_max):
+        return tc.closest_hit_soa_masked(tree, o3, d3, t_max, refill=True)
+
+    t0 = time.perf_counter()
+    bad = 0
+    for form, kernels in (("", {"closest": tc.closest_hit_soa,
+                                "masked": tc.closest_hit_soa_masked,
+                                "fat": tc.closest_hit_fat_soa}),
+                          (" refill", {"masked": refill})):
+        lines = []
+        bad += wc.closest_mismatches("cuda", kernels, log=lambda *a: lines.append(a))
+        for label, rays, hits, n_bad in lines:
+            if n_bad or rays == 257:
+                log(f"[walk_cases] {label}{form}: {hits} hits of {rays} rays, "
+                    f"{n_bad} rays differ from the plain walker")
+    log(f"[walk_cases] {bad} rays differ in all ({time.perf_counter() - t0:.1f} s)")
+    if bad:
+        raise RuntimeError("a closest kernel disagrees with its plain walker "
+                           "on the walk cases")
+
+
+def _time_refill(k2, tree, sets):
+    """K2's refill variant (persistent warps that claim new rays for
+    finished lanes) against K2's postponed walk alone on the captured sets
+    ``sets``: outputs bit for bit the same, then both timed in turn, three
+    rounds each; the run-to-run spread is the range of K2's three."""
+    from glaze_tpu_torch.accel import traverse_cuda as tc
+    from glaze_tpu_torch.tools.common import cuda_ms
+
+    out = {"sets": {}}
+    for label, s in sets:
+        o3, d3, cap_ = s["o3"], s["d3"], s["t_max"]
+        a = tc.closest_hit_soa_masked(tree, o3, d3, cap_)
+        b = tc.closest_hit_soa_masked(tree, o3, d3, cap_, refill=True)
+        for key in a:
+            x, y = a[key], b[key]
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            if not torch.equal(x, y):
+                raise RuntimeError(f"K2's refill variant differs from K2 on "
+                                   f"{label}: {key}")
+        plain, refill = [], []
+        for _ in range(3):
+            plain.append(cuda_ms(lambda: tc.closest_hit_soa_masked(
+                tree, o3, d3, cap_), 5))
+            refill.append(cuda_ms(lambda: tc.closest_hit_soa_masked(
+                tree, o3, d3, cap_, refill=True), 5))
+        out["sets"][label] = {"postponed_ms": plain, "refill_ms": refill}
+        log(f"[kernels] closest_hit_masked {label}: postponed "
+            f"{', '.join(f'{x:.3f}' for x in plain)} ms, with refill "
+            f"{', '.join(f'{x:.3f}' for x in refill)} ms")
+    sets_ = out["sets"].values()
+    out["postponed_ms"] = statistics.mean(statistics.mean(v["postponed_ms"])
+                                          for v in sets_)
+    out["refill_ms"] = statistics.mean(statistics.mean(v["refill_ms"])
+                                       for v in sets_)
+    out["spread_ms"] = max(max(v["postponed_ms"]) - min(v["postponed_ms"])
+                           for v in sets_)
+    out["refill_wins"] = out["refill_ms"] < out["postponed_ms"] - out["spread_ms"]
+    log(f"[kernels] closest_hit_masked refill: {out['refill_ms']:.3f} ms against "
+        f"{out['postponed_ms']:.3f} ms postponed alone (spread "
+        f"{out['spread_ms']:.3f} ms): refill "
+        f"{'wins' if out['refill_wins'] else 'does not win'}")
+    k2["refill"] = out
 
 
 def _capture_sample(path):
@@ -864,6 +974,7 @@ def phase_masked_kernels(path):
                            *((lab, scene.bvh_alpha, c) for lab, c in alpha_sets)):
         _check_closest(k2, label, tree, s)
     _summarize(k2, ("camera", "bounce"))
+    _time_refill(k2, scene.bvh, (("camera", full[0]), ("bounce", full[1])))
     k4 = _kernel_entry("any_hit_masked",
                        "glaze_tpu/accel/traverse_pallas.py:1733")
     for label, s in (("shadow_camera_hits", anyhit[0]),
@@ -982,6 +1093,7 @@ def profile_sample(renderer, label):
         renderer.draw(1, return_image=False)
         torch.cuda.synchronize()
     kernels = {}
+    walks = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -991,24 +1103,52 @@ def profile_sample(renderer, label):
         k = kernels.setdefault(e.key[:90], [0.0, 0])
         k[0] += us / 1e3
         k[1] += e.count
+        name = _traversal_kernel(e.key)
+        if name is not None:
+            w = walks.setdefault(name, [0.0, 0])
+            w[0] += us / 1e3
+            w[1] += e.count
     busy_ms = sum(v[0] for v in kernels.values())
     if busy_ms <= 0.0:
         log(f"[profile:{label}] the profiler recorded no device time: not "
             "measured")
         return {"wall_ms_per_sample": wall_ms, "device_busy_ms": "not measured"}
-    trav = sum(v[0] for k, v in kernels.items()
-               if "closest_kernel" in k or "anyhit_kernel" in k)
+    trav = sum(v[0] for v in walks.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     log(f"[profile:{label}] one sample (6 launches): wall {wall_ms:.1f} ms unprofiled, "
         f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.0f}% of wall), "
         f"traversal kernels {trav:.2f} ms ({100 * trav / busy_ms:.1f}% of busy), "
         f"{sum(v[1] for v in kernels.values())} kernel launches")
+    per_launch = {name: ms / n for name, (ms, n) in walks.items()}
+    for name, (ms, n) in sorted(walks.items()):
+        log(f"[profile:{label}]   traversal {name}: {n} launches, {ms:.2f} ms, "
+            f"{ms / n:.3f} ms per launch in the render")
     for name, (ms, n) in top:
         log(f"[profile:{label}]   {ms:8.2f} ms  {n:6d}x  {name}")
     return {"wall_ms_per_sample": wall_ms, "device_busy_ms": busy_ms,
-            "traversal_ms": trav,
+            "traversal_ms": trav, "traversal_ms_per_launch": per_launch,
             "kernel_launches": sum(v[1] for v in kernels.values()),
             "top": [[name, ms, n] for name, (ms, n) in top]}
+
+
+# the traversal kernels' device-function names (csrc/traverse.cu) and the
+# wrapper each one serves, the fat kernels first (their names extend the
+# classic ones')
+TRAVERSAL_NAMES = (("closest_kernel_fat", "closest_hit_fat"),
+                   ("anyhit_kernel_fat", "any_hit_fat"),
+                   ("closest_kernel<false", "closest_hit"),
+                   ("closest_kernel<true", "closest_hit_masked"),
+                   ("anyhit_kernel<false", "any_hit"),
+                   ("anyhit_kernel<true", "any_hit_masked"))
+
+
+def _traversal_kernel(key):
+    """The wrapper name of the traversal kernel a profiler key names, or
+    None."""
+    for fn, name in TRAVERSAL_NAMES:
+        if fn in key:
+            return name
+    return None
 
 
 def phase_golden():
@@ -1049,7 +1189,8 @@ def main():
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     workdir = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
-    phase_build()
+    attrs = phase_build()
+    phase_walk_cases()
     probes = phase_probes()
     paths = phase_scene(workdir)
     report = phase_kernels(paths["opaque"])
@@ -1065,14 +1206,27 @@ def main():
         main_numbers[label] = phase_main_path(label, paths[scene], workdir,
                                               report, expected, tree)
     phase_golden()
+    for name, a in attrs.items():
+        if name == "closest_hit_masked_refill":
+            report["closest_hit_masked"]["refill"].update(a)
+        else:
+            report[name].update(a)
+    for label, numbers in main_numbers.items():
+        for name, ms in numbers["profile"].get("traversal_ms_per_launch",
+                                               {}).items():
+            report[name].setdefault("in_render_ms_by_path", {})[label] = ms
     report.update(probes)
     kernels = []
     for k in report.values():
         kernels.append({key: k[key] for key in (
             "name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "sets") + (
-                ("headline",) if "headline" in k else ())})
+            "bound_by", "library_ms", "sets") + tuple(
+                key for key in ("headline", "registers", "local_bytes",
+                                "blocks_per_sm", "occupancy", "warp",
+                                "earlier_ms", "earlier_card", "refill",
+                                "in_render_ms_by_path")
+                if key in k)})
     log(f"[done] {time.perf_counter() - t_start:.0f} s in all")
     print(json.dumps({"main_path": main_numbers, "card": card}))
     print(json.dumps({"kernels": kernels}))

@@ -342,14 +342,53 @@ class WalkStats:
     closer than the best, and in the fat-leaf walks the leaf columns
     tested (``*_visits``/``*_tests``, with repeats), and the DISTINCT
     table rows the walk read (:meth:`distinct`: node rows, triangle rows,
-    payload words ``row*4 + word``, fat-leaf coefficient rows)."""
+    payload words ``row*4 + word``, fat-leaf coefficient rows).
 
-    def __init__(self):
+    With ``per_lane`` it also keeps, for each ray, its node steps
+    (``lane_steps``) and the leaves it entered (``lane_leaves``), (R,)
+    int64 tensors, from which :meth:`warp_counters` reads how a warp of a
+    one-thread-per-ray kernel spends its steps."""
+
+    def __init__(self, per_lane: bool = False):
         self.node_visits = 0
         self.tri_tests = 0
         self.mask_tests = 0
         self.col_tests = 0
         self._seen = {}
+        self.per_lane = per_lane
+        self.lane_steps = None
+        self.lane_leaves = None
+
+    def count_lanes(self, lanes, entered, n_rays: int):
+        """One node step for each ray of ``lanes`` (ray indices, distinct)
+        and one leaf for those where ``entered``; a no-op without
+        ``per_lane``."""
+        if not self.per_lane:
+            return
+        if self.lane_steps is None:
+            self.lane_steps = torch.zeros(n_rays, dtype=torch.int64,
+                                          device=lanes.device)
+            self.lane_leaves = torch.zeros_like(self.lane_steps)
+        self.lane_steps[lanes] += 1
+        self.lane_leaves[lanes[entered]] += 1
+
+    def warp_counters(self, warp: int = 32) -> dict:
+        """Over warps of ``warp`` consecutive rays (thread i = ray i; the
+        last warp padded with idle lanes): ``simd_efficiency`` of the node
+        walk, sum of steps / (warp x the warp's most steps) summed over
+        warps; ``mean_leaves_per_lane``; ``mean_warp_max_leaves``, the
+        mean over warps of the most leaves one lane entered (the drain
+        rounds of a warp that postpones its leaves)."""
+        steps, leaves = self.lane_steps, self.lane_leaves
+        if steps is None:
+            raise ValueError("WalkStats(per_lane=True) recorded no walk")
+        pad = -steps.numel() % warp
+        s = torch.nn.functional.pad(steps, (0, pad)).view(-1, warp)
+        lv = torch.nn.functional.pad(leaves, (0, pad)).view(-1, warp)
+        return {"simd_efficiency": float(s.sum()) / max(
+                    float(s.amax(1).sum()) * warp, 1.0),
+                "mean_leaves_per_lane": float(leaves.double().mean()),
+                "mean_warp_max_leaves": float(lv.amax(1).double().mean())}
 
     def touch(self, what: str, rows, size: int):
         """Marks ``rows`` (int tensor) of a ``size``-row table read."""
@@ -431,6 +470,7 @@ def _closest_walk(bvh: BVH, origin, direction, t_max, stats, masked: bool):
         if stats is not None:
             stats.node_visits += lane.numel()
             stats.touch("nodes", base + ptr, table.shape[0])
+            stats.count_lanes(lane, leaf, r)
         li = torch.nonzero(leaf).squeeze(1)
         if li.numel():
             lm = meta[li]
@@ -511,6 +551,7 @@ def _any_walk(bvh: BVH, origin, direction, t_max, t_min, active, stats,
         if stats is not None:
             stats.node_visits += lane.numel()
             stats.touch("nodes", base + ptr, table.shape[0])
+            stats.count_lanes(lane, leaf, r)
         blk_now = torch.zeros_like(leaf)
         li = torch.nonzero(leaf).squeeze(1)
         if li.numel():

@@ -238,6 +238,18 @@ def _leaf_columns(coef, slots, feat):
     return valid, t, inv, ud, vd
 
 
+def closest_column(valid, t, cap):
+    """The closest hit among a leaf's columns ((K, T) ``valid`` and ``t``)
+    for rays whose best so far is ``cap`` (K,): ``(tmin, kmin, better)``,
+    where ``better`` marks rays with a column in (T_MIN, cap) and ``kmin``
+    is the lowest column of the least t (``torch.min`` returns the first
+    index of a tie, the sequential scan's strict ``<``)."""
+    keep = valid & (t > T_MIN) & (t < cap[:, None])
+    tt = torch.where(keep, t, torch.full_like(t, float("inf")))
+    tmin, kmin = torch.min(tt, dim=1)
+    return tmin, kmin, tmin < cap
+
+
 def _walk(bvh: FatBVH, origin, direction, cap, t_min, active,
           stats: WalkStats | None, closest: bool):
     """The walk both plain walkers share, each ray in its own octant's
@@ -276,6 +288,7 @@ def _walk(bvh: FatBVH, origin, direction, cap, t_min, active,
         if stats is not None:
             stats.node_visits += lane.numel()
             stats.touch("nodes", base + ptr, table.shape[0])
+            stats.count_lanes(lane, box_hit & is_leaf, r)
         stop = torch.zeros_like(box_hit)
         li = torch.nonzero(box_hit & is_leaf).squeeze(1)
         for s in range(0, li.numel(), LEAF_CHUNK):
@@ -283,10 +296,7 @@ def _walk(bvh: FatBVH, origin, direction, cap, t_min, active,
             slots = meta[idx].long()[:, None] * T + cols
             valid, t, tinv, ud, vd = _leaf_columns(bvh.coef, slots, feat[idx])
             if closest:
-                keep = valid & (t > T_MIN) & (t < bt[idx, None])
-                tt = torch.where(keep, t, torch.full_like(t, float("inf")))
-                tmin, kmin = torch.min(tt, dim=1)
-                better = tmin < bt[idx]
+                tmin, kmin, better = closest_column(valid, t, bt[idx])
                 bi = idx[better]
                 kb = kmin[better][:, None]
                 bt[bi] = tmin[better]

@@ -25,9 +25,36 @@
 // The Pallas kernels walk one tree pointer per 128-ray row and queue leaf
 // work, because the TPU's VPU only runs dense (8, 128) tiles, and the fat
 // kernels drain a queued leaf as one MXU product. None of that carries
-// over: here ONE THREAD WALKS ONE RAY, and all six kernels share one
-// octant walk (walk<Leaf>, templated on the leaf test) and one slab test;
+// over: here ONE THREAD WALKS ONE RAY through one octant walk and one
+// slab test: the any-hit kernels through walk<Leaf> (templated on the leaf
+// test), the closest-hit kernels through walk_postponed<Drain> (below);
 // the four classic kernels also share one Moller-Trumbore.
+//
+// The closest walks, K2 and K7c (and K1, K2's template with the mask
+// compiled out), replace the same TPU kernels as before; they were
+// redesigned because their first form, walk<Leaf> with each lane running
+// its own leaf loop, spent most of its time at leaves with few lanes
+// active. The lanes of a warp reach their leaves at different node steps
+// of their own walks, so the warp ran one leaf loop (up to 8 triangles, or
+// K7c's T = 128 columns) for every distinct moment at which some lane
+// entered a leaf, mostly with one or a few lanes active while the lanes
+// still walking interior nodes, or already finished, idled. In
+// walk_postponed a lane that enters a leaf PARKS there and the warp drains
+// only when every lane is parked or finished (__ballot_sync over all 32
+// lanes; a lane with no ray is a finished lane, so the ragged last warp
+// votes too): a warp runs about as many drains as its busiest lane has
+// leaves. No lane passes an untested leaf, so each ray still tests its
+// leaves in its own order with the t_best the earlier ones left it, and
+// every result, exact-t ties included, is the one the per-lane loop gave.
+// K2's drain runs each parked lane's own leaf loop, now with every parked
+// lane active at once. Persistent warps that give a finished lane a new
+// ray (kRefill) were measured beside it on an H100 and did not beat it,
+// so the renders launch the postponed walk alone. K7c's drain splits the
+// leaves' columns across the lanes: with g parked lanes, each takes a
+// subgroup of w = 32 / g' lanes (g' the next power of two >= g) that
+// scans every w-th column of its leaf, and a butterfly keeps the least t
+// and, on a tie, the lowest column; so even one parked lane keeps all 32
+// lanes busy.
 //
 // Function (identical to glaze_tpu_torch.accel.bvh.closest_hit / any_hit
 // and closest_hit_masked / any_hit_masked, the plain versions):
@@ -120,6 +147,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr float kTMin = 1e-4f;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float safe_inv(float d) {
   if (fabsf(d) < 1e-20f) return d == 0.0f ? 1e20f : copysignf(1e20f, d);
@@ -250,7 +278,153 @@ __device__ __forceinline__ void walk(const float4* __restrict__ nodes,
   }
 }
 
+// One lane's place in its walk: node p of its octant slab, and the leaf
+// it is parked at (-1: none).
+struct Walker {
+  int p;
+  int leaf;
+};
+
+// Walks from w.p as walk<Leaf> does until the lane enters a leaf, where it
+// PARKS: w.leaf is the leaf's meta and w.p its skip link, the node after
+// it. The lane goes no further until the leaf is tested, so each ray still
+// tests its leaves in its own order, each with the cap that the earlier
+// ones left it. A lane at p >= n_nodes is finished.
+__device__ __forceinline__ void walk_to_leaf(const float4* __restrict__ nodes,
+                                             int n_nodes, const Ray& r,
+                                             float cap, Walker& w) {
+  while (w.p < n_nodes) {
+    const float4 a = __ldg(nodes + 2 * w.p);
+    const float4 b = __ldg(nodes + 2 * w.p + 1);
+    const int meta = __float_as_int(b.z);
+    const int skip = __float_as_int(b.w);
+    if (!slab(a, b, r, cap)) {
+      w.p = skip;
+    } else if (meta < 0) {
+      w.p = w.p + 1;
+    } else {
+      w.leaf = meta;
+      w.p = skip;
+      return;
+    }
+  }
+}
+
+// The best hit of a closest walk so far.
+struct Best {
+  float t, u, v;
+  int tri;
+  bool mix;
+};
+
+// Tests the leaf ``meta`` of the classic tree against one ray (the loop
+// walk<Leaf> ran): Moller-Trumbore on each of its triangles in order; a
+// hit replaces the best when t < best.t and, masked, its cell is not
+// TRANSPARENT (code 2); mix = the kept hit's cell is MIXED (code 0).
 template <bool kMasked>
+__device__ __forceinline__ void classic_leaf(const float* __restrict__ tri8,
+                                             int meta, const Ray& r,
+                                             Best& best) {
+  const float4* tris = reinterpret_cast<const float4*>(tri8);
+  const int first = meta >> 3;
+  const int count = (meta & 7) + 1;
+  for (int k = 0; k < count; ++k) {
+    float t, u, v;
+    float4 c;
+    if (tri_hit(tris, first + k, r, t, u, v, c) && t < best.t) {
+      if constexpr (kMasked) {
+        const int code = cell_code(tri8, first + k, c, u, v);
+        if (code == 2) continue;  // TRANSPARENT cell: skip the hit
+        best.mix = code == 0;
+      }
+      best.t = t;
+      best.tri = first + k;
+      best.u = u;
+      best.v = v;
+    }
+  }
+}
+
+// One lane of a closest walk: its ray, its octant's node slab, its place
+// in the walk and its best hit so far.
+struct ClosestLane {
+  Ray r;
+  const float4* nodes;
+  Walker w;
+  Best best;
+};
+
+// Starts ray i (the output's index) on the lane: its cap, and the walk at
+// the root of its octant's slab; no ray (i >= n_rays) leaves the lane
+// finished.
+__device__ __forceinline__ void start_ray(ClosestLane& s, int i, int n_rays,
+                                          int n_nodes, const float* nodes16,
+                                          long long oct_floats,
+                                          const float* ox, const float* oy,
+                                          const float* oz, const float* dx,
+                                          const float* dy, const float* dz,
+                                          const float* tmax) {
+  const bool live = i < n_rays;
+  s.r = load_ray(ox, oy, oz, dx, dy, dz, live ? i : 0);
+  s.nodes = octant_nodes(nodes16, s.r, oct_floats);
+  s.w.p = live ? 0 : n_nodes;
+  s.w.leaf = -1;
+  s.best.t = live ? tmax[i] : 0.0f;
+  s.best.u = 0.0f;
+  s.best.v = 0.0f;
+  s.best.tri = -1;
+  s.best.mix = false;
+}
+
+template <bool kMasked>
+__device__ __forceinline__ void store_hit(const Best& b, int i,
+                                          float* __restrict__ t_out,
+                                          int* __restrict__ tri_out,
+                                          float* __restrict__ u_out,
+                                          float* __restrict__ v_out,
+                                          uint8_t* __restrict__ mixed_out) {
+  t_out[i] = b.tri >= 0 ? b.t : INFINITY;
+  tri_out[i] = b.tri;
+  u_out[i] = b.u;
+  v_out[i] = b.v;
+  if constexpr (kMasked) mixed_out[i] = b.tri >= 0 && b.mix;
+}
+
+// The closest walks' warp-synchronous walk with postponed leaves. Every
+// lane of the warp calls it (a lane with no ray starts finished: w.p =
+// n_nodes), and each lane walks its own ray to its next leaf; when every
+// lane is parked or finished, the warp drains: drain(parked) runs on all
+// 32 lanes with the ballot of the parked ones and tests their leaves
+// together, updating each owner's best (and so its cap). Then the parked
+// lanes go on from their skip links. A warp thus runs one drain per leaf
+// of its busiest lane, where walk<Leaf> ran one leaf loop per distinct
+// moment at which some lane entered a leaf, mostly with one lane active.
+// After each round next(parked), on all 32 lanes, may give finished lanes
+// new rays, and ends the walk when it returns false.
+template <class Drain, class Next>
+__device__ __forceinline__ void walk_postponed(ClosestLane& s, int n_nodes,
+                                               Drain&& drain, Next&& next) {
+  for (;;) {
+    walk_to_leaf(s.nodes, n_nodes, s.r, s.best.t, s.w);
+    const unsigned parked = __ballot_sync(kFull, s.w.leaf >= 0);
+    if (parked) {
+      drain(parked);
+      s.w.leaf = -1;
+    }
+    if (!next(parked)) return;
+  }
+}
+
+// Closest hit on the classic tree (K1, and K2 with kMasked): one lane per
+// ray, leaves postponed warp-wide; the drain runs each parked lane's own
+// leaf loop, with every parked lane active at once. kRefill (K2's measured
+// variant, not launched by the renders) makes the warps persistent and
+// refills finished lanes: each warp claims rays from the counter next_ray
+// (zeroed by the caller), 32 at first and then one for each lane that
+// finished, with one atomicAdd per claim by its lowest claiming lane;
+// outputs go by ray index. Without it a lane whose ray has ended idles
+// until its warp's longest ray ends.
+template <bool kMasked, bool kRefill>
 __global__ void __launch_bounds__(kThreads)
 closest_kernel(const float* __restrict__ nodes16,
                const float* __restrict__ tri8, const float* __restrict__ ox,
@@ -260,40 +434,46 @@ closest_kernel(const float* __restrict__ nodes16,
                int n_rays, int n_nodes, long long oct_floats,
                float* __restrict__ t_out, int* __restrict__ tri_out,
                float* __restrict__ u_out, float* __restrict__ v_out,
-               uint8_t* __restrict__ mixed_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  const float4* nodes = octant_nodes(nodes16, r, oct_floats);
-  const float4* tris = reinterpret_cast<const float4*>(tri8);
-  float bt = tmax[i], bu = 0.0f, bv = 0.0f;
-  int btri = -1;
-  bool bmix = false;
-  walk(nodes, n_nodes, r, bt, [&](int meta) {
-    const int first = meta >> 3;
-    const int count = (meta & 7) + 1;
-    for (int k = 0; k < count; ++k) {
-      float t, u, v;
-      float4 c;
-      if (tri_hit(tris, first + k, r, t, u, v, c) && t < bt) {
-        if constexpr (kMasked) {
-          const int code = cell_code(tri8, first + k, c, u, v);
-          if (code == 2) continue;  // TRANSPARENT cell: skip the hit
-          bmix = code == 0;
+               uint8_t* __restrict__ mixed_out, int* __restrict__ next_ray) {
+  const int lane = threadIdx.x & 31;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (kRefill) {
+    int first = 0;
+    if (lane == 0) first = atomicAdd(next_ray, 32);
+    i = __shfl_sync(kFull, first, 0) + lane;
+  }
+  ClosestLane s;
+  start_ray(s, i, n_rays, n_nodes, nodes16, oct_floats, ox, oy, oz, dx, dy,
+            dz, tmax);
+  walk_postponed(
+      s, n_nodes,
+      [&](unsigned) {
+        if (s.w.leaf >= 0) classic_leaf<kMasked>(tri8, s.w.leaf, s.r, s.best);
+      },
+      [&](unsigned parked) {
+        if constexpr (kRefill) {
+          const bool done = i < n_rays && s.w.p >= n_nodes;
+          if (done) store_hit<kMasked>(s.best, i, t_out, tri_out, u_out,
+                                       v_out, mixed_out);
+          const unsigned need = __ballot_sync(kFull, done);
+          if (need) {
+            const int leader = __ffs(need) - 1;
+            int base = 0;
+            if (lane == leader) base = atomicAdd(next_ray, __popc(need));
+            base = __shfl_sync(kFull, base, leader);
+            if (done) {
+              i = base + __popc(need & ((1u << lane) - 1u));
+              start_ray(s, i, n_rays, n_nodes, nodes16, oct_floats, ox, oy,
+                        oz, dx, dy, dz, tmax);
+            }
+          }
+          return __any_sync(kFull, i < n_rays);
+        } else {
+          return parked != 0;
         }
-        bt = t;
-        btri = first + k;
-        bu = u;
-        bv = v;
-      }
-    }
-    return false;
-  });
-  t_out[i] = btri >= 0 ? bt : INFINITY;
-  tri_out[i] = btri;
-  u_out[i] = bu;
-  v_out[i] = bv;
-  if constexpr (kMasked) mixed_out[i] = btri >= 0 && bmix;
+      });
+  if (!kRefill && i < n_rays)
+    store_hit<kMasked>(s.best, i, t_out, tri_out, u_out, v_out, mixed_out);
 }
 
 template <bool kMasked>
@@ -389,6 +569,38 @@ __device__ __forceinline__ bool fat_column(const float4* __restrict__ coef,
          (ud + vd) * det <= det * det && t > lo && t < hi;
 }
 
+// Position of the (s+1)-th set bit of m (s < popc(m)), by halving.
+__device__ __forceinline__ int nth_set_bit(unsigned m, int s) {
+  int pos = 0;
+#pragma unroll
+  for (int width = 16; width >= 1; width >>= 1) {
+    const unsigned low = m & ((1u << width) - 1u);
+    const int c = __popc(low);
+    if (s >= c) {
+      s -= c;
+      m >>= width;
+      pos += width;
+    } else {
+      m = low;
+    }
+  }
+  return pos;
+}
+
+// Fat closest hit (K7c): the postponed walk, and a drain that splits each
+// parked lane's leaf across a subgroup of lanes. With g parked lanes, g'
+// the next power of two >= g and w = 32 / g', the lanes form g' subgroups
+// of w; subgroup s serves the parked lane of ballot rank s (its owner),
+// whose features, best t and leaf its lanes read by shuffle. Lane r of a
+// subgroup tests columns k = r, r + w, ... of the owner's leaf with
+// fat_column on (kTMin, its own best so far), keeping its best (t, k) with
+// a strict < in ascending k, as the sequential scan does; a butterfly over
+// the subgroup then keeps the smaller t and, on an exact tie, the smaller
+// k -- the lowest column of a tie, the Pallas kernel's rule (traverse_fat
+// .py:162-165). The owner takes the winner's t, slot and its u = ud*inv,
+// v = vd*inv, the same operations on the same numbers as the sequential
+// scan, so the result is bit for bit the same. w = 1 (g > 16) is one leaf
+// per lane; g = 1 gives 32 lanes of T/32 columns each.
 __global__ void __launch_bounds__(kThreads)
 closest_kernel_fat(const float* __restrict__ nodes16,
                    const float* __restrict__ coef,
@@ -399,31 +611,72 @@ closest_kernel_fat(const float* __restrict__ nodes16,
                    long long oct_floats, int leaf_size,
                    float* __restrict__ t_out, int* __restrict__ tri_out,
                    float* __restrict__ u_out, float* __restrict__ v_out) {
+  constexpr int kNone = 0x7fffffff;  // no column found
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  const Cross x = ray_cross(r);
-  const float4* nodes = octant_nodes(nodes16, r, oct_floats);
+  const int lane = threadIdx.x & 31;
+  ClosestLane s;
+  start_ray(s, i, n_rays, n_nodes, nodes16, oct_floats, ox, oy, oz, dx, dy,
+            dz, tmax);
+  const Cross x = ray_cross(s.r);
   const float4* cf = reinterpret_cast<const float4*>(coef);
-  float bt = tmax[i], bu = 0.0f, bv = 0.0f;
-  int btri = -1;
-  walk(nodes, n_nodes, r, bt, [&](int leaf) {
-    const int first = leaf * leaf_size;
-    for (int k = 0; k < leaf_size; ++k) {
-      float t, ud, vd, inv;
-      if (fat_column(cf, first + k, r, x, kTMin, bt, t, ud, vd, inv)) {
-        bt = t;
-        btri = first + k;
-        bu = ud * inv;
-        bv = vd * inv;
+  walk_postponed(s, n_nodes, [&](unsigned parked) {
+    const int g = __popc(parked);
+    const int w = 32 >> (32 - __clz(g - 1));  // 32 / g', g' = 2^ceil(log2 g)
+    const int sub = lane / w;
+    const int owner = sub < g ? nth_set_bit(parked, sub) : lane;
+    Ray ro;
+    ro.ox = __shfl_sync(kFull, s.r.ox, owner);
+    ro.oy = __shfl_sync(kFull, s.r.oy, owner);
+    ro.oz = __shfl_sync(kFull, s.r.oz, owner);
+    ro.dx = __shfl_sync(kFull, s.r.dx, owner);
+    ro.dy = __shfl_sync(kFull, s.r.dy, owner);
+    ro.dz = __shfl_sync(kFull, s.r.dz, owner);
+    Cross xo;
+    xo.x = __shfl_sync(kFull, x.x, owner);
+    xo.y = __shfl_sync(kFull, x.y, owner);
+    xo.z = __shfl_sync(kFull, x.z, owner);
+    float bt = __shfl_sync(kFull, s.best.t, owner);
+    const int leaf = __shfl_sync(kFull, s.w.leaf, owner);
+    int bk = kNone;
+    float bu = 0.0f, bv = 0.0f;
+    if (sub < g) {
+      const int first = leaf * leaf_size;
+      for (int k = lane - sub * w; k < leaf_size; k += w) {
+        float t, ud, vd, inv;
+        if (fat_column(cf, first + k, ro, xo, kTMin, bt, t, ud, vd, inv)) {
+          bt = t;
+          bk = k;
+          bu = ud * inv;
+          bv = vd * inv;
+        }
       }
     }
-    return false;
-  });
-  t_out[i] = btri >= 0 ? bt : INFINITY;
-  tri_out[i] = btri;
-  u_out[i] = bu;
-  v_out[i] = bv;
+    for (int off = w >> 1; off >= 1; off >>= 1) {
+      const float ot = __shfl_xor_sync(kFull, bt, off);
+      const int ok = __shfl_xor_sync(kFull, bk, off);
+      if (ot < bt || (ot == bt && ok < bk)) {
+        bt = ot;
+        bk = ok;
+      }
+    }
+    // each parked lane reads its subgroup's result: t and k from its first
+    // lane, u and v from the lane that tested column k
+    const bool mine = s.w.leaf >= 0;
+    const int head = mine ? __popc(parked & ((1u << lane) - 1u)) * w : lane;
+    const float wt = __shfl_sync(kFull, bt, head);
+    const int wk = __shfl_sync(kFull, bk, head);
+    const int src = head + (wk == kNone ? 0 : wk % w);
+    const float wu = __shfl_sync(kFull, bu, src);
+    const float wv = __shfl_sync(kFull, bv, src);
+    if (mine && wk != kNone) {
+      s.best.t = wt;
+      s.best.tri = s.w.leaf * leaf_size + wk;
+      s.best.u = wu;
+      s.best.v = wv;
+    }
+  }, [](unsigned parked) { return parked != 0; });
+  if (i < n_rays) store_hit<false>(s.best, i, t_out, tri_out, u_out, v_out,
+                                   nullptr);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -464,17 +717,31 @@ anyhit_kernel_fat(const float* __restrict__ nodes16,
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
-template <bool kMasked>
+// The refill form runs as many blocks as stay resident on the card at
+// once (no more than one ray per thread), the other one thread per ray.
+template <bool kMasked, bool kRefill>
 int launch_closest(const float* nodes16, const float* tri8, const float* ox,
                    const float* oy, const float* oz, const float* dx,
                    const float* dy, const float* dz, const float* tmax,
                    int n_rays, int n_nodes, long long oct_floats,
                    float* t_out, int* tri_out, float* u_out, float* v_out,
-                   uint8_t* mixed_out, void* stream) {
-  closest_kernel<kMasked><<<blocks_for(n_rays), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+                   uint8_t* mixed_out, int* next_ray, void* stream) {
+  int blocks = blocks_for(n_rays);
+  if constexpr (kRefill) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, closest_kernel<kMasked, true>, kThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    blocks = min(sms * per_sm, blocks);
+  }
+  closest_kernel<kMasked, kRefill><<<blocks, kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
       nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax, n_rays, n_nodes,
-      oct_floats, t_out, tri_out, u_out, v_out, mixed_out);
+      oct_floats, t_out, tri_out, u_out, v_out, mixed_out, next_ray);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -503,9 +770,10 @@ int glaze_closest_hit(const float* nodes16, const float* tri8,
                       const float* tmax, int n_rays, int n_nodes,
                       long long oct_floats, float* t_out, int* tri_out,
                       float* u_out, float* v_out, void* stream) {
-  return launch_closest<false>(nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax,
-                               n_rays, n_nodes, oct_floats, t_out, tri_out,
-                               u_out, v_out, nullptr, stream);
+  return launch_closest<false, false>(nodes16, tri8, ox, oy, oz, dx, dy, dz,
+                                      tmax, n_rays, n_nodes, oct_floats,
+                                      t_out, tri_out, u_out, v_out, nullptr,
+                                      nullptr, stream);
 }
 
 int glaze_closest_hit_masked(const float* nodes16, const float* tri8,
@@ -516,9 +784,28 @@ int glaze_closest_hit_masked(const float* nodes16, const float* tri8,
                              long long oct_floats, float* t_out,
                              int* tri_out, float* u_out, float* v_out,
                              uint8_t* mixed_out, void* stream) {
-  return launch_closest<true>(nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax,
-                              n_rays, n_nodes, oct_floats, t_out, tri_out,
-                              u_out, v_out, mixed_out, stream);
+  return launch_closest<true, false>(nodes16, tri8, ox, oy, oz, dx, dy, dz,
+                                     tmax, n_rays, n_nodes, oct_floats, t_out,
+                                     tri_out, u_out, v_out, mixed_out, nullptr,
+                                     stream);
+}
+
+// glaze_closest_hit_masked in persistent warps that refill finished lanes
+// from the counter next_ray, a zeroed int on the card: the form measured
+// against it (chip_smoke.py), which the renders do not launch.
+int glaze_closest_hit_masked_refill(const float* nodes16, const float* tri8,
+                                    const float* ox, const float* oy,
+                                    const float* oz, const float* dx,
+                                    const float* dy, const float* dz,
+                                    const float* tmax, int n_rays,
+                                    int n_nodes, long long oct_floats,
+                                    float* t_out, int* tri_out, float* u_out,
+                                    float* v_out, uint8_t* mixed_out,
+                                    int* next_ray, void* stream) {
+  return launch_closest<true, true>(nodes16, tri8, ox, oy, oz, dx, dy, dz,
+                                    tmax, n_rays, n_nodes, oct_floats, t_out,
+                                    tri_out, u_out, v_out, mixed_out, next_ray,
+                                    stream);
 }
 
 int glaze_any_hit(const float* nodes16, const float* tri8, const float* ox,
@@ -569,6 +856,30 @@ int glaze_any_hit_fat(const float* nodes16, const float* coef,
       nodes16, coef, ox, oy, oz, dx, dy, dz, tmax, active, n_rays, n_nodes,
       oct_floats, leaf_size, t_min, hit_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers per thread, local (spill) bytes per thread and resident
+// blocks per SM of kernel ``which`` (0 closest, 1 closest masked, 2 any
+// hit, 3 any hit masked, 4 fat closest, 5 fat any hit, 6 closest masked
+// with the refill) at kThreads per block. Returns a cudaError_t (0 = ok).
+int glaze_kernel_attrs(int which, int* regs, int* local_bytes,
+                       int* blocks_per_sm) {
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(closest_kernel<false, false>),
+      reinterpret_cast<const void*>(closest_kernel<true, false>),
+      reinterpret_cast<const void*>(anyhit_kernel<false>),
+      reinterpret_cast<const void*>(anyhit_kernel<true>),
+      reinterpret_cast<const void*>(closest_kernel_fat),
+      reinterpret_cast<const void*>(anyhit_kernel_fat),
+      reinterpret_cast<const void*>(closest_kernel<true, true>)};
+  if (which < 0 || which >= 7) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernels[which]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernels[which], kThreads, 0));
 }
 
 const char* glaze_error_string(int code) {

@@ -217,6 +217,144 @@ def test_walk_stats_count_columns():
     assert int(hit.sum()) > 100 and 0 < sa.col_tests < sc.col_tests
 
 
+NONE = np.iinfo(np.int32).max  # no column found
+T_MIN32 = np.float32(1e-4)
+
+
+def _split_drain_model(valid, t, cap, w):
+    """NumPy model of K7c's drain of one leaf per row (csrc/traverse.cu
+    closest_kernel_fat): lane r of a subgroup of w tests columns k = r (mod
+    w) in ascending k with a strict <, then a butterfly over the subgroup
+    keeps the smaller t and, on an exact tie, the smaller k. Returns the
+    (t, k) every lane ends with (they must all agree)."""
+    rows, T = t.shape
+    bt = np.repeat(cap[:, None], w, 1)
+    bk = np.full((rows, w), NONE, np.int64)
+    for r in range(w):
+        for k in range(r, T, w):
+            take = valid[:, k] & (t[:, k] > T_MIN32) & (t[:, k] < bt[:, r])
+            bt[take, r] = t[take, k]
+            bk[take, r] = k
+    lanes = np.arange(w)
+    off = w // 2
+    while off:
+        ot, ok = bt[:, lanes ^ off], bk[:, lanes ^ off]
+        swap = (ot < bt) | ((ot == bt) & (ok < bk))
+        bt, bk = np.where(swap, ot, bt), np.where(swap, ok, bk)
+        off //= 2
+    assert (bt == bt[:, :1]).all() and (bk == bk[:, :1]).all()
+    return bt[:, 0], bk[:, 0]
+
+
+def _sequential_scan(valid, t, cap):
+    """The column loop K7c ran before (and the Pallas kernel's order):
+    k = 0..T-1, replace the best when T_MIN < t < best."""
+    bt, bk = cap.copy(), np.full(cap.shape, NONE, np.int64)
+    for k in range(t.shape[1]):
+        take = valid[:, k] & (t[:, k] > T_MIN32) & (t[:, k] < bt)
+        bt[take] = t[take, k]
+        bk[take] = k
+    return bt, bk
+
+
+def _drain_columns(T):
+    """(valid, t, cap) rows of T columns: synthetic rows drawn from a few
+    float32 values (exact ties, t at T_MIN and at the cap, misses, infs),
+    then real rows of leaves of triangles that each appear three times
+    (fat._leaf_columns of rays aimed at them)."""
+    from glaze_tpu_torch.accel import fat, walk_cases
+
+    rng = np.random.default_rng(53 + T)
+    vals = np.float32([-1.0, 0.0, 5e-5, 1e-4, 0.5, 1.0, 1.0, 2.0, 3.0, 7.5,
+                       40.0, np.inf])
+    t = rng.choice(vals, (96, T)).astype(np.float32)
+    valid = rng.uniform(size=(96, T)) < 0.7
+    valid[:4] = False  # no column at all
+    t[4:8] = np.maximum(t[4:8], np.float32(7.5))  # none below the cap
+    cap = rng.choice(np.float32([np.inf, 2.0, 1.0, 7.5]), 96).astype(np.float32)
+    cap[4:8] = 7.5
+    tri, o, d = walk_cases.duplicate_soup(n=max(8, T), n_rays=64, seed=54 + T)
+    b, _ = fat.build_bvh_fat(tri, "cpu", T)
+    n_leaves = b.coef.shape[0] // T
+    feat = fat._ray_features(_t(o), _t(d))
+    slots = torch.arange(n_leaves * T).view(n_leaves, T)
+    rv, rt, _, _, _ = fat._leaf_columns(
+        b.coef, slots.repeat(len(o), 1),
+        feat.repeat_interleave(n_leaves, 0))
+    rv, rt = rv.numpy(), rt.numpy()
+    keep = rv.any(1)
+    assert keep.sum() >= 16
+    rt = np.where(rv, rt, np.float32(0.0))  # the kernel never reads these
+    return (np.concatenate([valid, rv[keep]]), np.concatenate([t, rt[keep]]),
+            np.concatenate([cap, np.full(int(keep.sum()), np.inf, np.float32)]))
+
+
+@pytest.mark.parametrize("T", [8, 20, 128])
+@pytest.mark.parametrize("w", [1, 2, 4, 8, 16, 32])
+def test_split_drain_reduction_order(w, T):
+    """K7c's split drain keeps the sequential scan's result bit for bit
+    for every subgroup width, exact ties included (the lowest column
+    wins), and so does the plain walker's selection (fat.closest_column,
+    torch.min's first index)."""
+    from glaze_tpu_torch.accel import fat
+
+    valid, t, cap = _drain_columns(T)
+    mt, mk = _split_drain_model(valid, t, cap, w)
+    st, sk = _sequential_scan(valid, t, cap)
+    assert np.array_equal(mt.view(np.int32), st.view(np.int32))
+    assert np.array_equal(mk, sk)
+    tmin, kmin, better = fat.closest_column(_t(valid), _t(t), _t(cap))
+    pt = np.where(better.numpy(), tmin.numpy(), cap)
+    pk = np.where(better.numpy(), kmin.numpy(), NONE)
+    assert np.array_equal(pt.view(np.int32), st.view(np.int32))
+    assert np.array_equal(pk, sk)
+    # the rows hold exact ties that the rule decides, and misses
+    ties = [(valid[i] & (t[i] == st[i])).sum() > 1 for i in range(len(st))]
+    assert sum(ties) >= 8 and (sk == NONE).sum() >= 4 and (sk != NONE).sum() >= 16
+
+
+@pytest.mark.parametrize("mode", ["classic", "fat"])
+def test_per_lane_counts_sum_to_totals(mode, monkeypatch):
+    """The per-lane counters of the plain closest walkers on the tiny
+    scene sum back to the walk's totals: node steps to ``node_visits``,
+    leaves entered x T to ``col_tests`` on the fat tree (each entered leaf
+    tests all T columns) and to between tri_tests / 8 and tri_tests on the
+    classic one; the warp counters follow from them."""
+    from glaze_tpu_torch.accel import bvh as B
+    from glaze_tpu_torch.accel import fat
+    from glaze_tpu_torch.scene import flatten_scene
+
+    monkeypatch.setenv("GLAZE_TREE", mode)
+    scene, _, _ = flatten_scene(_tiny_parsed(), "cpu")
+    tree = scene.bvh
+    rng = np.random.default_rng(52)
+    n = 333  # a ragged last warp
+    o = rng.uniform([-1.5, 0.2, -1.5], [1.5, 2.5, 1.5], (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    st = B.WalkStats(per_lane=True)
+    if mode == "fat":
+        assert isinstance(tree, fat.FatBVH)
+        fat.closest_hit_fat(tree, _t(o), _t(d), stats=st)
+        assert int(st.lane_leaves.sum()) * tree.leaf_size == st.col_tests
+    else:
+        B.closest_hit(tree, _t(o), _t(d), stats=st)
+        leaves = int(st.lane_leaves.sum())
+        assert st.tri_tests / B.LEAF_SIZE <= leaves <= st.tri_tests
+    assert st.lane_steps.shape == (n,) and int(st.lane_steps.min()) >= 1
+    assert int(st.lane_steps.sum()) == st.node_visits
+    w = st.warp_counters()
+    steps = np.pad(st.lane_steps.numpy(), (0, -n % 32)).reshape(-1, 32)
+    leaves = np.pad(st.lane_leaves.numpy(), (0, -n % 32)).reshape(-1, 32)
+    assert w["simd_efficiency"] == pytest.approx(
+        steps.sum() / (32 * steps.max(1).sum()))
+    assert w["mean_leaves_per_lane"] == pytest.approx(leaves.sum() / n)
+    assert w["mean_warp_max_leaves"] == pytest.approx(leaves.max(1).mean())
+    assert 0 < w["simd_efficiency"] <= 1
+    assert w["mean_warp_max_leaves"] >= w["mean_leaves_per_lane"] > 0
+    assert B.WalkStats().lane_steps is None  # off unless asked for
+
+
 # ---------------------------------------------------------------------------
 # tree selection and dispatch
 
@@ -528,6 +666,19 @@ def test_fat_kernels_match_plain_on_cuda():
     kh = tc.any_hit_fat_soa(b, o3, d3, tm, active=act)
     assert torch.equal(kh, fat.any_hit_fat(b, o_t, d_t, tm, active=act))
     assert bool(kh.any()) and not bool(kh[~act].any())
+
+
+@pytest.mark.cuda
+def test_fat_kernel_walk_cases_on_cuda():
+    """Needs a CUDA card (skips here): K7c against its plain walker, bit
+    for bit, on every case of accel/walk_cases.py (leaves of T = 20 with
+    exact ties, 1/31/33/257 rays, one long lane per warp)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from glaze_tpu_torch.accel import traverse_cuda as tc
+    from glaze_tpu_torch.accel import walk_cases as wc
+
+    assert wc.closest_mismatches("cuda", {"fat": tc.closest_hit_fat_soa}) == 0
 
 
 @pytest.mark.parametrize("opacity,mode,want", [

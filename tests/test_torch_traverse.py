@@ -273,3 +273,64 @@ def test_kernels_match_plain_on_cuda(scenes):
     pb, pp = B.any_hit_masked(mbvh, o_t, d_t, tm, active=act)
     assert torch.equal(kb, pb) and torch.equal(kp, pp)
     assert bool(kp.any()) and bool(kb.any())
+
+
+@pytest.mark.parametrize("kind", ["closest", "masked"])
+@pytest.mark.parametrize("name", ["duplicates", "long_lane"])
+def test_walk_cases_stress_the_warp(name, kind):
+    """The cases the closest kernels are held to (accel/walk_cases.py)
+    contain what they are meant to, on the plain walkers: duplicated
+    triangles tie exactly and the first copy in the leaf is reported (on
+    the masked tree, the first whose cell at the hit is not TRANSPARENT);
+    a few lanes of the long-lane rays walk along the row while their
+    warp's other lanes take one step."""
+    from glaze_tpu_torch.accel import bvh as B
+    from glaze_tpu_torch.accel import walk_cases as wc
+
+    rows = {(label.split()[0], k): (tree, o, d, t_max)
+            for label, k, tree, o, d, t_max in wc.cases("cpu")
+            if label.endswith(" 257 rays")}
+    tree, o, d, t_max = rows[(name, kind)]
+    walk = B.closest_hit if kind == "closest" else B.closest_hit_masked
+    st = B.WalkStats(per_lane=True)
+    out = walk(tree, o, d, t_max, stats=st)
+    hit = out["tri"] >= 0
+    if name == "duplicates":
+        assert int(hit.sum()) > 150
+        slot = out["tri"][hit].long()
+        rows9 = tree.tri[:, :9]
+        prev = torch.clamp(slot - 1, min=0)
+        first_in_leaf = (slot % B.LEAF_SIZE == 0) | ~(rows9[prev] == rows9[slot]).all(1)
+        if kind == "masked":  # the copy before it was skipped
+            words = tree.tri[prev, 9:13].contiguous().view(torch.int32)
+            code = B._mask_bits(words, out["u"][hit], out["v"][hit],
+                                torch.ones_like(slot, dtype=torch.bool))
+            first_in_leaf |= code == 2
+        nxt = torch.clamp(slot + 1, max=tree.tri.shape[0] - 1)
+        tied = (rows9[nxt] == rows9[slot]).all(1)
+        assert bool(first_in_leaf.all()) and int(tied.sum()) > 100
+    else:
+        long_lanes = torch.arange(o.shape[0]) % 37 == 0
+        assert int(st.lane_steps[~long_lanes].max()) == 1
+        assert int(st.lane_steps[long_lanes].min()) >= 10
+        assert st.warp_counters()["simd_efficiency"] < 0.2
+
+
+@pytest.mark.cuda
+def test_closest_kernels_walk_cases_on_cuda():
+    """Needs a CUDA card (skips here): K1, K2 and K2's refill variant
+    against their plain walkers, bit for bit, on every case of
+    accel/walk_cases.py (exact ties, 1/31/33/257 rays, one long lane per
+    warp)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from glaze_tpu_torch.accel import traverse_cuda as tc
+    from glaze_tpu_torch.accel import walk_cases as wc
+
+    def refill(tree, o3, d3, t_max):
+        return tc.closest_hit_soa_masked(tree, o3, d3, t_max, refill=True)
+
+    for kernels in ({"closest": tc.closest_hit_soa,
+                     "masked": tc.closest_hit_soa_masked},
+                    {"masked": refill}):
+        assert wc.closest_mismatches("cuda", kernels) == 0
