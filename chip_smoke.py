@@ -132,18 +132,6 @@ PROBES = (("fat_drain", "tools/bench_mxu.py:95"),
           ("dot_chain", "tools/bench_dot.py:29"),
           ("resolve_chain", "tools/bench_dot.py:112"),
           ("slab_rate", "tools/bench_bf16_slab.py:38"))
-# The closest walks before their warp-synchronous redesign (one lane per
-# ray running its own leaf loop): ms per launch on each set, measured by
-# this script with those kernels on the card named here.
-EARLIER_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
-EARLIER_MS = {
-    "closest_hit": {"camera": 0.8867200016975403, "bounce": 1.1428159475326538},
-    "closest_hit_masked": {"camera": 0.8770239949226379,
-                           "bounce": 1.1416319608688354,
-                           "alpha_tree_launch1": 0.2499839961528778,
-                           "alpha_tree_launch5": 0.24614399671554565},
-    "closest_hit_fat": {"camera": 4.345823764801025, "bounce": 8.828096389770508},
-}
 
 
 def log(msg):
@@ -211,7 +199,7 @@ def phase_build():
     for name, a in attrs.items():
         log(f"[build] {name}: {a['registers']} registers, {a['local_bytes']} "
             f"local bytes per thread, {a['blocks_per_sm']} blocks of "
-            f"{tc.THREADS_PER_BLOCK} per SM (occupancy {a['occupancy']:.2f})")
+            f"{a['threads_per_block']} per SM (occupancy {a['occupancy']:.2f})")
     return attrs
 
 
@@ -687,7 +675,7 @@ def _check_closest(entry, label, bvh, s):
     masked = entry["name"] == "closest_hit_masked"
     o3, d3, cap_ = s["o3"], s["d3"], s["t_max"]
     kern = kern_fn(bvh, o3, d3, cap_)
-    stats = B.WalkStats(per_lane=True)
+    stats = B.WalkStats()
     t0 = time.perf_counter()
     plain = plain_fn(bvh, torch.stack(o3, -1), torch.stack(d3, -1), cap_,
                      stats=stats)
@@ -744,7 +732,7 @@ def _check_anyhit(entry, label, bvh, s):
     masked = entry["name"] == "any_hit_masked"
     o3, d3, tm, act, t_min = s["o3"], s["d3"], s["t_max"], s["active"], s["t_min"]
     kern = kern_fn(bvh, o3, d3, tm, t_min=t_min, active=act)
-    stats = B.WalkStats(per_lane=True)
+    stats = B.WalkStats()
     t0 = time.perf_counter()
     plain = plain_fn(bvh, torch.stack(o3, -1), torch.stack(d3, -1), tm,
                      t_min=t_min, active=act, stats=stats)
@@ -811,91 +799,32 @@ def _summarize(entry, headline):
         bound_ms=statistics.mean(v["bound_ms"] for v in sets),
         bound_by=sets[-1]["bound_by"],
         warp={k: v["warp"] for k, v in entry["sets"].items()})
-    earlier = ""
-    if entry["name"] in EARLIER_MS:
-        before = EARLIER_MS[entry["name"]]
-        for k, v in entry["sets"].items():
-            v["earlier_ms"] = before[k]
-        entry.update(earlier_ms=statistics.mean(before[k] for k in headline),
-                     earlier_card=EARLIER_CARD)
-        earlier = f" (before the redesign {entry['earlier_ms']:.3f} ms)"
-    log(f"[kernels] {entry['name']}: kernel {entry['ms']:.3f} ms{earlier}, "
+    log(f"[kernels] {entry['name']}: kernel {entry['ms']:.3f} ms, "
         f"plain {entry['plain_ms']:.1f} ms, bound {entry['bound_ms']:.4f} ms "
         f"({entry['bound_by']}) per launch, mean of {list(headline)}")
 
 
 def phase_walk_cases():
-    """The closest kernels (K1, K2 and its refill variant, K7c) against
-    their plain walkers, bit for bit, on the small cases of
-    glaze_tpu_torch.accel.walk_cases: exact ties, 1/31/33/257 rays, one
-    long lane per warp."""
+    """The closest kernels (K1, K2, K7c) against their plain walkers, bit
+    for bit, on the small cases of glaze_tpu_torch.accel.walk_cases: exact
+    ties, 1/31/33/257 rays, one long lane per warp."""
     from glaze_tpu_torch.accel import traverse_cuda as tc
     from glaze_tpu_torch.accel import walk_cases as wc
 
-    def refill(tree, o3, d3, t_max):
-        return tc.closest_hit_soa_masked(tree, o3, d3, t_max, refill=True)
-
     t0 = time.perf_counter()
-    bad = 0
-    for form, kernels in (("", {"closest": tc.closest_hit_soa,
-                                "masked": tc.closest_hit_soa_masked,
-                                "fat": tc.closest_hit_fat_soa}),
-                          (" refill", {"masked": refill})):
-        lines = []
-        bad += wc.closest_mismatches("cuda", kernels, log=lambda *a: lines.append(a))
-        for label, rays, hits, n_bad in lines:
-            if n_bad or rays == 257:
-                log(f"[walk_cases] {label}{form}: {hits} hits of {rays} rays, "
-                    f"{n_bad} rays differ from the plain walker")
+    lines = []
+    bad = wc.closest_mismatches("cuda", {"closest": tc.closest_hit_soa,
+                                         "masked": tc.closest_hit_soa_masked,
+                                         "fat": tc.closest_hit_fat_soa},
+                                log=lambda *a: lines.append(a))
+    for label, rays, hits, n_bad in lines:
+        if n_bad or rays == 257:
+            log(f"[walk_cases] {label}: {hits} hits of {rays} rays, "
+                f"{n_bad} rays differ from the plain walker")
     log(f"[walk_cases] {bad} rays differ in all ({time.perf_counter() - t0:.1f} s)")
     if bad:
         raise RuntimeError("a closest kernel disagrees with its plain walker "
                            "on the walk cases")
-
-
-def _time_refill(k2, tree, sets):
-    """K2's refill variant (persistent warps that claim new rays for
-    finished lanes) against K2's postponed walk alone on the captured sets
-    ``sets``: outputs bit for bit the same, then both timed in turn, three
-    rounds each; the run-to-run spread is the range of K2's three."""
-    from glaze_tpu_torch.accel import traverse_cuda as tc
-    from glaze_tpu_torch.tools.common import cuda_ms
-
-    out = {"sets": {}}
-    for label, s in sets:
-        o3, d3, cap_ = s["o3"], s["d3"], s["t_max"]
-        a = tc.closest_hit_soa_masked(tree, o3, d3, cap_)
-        b = tc.closest_hit_soa_masked(tree, o3, d3, cap_, refill=True)
-        for key in a:
-            x, y = a[key], b[key]
-            if x.dtype == torch.float32:
-                x, y = x.view(torch.int32), y.view(torch.int32)
-            if not torch.equal(x, y):
-                raise RuntimeError(f"K2's refill variant differs from K2 on "
-                                   f"{label}: {key}")
-        plain, refill = [], []
-        for _ in range(3):
-            plain.append(cuda_ms(lambda: tc.closest_hit_soa_masked(
-                tree, o3, d3, cap_), 5))
-            refill.append(cuda_ms(lambda: tc.closest_hit_soa_masked(
-                tree, o3, d3, cap_, refill=True), 5))
-        out["sets"][label] = {"postponed_ms": plain, "refill_ms": refill}
-        log(f"[kernels] closest_hit_masked {label}: postponed "
-            f"{', '.join(f'{x:.3f}' for x in plain)} ms, with refill "
-            f"{', '.join(f'{x:.3f}' for x in refill)} ms")
-    sets_ = out["sets"].values()
-    out["postponed_ms"] = statistics.mean(statistics.mean(v["postponed_ms"])
-                                          for v in sets_)
-    out["refill_ms"] = statistics.mean(statistics.mean(v["refill_ms"])
-                                       for v in sets_)
-    out["spread_ms"] = max(max(v["postponed_ms"]) - min(v["postponed_ms"])
-                           for v in sets_)
-    out["refill_wins"] = out["refill_ms"] < out["postponed_ms"] - out["spread_ms"]
-    log(f"[kernels] closest_hit_masked refill: {out['refill_ms']:.3f} ms against "
-        f"{out['postponed_ms']:.3f} ms postponed alone (spread "
-        f"{out['spread_ms']:.3f} ms): refill "
-        f"{'wins' if out['refill_wins'] else 'does not win'}")
-    k2["refill"] = out
 
 
 def _capture_sample(path):
@@ -974,7 +903,6 @@ def phase_masked_kernels(path):
                            *((lab, scene.bvh_alpha, c) for lab, c in alpha_sets)):
         _check_closest(k2, label, tree, s)
     _summarize(k2, ("camera", "bounce"))
-    _time_refill(k2, scene.bvh, (("camera", full[0]), ("bounce", full[1])))
     k4 = _kernel_entry("any_hit_masked",
                        "glaze_tpu/accel/traverse_pallas.py:1733")
     for label, s in (("shadow_camera_hits", anyhit[0]),
@@ -1207,10 +1135,7 @@ def main():
                                               report, expected, tree)
     phase_golden()
     for name, a in attrs.items():
-        if name == "closest_hit_masked_refill":
-            report["closest_hit_masked"]["refill"].update(a)
-        else:
-            report[name].update(a)
+        report[name].update(a)
     for label, numbers in main_numbers.items():
         for name, ms in numbers["profile"].get("traversal_ms_per_launch",
                                                {}).items():
@@ -1223,9 +1148,8 @@ def main():
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "sets") + tuple(
                 key for key in ("headline", "registers", "local_bytes",
-                                "blocks_per_sm", "occupancy", "warp",
-                                "earlier_ms", "earlier_card", "refill",
-                                "in_render_ms_by_path")
+                                "threads_per_block", "blocks_per_sm",
+                                "occupancy", "warp", "in_render_ms_by_path")
                 if key in k)})
     log(f"[done] {time.perf_counter() - t_start:.0f} s in all")
     print(json.dumps({"main_path": main_numbers, "card": card}))

@@ -344,27 +344,23 @@ class WalkStats:
     table rows the walk read (:meth:`distinct`: node rows, triangle rows,
     payload words ``row*4 + word``, fat-leaf coefficient rows).
 
-    With ``per_lane`` it also keeps, for each ray, its node steps
-    (``lane_steps``) and the leaves it entered (``lane_leaves``), (R,)
-    int64 tensors, from which :meth:`warp_counters` reads how a warp of a
-    one-thread-per-ray kernel spends its steps."""
+    It also keeps, for each ray, its node steps (``lane_steps``) and the
+    leaves it entered (``lane_leaves``), (R,) int64 tensors, from which
+    :meth:`warp_counters` reads how a warp of a one-thread-per-ray kernel
+    spends its steps."""
 
-    def __init__(self, per_lane: bool = False):
+    def __init__(self):
         self.node_visits = 0
         self.tri_tests = 0
         self.mask_tests = 0
         self.col_tests = 0
         self._seen = {}
-        self.per_lane = per_lane
         self.lane_steps = None
         self.lane_leaves = None
 
     def count_lanes(self, lanes, entered, n_rays: int):
         """One node step for each ray of ``lanes`` (ray indices, distinct)
-        and one leaf for those where ``entered``; a no-op without
-        ``per_lane``."""
-        if not self.per_lane:
-            return
+        and one leaf for those where ``entered``."""
         if self.lane_steps is None:
             self.lane_steps = torch.zeros(n_rays, dtype=torch.int64,
                                           device=lanes.device)
@@ -381,7 +377,7 @@ class WalkStats:
         rounds of a warp that postpones its leaves)."""
         steps, leaves = self.lane_steps, self.lane_leaves
         if steps is None:
-            raise ValueError("WalkStats(per_lane=True) recorded no walk")
+            raise ValueError("WalkStats recorded no walk")
         pad = -steps.numel() % warp
         s = torch.nn.functional.pad(steps, (0, pad)).view(-1, warp)
         lv = torch.nn.functional.pad(leaves, (0, pad)).view(-1, warp)

@@ -60,9 +60,6 @@ def _load():
         lib.glaze_closest_hit_masked.argtypes = ([p] * 9 + [i, i, ctypes.c_longlong]
                                                  + [p] * 6)
         lib.glaze_closest_hit_masked.restype = i
-        lib.glaze_closest_hit_masked_refill.argtypes = (
-            [p] * 9 + [i, i, ctypes.c_longlong] + [p] * 7)
-        lib.glaze_closest_hit_masked_refill.restype = i
         lib.glaze_any_hit_masked.argtypes = ([p] * 10 + [i, i, ctypes.c_longlong,
                                                          ctypes.c_float, p, p, p])
         lib.glaze_any_hit_masked.restype = i
@@ -72,7 +69,9 @@ def _load():
         lib.glaze_any_hit_fat.argtypes = ([p] * 10 + [i, i, ctypes.c_longlong, i,
                                                       ctypes.c_float, p, p])
         lib.glaze_any_hit_fat.restype = i
-        lib.glaze_kernel_attrs.argtypes = [i, p, p, p]
+        lib.glaze_kernel_count.argtypes = []
+        lib.glaze_kernel_count.restype = i
+        lib.glaze_kernel_attrs.argtypes = [i] + [p] * 5
         lib.glaze_kernel_attrs.restype = i
         lib.glaze_error_string.argtypes = [i]
         lib.glaze_error_string.restype = ctypes.c_char_p
@@ -82,28 +81,30 @@ def _load():
 
 # kernel names in glaze_kernel_attrs' order
 ATTR_KERNELS = ("closest_hit", "closest_hit_masked", "any_hit",
-                "any_hit_masked", "closest_hit_fat", "any_hit_fat",
-                "closest_hit_masked_refill")
-THREADS_PER_BLOCK = 256
-MAX_THREADS_PER_SM = 2048
+                "any_hit_masked", "closest_hit_fat", "any_hit_fat")
 
 
 def kernel_attrs() -> dict:
-    """For each kernel (by wrapper name): registers per thread, local
-    (spill) bytes per thread, resident blocks per SM and the occupancy
-    they give (resident threads over the SM's 2,048), as the CUDA runtime
-    reports them for the built library."""
+    """For each kernel (by wrapper name): registers and local (spill)
+    bytes per thread, threads per block, resident blocks per SM and the
+    occupancy they give (resident threads over the most an SM holds), as
+    the CUDA runtime reports them for the built library on the current
+    card."""
     lib = _load()
+    if lib.glaze_kernel_count() != len(ATTR_KERNELS):
+        raise RuntimeError(f"the library reports on {lib.glaze_kernel_count()} "
+                           f"kernels, not the {len(ATTR_KERNELS)} of ATTR_KERNELS")
     out = {}
     for which, name in enumerate(ATTR_KERNELS):
-        regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        regs, local, threads, blocks, most = (ctypes.c_int() for _ in range(5))
         _check(lib.glaze_kernel_attrs(which, ctypes.byref(regs),
-                                      ctypes.byref(local), ctypes.byref(blocks)),
+                                      ctypes.byref(local), ctypes.byref(threads),
+                                      ctypes.byref(blocks), ctypes.byref(most)),
                f"{name} attribute query")
         out[name] = {"registers": regs.value, "local_bytes": local.value,
+                     "threads_per_block": threads.value,
                      "blocks_per_sm": blocks.value,
-                     "occupancy": blocks.value * THREADS_PER_BLOCK
-                     / MAX_THREADS_PER_SM}
+                     "occupancy": blocks.value * threads.value / most.value}
     return out
 
 
@@ -145,11 +146,9 @@ def _oct_floats(bvh) -> int:
     return (bvh.nodes16.shape[0] // 8) * 128
 
 
-def _closest(bvh, origin3, direction3, t_max, masked: bool,
-             refill: bool = False):
-    """Launches the closest-hit kernel (masked or not, masked also in its
-    refill form); returns the dict of outputs, ``mixed`` included when
-    masked."""
+def _closest(bvh, origin3, direction3, t_max, masked: bool):
+    """Launches the closest-hit kernel (masked or not); returns the dict of
+    outputs, ``mixed`` included when masked."""
     dev = origin3[0].device
     r = origin3[0].shape[0]
     if t_max is None:
@@ -173,14 +172,7 @@ def _closest(bvh, origin3, direction3, t_max, masked: bool,
                 *[c.data_ptr() for c in comps], r, bvh.n_nodes,
                 _oct_floats(bvh), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
                 v.data_ptr()]
-        if refill:
-            # the rays the persistent warps have claimed so far
-            next_ray = torch.zeros((1,), dtype=torch.int32, device=dev)
-            code = lib.glaze_closest_hit_masked_refill(
-                *args, out["mixed"].data_ptr(), next_ray.data_ptr(), stream)
-            _check(code, "masked closest-hit (refill)")
-            closest_hit_soa_masked.launches += 1
-        elif masked:
+        if masked:
             code = lib.glaze_closest_hit_masked(
                 *args, out["mixed"].data_ptr(), stream)
             _check(code, "masked closest-hit")
@@ -207,17 +199,12 @@ def closest_hit_soa(bvh, origin3, direction3, t_max=None):
 closest_hit_soa.launches = 0
 
 
-def closest_hit_soa_masked(bvh, origin3, direction3, t_max=None,
-                           refill=False):
+def closest_hit_soa_masked(bvh, origin3, direction3, t_max=None):
     """:func:`closest_hit_soa` honouring the tree's baked opacity cells
     (the tree must carry the payload): TRANSPARENT-cell hits are skipped,
-    and the extra (R,) bool ``mixed`` marks accepted MIXED-cell hits.
-    ``refill=True`` launches the kernel's measured variant, persistent
-    warps that refill finished lanes with new rays (the same outputs);
-    the renders do not."""
+    and the extra (R,) bool ``mixed`` marks accepted MIXED-cell hits."""
     _require_payload(bvh)
-    return _closest(bvh, origin3, direction3, t_max, masked=True,
-                    refill=refill)
+    return _closest(bvh, origin3, direction3, t_max, masked=True)
 
 
 closest_hit_soa_masked.launches = 0

@@ -47,14 +47,13 @@
 // leaves in its own order with the t_best the earlier ones left it, and
 // every result, exact-t ties included, is the one the per-lane loop gave.
 // K2's drain runs each parked lane's own leaf loop, now with every parked
-// lane active at once. Persistent warps that give a finished lane a new
-// ray (kRefill) were measured beside it on an H100 and did not beat it,
-// so the renders launch the postponed walk alone. K7c's drain splits the
-// leaves' columns across the lanes: with g parked lanes, each takes a
-// subgroup of w = 32 / g' lanes (g' the next power of two >= g) that
-// scans every w-th column of its leaf, and a butterfly keeps the least t
-// and, on a tie, the lowest column; so even one parked lane keeps all 32
-// lanes busy.
+// lane active at once. K7c's drain splits the leaves' columns across the
+// lanes: with g parked lanes, each takes a subgroup of w = 32 / g' lanes
+// (g' the next power of two >= g) that scans every w-th column of its
+// leaf, and a butterfly keeps the least t and, on a tie, the lowest
+// column; so even one parked lane keeps all 32 lanes busy. After each
+// drain the warp reconverges (__syncwarp), so the walk to the next leaves
+// runs with every lane at once.
 //
 // Function (identical to glaze_tpu_torch.accel.bvh.closest_hit / any_hit
 // and closest_hit_masked / any_hit_masked, the plain versions):
@@ -399,32 +398,29 @@ __device__ __forceinline__ void store_hit(const Best& b, int i,
 // lanes go on from their skip links. A warp thus runs one drain per leaf
 // of its busiest lane, where walk<Leaf> ran one leaf loop per distinct
 // moment at which some lane entered a leaf, mostly with one lane active.
-// After each round next(parked), on all 32 lanes, may give finished lanes
-// new rays, and ends the walk when it returns false.
-template <class Drain, class Next>
+// The walk ends when no lane parks. The __syncwarp after the drain is what
+// makes the next walk run with all 32 lanes: without it the compiler need
+// not reconverge the warp there, and lanes that left a drain's leaf loop
+// early walk on to their next leaf alone, the rest after them: K1 and K2
+// ran about 1.5x slower that way on an H100 (PERF.md).
+template <class Drain>
 __device__ __forceinline__ void walk_postponed(ClosestLane& s, int n_nodes,
-                                               Drain&& drain, Next&& next) {
+                                               Drain&& drain) {
   for (;;) {
     walk_to_leaf(s.nodes, n_nodes, s.r, s.best.t, s.w);
     const unsigned parked = __ballot_sync(kFull, s.w.leaf >= 0);
-    if (parked) {
-      drain(parked);
-      s.w.leaf = -1;
-    }
-    if (!next(parked)) return;
+    if (!parked) return;
+    drain(parked);
+    s.w.leaf = -1;
+    __syncwarp(kFull);
   }
 }
 
 // Closest hit on the classic tree (K1, and K2 with kMasked): one lane per
 // ray, leaves postponed warp-wide; the drain runs each parked lane's own
-// leaf loop, with every parked lane active at once. kRefill (K2's measured
-// variant, not launched by the renders) makes the warps persistent and
-// refills finished lanes: each warp claims rays from the counter next_ray
-// (zeroed by the caller), 32 at first and then one for each lane that
-// finished, with one atomicAdd per claim by its lowest claiming lane;
-// outputs go by ray index. Without it a lane whose ray has ended idles
-// until its warp's longest ray ends.
-template <bool kMasked, bool kRefill>
+// leaf loop, with every parked lane active at once. A lane whose ray has
+// ended idles until its warp's longest ray ends.
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 closest_kernel(const float* __restrict__ nodes16,
                const float* __restrict__ tri8, const float* __restrict__ ox,
@@ -434,45 +430,15 @@ closest_kernel(const float* __restrict__ nodes16,
                int n_rays, int n_nodes, long long oct_floats,
                float* __restrict__ t_out, int* __restrict__ tri_out,
                float* __restrict__ u_out, float* __restrict__ v_out,
-               uint8_t* __restrict__ mixed_out, int* __restrict__ next_ray) {
-  const int lane = threadIdx.x & 31;
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if constexpr (kRefill) {
-    int first = 0;
-    if (lane == 0) first = atomicAdd(next_ray, 32);
-    i = __shfl_sync(kFull, first, 0) + lane;
-  }
+               uint8_t* __restrict__ mixed_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   ClosestLane s;
   start_ray(s, i, n_rays, n_nodes, nodes16, oct_floats, ox, oy, oz, dx, dy,
             dz, tmax);
-  walk_postponed(
-      s, n_nodes,
-      [&](unsigned) {
-        if (s.w.leaf >= 0) classic_leaf<kMasked>(tri8, s.w.leaf, s.r, s.best);
-      },
-      [&](unsigned parked) {
-        if constexpr (kRefill) {
-          const bool done = i < n_rays && s.w.p >= n_nodes;
-          if (done) store_hit<kMasked>(s.best, i, t_out, tri_out, u_out,
-                                       v_out, mixed_out);
-          const unsigned need = __ballot_sync(kFull, done);
-          if (need) {
-            const int leader = __ffs(need) - 1;
-            int base = 0;
-            if (lane == leader) base = atomicAdd(next_ray, __popc(need));
-            base = __shfl_sync(kFull, base, leader);
-            if (done) {
-              i = base + __popc(need & ((1u << lane) - 1u));
-              start_ray(s, i, n_rays, n_nodes, nodes16, oct_floats, ox, oy,
-                        oz, dx, dy, dz, tmax);
-            }
-          }
-          return __any_sync(kFull, i < n_rays);
-        } else {
-          return parked != 0;
-        }
-      });
-  if (!kRefill && i < n_rays)
+  walk_postponed(s, n_nodes, [&](unsigned) {
+    if (s.w.leaf >= 0) classic_leaf<kMasked>(tri8, s.w.leaf, s.r, s.best);
+  });
+  if (i < n_rays)
     store_hit<kMasked>(s.best, i, t_out, tri_out, u_out, v_out, mixed_out);
 }
 
@@ -674,7 +640,7 @@ closest_kernel_fat(const float* __restrict__ nodes16,
       s.best.u = wu;
       s.best.v = wv;
     }
-  }, [](unsigned parked) { return parked != 0; });
+  });
   if (i < n_rays) store_hit<false>(s.best, i, t_out, tri_out, u_out, v_out,
                                    nullptr);
 }
@@ -717,31 +683,17 @@ anyhit_kernel_fat(const float* __restrict__ nodes16,
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
-// The refill form runs as many blocks as stay resident on the card at
-// once (no more than one ray per thread), the other one thread per ray.
-template <bool kMasked, bool kRefill>
+template <bool kMasked>
 int launch_closest(const float* nodes16, const float* tri8, const float* ox,
                    const float* oy, const float* oz, const float* dx,
                    const float* dy, const float* dz, const float* tmax,
                    int n_rays, int n_nodes, long long oct_floats,
                    float* t_out, int* tri_out, float* u_out, float* v_out,
-                   uint8_t* mixed_out, int* next_ray, void* stream) {
-  int blocks = blocks_for(n_rays);
-  if constexpr (kRefill) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, closest_kernel<kMasked, true>, kThreads, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    blocks = min(sms * per_sm, blocks);
-  }
-  closest_kernel<kMasked, kRefill><<<blocks, kThreads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
+                   uint8_t* mixed_out, void* stream) {
+  closest_kernel<kMasked><<<blocks_for(n_rays), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
       nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax, n_rays, n_nodes,
-      oct_floats, t_out, tri_out, u_out, v_out, mixed_out, next_ray);
+      oct_floats, t_out, tri_out, u_out, v_out, mixed_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -759,6 +711,16 @@ int launch_anyhit(const float* nodes16, const float* tri8, const float* ox,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The kernels glaze_kernel_attrs reports on, in its order.
+const void* const kAttrKernels[] = {
+    reinterpret_cast<const void*>(closest_kernel<false>),
+    reinterpret_cast<const void*>(closest_kernel<true>),
+    reinterpret_cast<const void*>(anyhit_kernel<false>),
+    reinterpret_cast<const void*>(anyhit_kernel<true>),
+    reinterpret_cast<const void*>(closest_kernel_fat),
+    reinterpret_cast<const void*>(anyhit_kernel_fat)};
+constexpr int kAttrCount = sizeof(kAttrKernels) / sizeof(kAttrKernels[0]);
+
 }  // namespace
 
 extern "C" {
@@ -770,10 +732,9 @@ int glaze_closest_hit(const float* nodes16, const float* tri8,
                       const float* tmax, int n_rays, int n_nodes,
                       long long oct_floats, float* t_out, int* tri_out,
                       float* u_out, float* v_out, void* stream) {
-  return launch_closest<false, false>(nodes16, tri8, ox, oy, oz, dx, dy, dz,
-                                      tmax, n_rays, n_nodes, oct_floats,
-                                      t_out, tri_out, u_out, v_out, nullptr,
-                                      nullptr, stream);
+  return launch_closest<false>(nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax,
+                               n_rays, n_nodes, oct_floats, t_out, tri_out,
+                               u_out, v_out, nullptr, stream);
 }
 
 int glaze_closest_hit_masked(const float* nodes16, const float* tri8,
@@ -784,28 +745,9 @@ int glaze_closest_hit_masked(const float* nodes16, const float* tri8,
                              long long oct_floats, float* t_out,
                              int* tri_out, float* u_out, float* v_out,
                              uint8_t* mixed_out, void* stream) {
-  return launch_closest<true, false>(nodes16, tri8, ox, oy, oz, dx, dy, dz,
-                                     tmax, n_rays, n_nodes, oct_floats, t_out,
-                                     tri_out, u_out, v_out, mixed_out, nullptr,
-                                     stream);
-}
-
-// glaze_closest_hit_masked in persistent warps that refill finished lanes
-// from the counter next_ray, a zeroed int on the card: the form measured
-// against it (chip_smoke.py), which the renders do not launch.
-int glaze_closest_hit_masked_refill(const float* nodes16, const float* tri8,
-                                    const float* ox, const float* oy,
-                                    const float* oz, const float* dx,
-                                    const float* dy, const float* dz,
-                                    const float* tmax, int n_rays,
-                                    int n_nodes, long long oct_floats,
-                                    float* t_out, int* tri_out, float* u_out,
-                                    float* v_out, uint8_t* mixed_out,
-                                    int* next_ray, void* stream) {
-  return launch_closest<true, true>(nodes16, tri8, ox, oy, oz, dx, dy, dz,
-                                    tmax, n_rays, n_nodes, oct_floats, t_out,
-                                    tri_out, u_out, v_out, mixed_out, next_ray,
-                                    stream);
+  return launch_closest<true>(nodes16, tri8, ox, oy, oz, dx, dy, dz, tmax,
+                              n_rays, n_nodes, oct_floats, t_out, tri_out,
+                              u_out, v_out, mixed_out, stream);
 }
 
 int glaze_any_hit(const float* nodes16, const float* tri8, const float* ox,
@@ -858,28 +800,33 @@ int glaze_any_hit_fat(const float* nodes16, const float* coef,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers per thread, local (spill) bytes per thread and resident
-// blocks per SM of kernel ``which`` (0 closest, 1 closest masked, 2 any
-// hit, 3 any hit masked, 4 fat closest, 5 fat any hit, 6 closest masked
-// with the refill) at kThreads per block. Returns a cudaError_t (0 = ok).
+// The number of kernels glaze_kernel_attrs reports on.
+int glaze_kernel_count() { return kAttrCount; }
+
+// Of kernel ``which`` (0 closest, 1 closest masked, 2 any hit, 3 any hit
+// masked, 4 fat closest, 5 fat any hit): registers and local (spill)
+// bytes per thread, the threads per block it is launched with, its
+// resident blocks per SM at that size, and the most threads an SM of the
+// current card holds. Returns a cudaError_t (0 = ok).
 int glaze_kernel_attrs(int which, int* regs, int* local_bytes,
-                       int* blocks_per_sm) {
-  const void* kernels[] = {
-      reinterpret_cast<const void*>(closest_kernel<false, false>),
-      reinterpret_cast<const void*>(closest_kernel<true, false>),
-      reinterpret_cast<const void*>(anyhit_kernel<false>),
-      reinterpret_cast<const void*>(anyhit_kernel<true>),
-      reinterpret_cast<const void*>(closest_kernel_fat),
-      reinterpret_cast<const void*>(anyhit_kernel_fat),
-      reinterpret_cast<const void*>(closest_kernel<true, true>)};
-  if (which < 0 || which >= 7) return static_cast<int>(cudaErrorInvalidValue);
+                       int* threads_per_block, int* blocks_per_sm,
+                       int* max_threads_per_sm) {
+  if (which < 0 || which >= kAttrCount)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernels[which]);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kAttrKernels[which]);
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernels[which], kThreads, 0));
+  *threads_per_block = kThreads;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kAttrKernels[which], kThreads, 0);
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(max_threads_per_sm,
+                                 cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  return static_cast<int>(err);
 }
 
 const char* glaze_error_string(int code) {

@@ -332,7 +332,7 @@ def test_per_lane_counts_sum_to_totals(mode, monkeypatch):
     o = rng.uniform([-1.5, 0.2, -1.5], [1.5, 2.5, 1.5], (n, 3)).astype(np.float32)
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    st = B.WalkStats(per_lane=True)
+    st = B.WalkStats()
     if mode == "fat":
         assert isinstance(tree, fat.FatBVH)
         fat.closest_hit_fat(tree, _t(o), _t(d), stats=st)
@@ -352,7 +352,6 @@ def test_per_lane_counts_sum_to_totals(mode, monkeypatch):
     assert w["mean_warp_max_leaves"] == pytest.approx(leaves.max(1).mean())
     assert 0 < w["simd_efficiency"] <= 1
     assert w["mean_warp_max_leaves"] >= w["mean_leaves_per_lane"] > 0
-    assert B.WalkStats().lane_steps is None  # off unless asked for
 
 
 # ---------------------------------------------------------------------------

@@ -292,7 +292,7 @@ def test_walk_cases_stress_the_warp(name, kind):
             if label.endswith(" 257 rays")}
     tree, o, d, t_max = rows[(name, kind)]
     walk = B.closest_hit if kind == "closest" else B.closest_hit_masked
-    st = B.WalkStats(per_lane=True)
+    st = B.WalkStats()
     out = walk(tree, o, d, t_max, stats=st)
     hit = out["tri"] >= 0
     if name == "duplicates":
@@ -318,19 +318,13 @@ def test_walk_cases_stress_the_warp(name, kind):
 
 @pytest.mark.cuda
 def test_closest_kernels_walk_cases_on_cuda():
-    """Needs a CUDA card (skips here): K1, K2 and K2's refill variant
-    against their plain walkers, bit for bit, on every case of
-    accel/walk_cases.py (exact ties, 1/31/33/257 rays, one long lane per
-    warp)."""
+    """Needs a CUDA card (skips here): K1 and K2 against their plain
+    walkers, bit for bit, on every case of accel/walk_cases.py (exact
+    ties, 1/31/33/257 rays, one long lane per warp)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from glaze_tpu_torch.accel import traverse_cuda as tc
     from glaze_tpu_torch.accel import walk_cases as wc
 
-    def refill(tree, o3, d3, t_max):
-        return tc.closest_hit_soa_masked(tree, o3, d3, t_max, refill=True)
-
-    for kernels in ({"closest": tc.closest_hit_soa,
-                     "masked": tc.closest_hit_soa_masked},
-                    {"masked": refill}):
-        assert wc.closest_mismatches("cuda", kernels) == 0
+    assert wc.closest_mismatches("cuda", {"closest": tc.closest_hit_soa,
+                                          "masked": tc.closest_hit_soa_masked}) == 0
