@@ -805,9 +805,11 @@ def _summarize(entry, headline):
 
 
 def phase_walk_cases():
-    """The closest kernels (K1, K2, K7c) against their plain walkers, bit
-    for bit, on the small cases of glaze_tpu_torch.accel.walk_cases: exact
-    ties, 1/31/33/257 rays, one long lane per warp."""
+    """Every traversal kernel against its plain walker, bit for bit, on the
+    small cases of glaze_tpu_torch.accel.walk_cases: exact ties, 1/31/33/257
+    rays, one long lane per warp; the any hits (K3, K4, K7a) also with
+    inactive lanes, lanes that block in their first leaf and, masked, rays
+    that end blocked, pending or both."""
     from glaze_tpu_torch.accel import traverse_cuda as tc
     from glaze_tpu_torch.accel import walk_cases as wc
 
@@ -821,10 +823,20 @@ def phase_walk_cases():
         if n_bad or rays == 257:
             log(f"[walk_cases] {label}: {hits} hits of {rays} rays, "
                 f"{n_bad} rays differ from the plain walker")
-    log(f"[walk_cases] {bad} rays differ in all ({time.perf_counter() - t0:.1f} s)")
-    if bad:
-        raise RuntimeError("a closest kernel disagrees with its plain walker "
-                           "on the walk cases")
+    lines = []
+    bad_any = wc.any_mismatches("cuda", {"any": tc.any_hit_soa,
+                                         "any_masked": tc.any_hit_soa_masked,
+                                         "any_fat": tc.any_hit_fat_soa},
+                                log=lambda *a: lines.append(a))
+    for label, rays, blocked, pending, n_bad in lines:
+        if n_bad or rays == 257:
+            log(f"[walk_cases] {label}: {blocked} blocked, {pending} pending "
+                f"of {rays} rays, {n_bad} rays differ from the plain walker")
+    log(f"[walk_cases] {bad} closest and {bad_any} any-hit rays differ in all "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if bad or bad_any:
+        raise RuntimeError("a traversal kernel disagrees with its plain "
+                           "walker on the walk cases")
 
 
 def _capture_sample(path):

@@ -3,7 +3,12 @@
 The flags and defaults of ``glaze_tpu/cli.py`` (input scene, output image,
 ``--res WxH`` 1920x1080, ``--spp`` 256, ``--integrator {direct,pt}``,
 ``--seed``, ``--coherent``), plus ``--device {cuda,cpu}`` (default cuda).
-Flags whose features are not ported yet exit with an error.
+Flags whose features are not ported yet exit with an error, and so do the
+JAX package's variables that ask for them where no flag overrides them
+(``GLAZE_SIF``, ``GLAZE_SAMPLER=ld``, ``GLAZE_ADAPTIVE=1``). The variables
+of ported features (``GLAZE_COHERENT``, ``GLAZE_ALPHA_ROUNDS``,
+``GLAZE_TILE``, ``GLAZE_ALPHA_MASK``, ``GLAZE_TREE``) act as they do in
+``glaze_tpu``.
 
 Usage: ``python -m glaze_tpu_torch.cli scene.glaze out.png --res 512x512 --spp 64``
 """
@@ -97,8 +102,20 @@ def run(argv=None):
         return 2, None, None
 
     from glaze_tpu_torch.parser import converted_file, parse
-    from glaze_tpu_torch.render.renderer import Integrator, RayTraceRenderer
+    from glaze_tpu_torch.render.renderer import (
+        Integrator,
+        RayTraceRenderer,
+        check_sampling,
+    )
 
+    sampling = dict(samples_in_flight=args.sif, sampler=args.sampler,
+                    adaptive=(None if args.adaptive is None
+                              else args.adaptive == "on"))
+    try:
+        check_sampling(**sampling)
+    except NotImplementedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2, None, None
     if not converted_file(args.input):
         print(f"error: {args.input!r} is not a .glaze scene (the converter "
               f"is {NOT_PORTED})", file=sys.stderr)
@@ -110,7 +127,8 @@ def run(argv=None):
                   else Integrator.PATH_TRACE)
     renderer = RayTraceRenderer(parsed, width=width, height=height,
                                 integrator=integrator, seed=args.seed,
-                                coherent=args.coherent, device=args.device)
+                                coherent=args.coherent, device=args.device,
+                                **sampling)
     setup_ms = (time.perf_counter() - t0) * 1000.0
     print(f"Setup time: {setup_ms:.0f}ms", file=sys.stderr)
 

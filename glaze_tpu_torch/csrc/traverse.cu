@@ -26,34 +26,35 @@
 // work, because the TPU's VPU only runs dense (8, 128) tiles, and the fat
 // kernels drain a queued leaf as one MXU product. None of that carries
 // over: here ONE THREAD WALKS ONE RAY through one octant walk and one
-// slab test: the any-hit kernels through walk<Leaf> (templated on the leaf
-// test), the closest-hit kernels through walk_postponed<Drain> (below);
-// the four classic kernels also share one Moller-Trumbore.
+// slab test, and all six kernels walk through walk_postponed<Drain>
+// (below), each with its own leaf test in the drain; the four classic
+// kernels also share one Moller-Trumbore.
 //
-// The closest walks, K2 and K7c (and K1, K2's template with the mask
-// compiled out), replace the same TPU kernels as before; they were
-// redesigned because their first form, walk<Leaf> with each lane running
-// its own leaf loop, spent most of its time at leaves with few lanes
-// active. The lanes of a warp reach their leaves at different node steps
-// of their own walks, so the warp ran one leaf loop (up to 8 triangles, or
-// K7c's T = 128 columns) for every distinct moment at which some lane
-// entered a leaf, mostly with one or a few lanes active while the lanes
-// still walking interior nodes, or already finished, idled. In
-// walk_postponed a lane that enters a leaf PARKS there and the warp drains
-// only when every lane is parked or finished (__ballot_sync over all 32
-// lanes; a lane with no ray is a finished lane, so the ragged last warp
-// votes too): a warp runs about as many drains as its busiest lane has
-// leaves. No lane passes an untested leaf, so each ray still tests its
-// leaves in its own order with the t_best the earlier ones left it, and
-// every result, exact-t ties included, is the one the per-lane loop gave.
-// K2's drain runs each parked lane's own leaf loop, now with every parked
-// lane active at once. K7c's drain splits the leaves' columns across the
-// lanes: with g parked lanes, each takes a subgroup of w = 32 / g' lanes
-// (g' the next power of two >= g) that scans every w-th column of its
-// leaf, and a butterfly keeps the least t and, on a tie, the lowest
-// column; so even one parked lane keeps all 32 lanes busy. After each
-// drain the warp reconverges (__syncwarp), so the walk to the next leaves
-// runs with every lane at once.
+// Every walk was first written as a per-lane walk, each lane running its
+// own leaf loop where it met a leaf; it spent most of its time at leaves
+// with few lanes active. The lanes of a warp reach their leaves at
+// different node steps of their own walks, so the warp ran one leaf loop
+// (up to 8 triangles, or the fat kernels' T = 128 columns) for every
+// distinct moment at which some lane entered a leaf, mostly with one or a
+// few lanes active while the lanes still walking interior nodes, or
+// already finished, idled. In walk_postponed a lane that enters a leaf
+// PARKS there and the warp drains only when every lane is parked or
+// finished (__ballot_sync over all 32 lanes; a lane with no ray, or an
+// inactive one, is a finished lane, so the ragged last warp votes too): a
+// warp runs about as many drains as its busiest lane has leaves. No lane
+// passes an untested leaf, so each ray still tests its leaves in its own
+// order with the cap the earlier ones left it (a closest walk's t_best,
+// an any-hit walk's fixed tmax), and every result, exact-t ties included,
+// is the one the per-lane loop gave. K1/K2 and K3/K4 drain each parked
+// lane's own leaf loop, now with every parked lane active at once; an
+// any-hit lane that is blocked leaves the walk as a finished lane. The fat
+// kernels' drains split the leaves' columns across the lanes: with g
+// parked lanes, each takes a subgroup of w = 32 / g' lanes (g' the next
+// power of two >= g) that scans every w-th column of its leaf; K7c's
+// butterfly keeps the least t and, on a tie, the lowest column, and K7a's
+// ballot ORs the subgroup's hits; so even one parked lane keeps all 32
+// lanes busy. After each drain the warp reconverges (__syncwarp), so the
+// walk to the next leaves runs with every lane at once.
 //
 // Function (identical to glaze_tpu_torch.accel.bvh.closest_hit / any_hit
 // and closest_hit_masked / any_hit_masked, the plain versions):
@@ -249,34 +250,6 @@ __device__ __forceinline__ const float4* octant_nodes(const float* nodes16,
   return reinterpret_cast<const float4*>(nodes16 + oct * oct_floats);
 }
 
-// The octant walk of every kernel: from the root, a node whose box the ray
-// enters within cap (read anew at every node, so a closer hit prunes what
-// follows) leads to node p+1, or, for a leaf, to leaf(meta) and then the
-// skip link; a miss leads to the skip link; p >= n_nodes ends. leaf
-// returns true to end the walk at once.
-template <class Leaf>
-__device__ __forceinline__ void walk(const float4* __restrict__ nodes,
-                                     int n_nodes, const Ray& r,
-                                     const float& cap, Leaf&& leaf) {
-  int p = 0;
-  while (p < n_nodes) {
-    const float4 a = __ldg(nodes + 2 * p);
-    const float4 b = __ldg(nodes + 2 * p + 1);
-    const int meta = __float_as_int(b.z);
-    const int skip = __float_as_int(b.w);
-    if (!slab(a, b, r, cap)) {
-      p = skip;
-      continue;
-    }
-    if (meta < 0) {
-      p = p + 1;
-      continue;
-    }
-    if (leaf(meta)) return;
-    p = skip;
-  }
-}
-
 // One lane's place in its walk: node p of its octant slab, and the leaf
 // it is parked at (-1: none).
 struct Walker {
@@ -284,11 +257,13 @@ struct Walker {
   int leaf;
 };
 
-// Walks from w.p as walk<Leaf> does until the lane enters a leaf, where it
-// PARKS: w.leaf is the leaf's meta and w.p its skip link, the node after
-// it. The lane goes no further until the leaf is tested, so each ray still
-// tests its leaves in its own order, each with the cap that the earlier
-// ones left it. A lane at p >= n_nodes is finished.
+// The octant walk of every kernel, from w.p: a node whose box the ray
+// enters within cap leads to node p+1, or, for a leaf, to the skip link
+// after the leaf is tested; a miss leads to the skip link; p >= n_nodes
+// ends (the lane is finished). At a leaf the lane PARKS: w.leaf is the
+// leaf's meta and w.p its skip link, the node after it. The lane goes no
+// further until the leaf is tested, so each ray tests its leaves in its
+// own order, each with the cap that the earlier ones left it.
 __device__ __forceinline__ void walk_to_leaf(const float4* __restrict__ nodes,
                                              int n_nodes, const Ray& r,
                                              float cap, Walker& w) {
@@ -316,10 +291,10 @@ struct Best {
   bool mix;
 };
 
-// Tests the leaf ``meta`` of the classic tree against one ray (the loop
-// walk<Leaf> ran): Moller-Trumbore on each of its triangles in order; a
-// hit replaces the best when t < best.t and, masked, its cell is not
-// TRANSPARENT (code 2); mix = the kept hit's cell is MIXED (code 0).
+// Tests the leaf ``meta`` of the classic tree against one ray:
+// Moller-Trumbore on each of its triangles in order; a hit replaces the
+// best when t < best.t and, masked, its cell is not TRANSPARENT (code 2);
+// mix = the kept hit's cell is MIXED (code 0).
 template <bool kMasked>
 __device__ __forceinline__ void classic_leaf(const float* __restrict__ tri8,
                                              int meta, const Ray& r,
@@ -344,12 +319,31 @@ __device__ __forceinline__ void classic_leaf(const float* __restrict__ tri8,
   }
 }
 
-// One lane of a closest walk: its ray, its octant's node slab, its place
-// in the walk and its best hit so far.
-struct ClosestLane {
+// One lane of a warp-synchronous walk: its ray, its octant's node slab
+// and its place in the walk.
+struct Lane {
   Ray r;
   const float4* nodes;
   Walker w;
+};
+
+// Starts ray i on the lane, with the walk at the root of its octant's
+// slab; a lane that is not ``live`` (no ray, or an inactive one) starts
+// finished and holds ray 0, which it never tests.
+__device__ __forceinline__ void start_lane(Lane& s, int i, bool live,
+                                           int n_nodes, const float* nodes16,
+                                           long long oct_floats,
+                                           const float* ox, const float* oy,
+                                           const float* oz, const float* dx,
+                                           const float* dy, const float* dz) {
+  s.r = load_ray(ox, oy, oz, dx, dy, dz, live ? i : 0);
+  s.nodes = octant_nodes(nodes16, s.r, oct_floats);
+  s.w.p = live ? 0 : n_nodes;
+  s.w.leaf = -1;
+}
+
+// One lane of a closest walk: a Lane and its best hit so far.
+struct ClosestLane : Lane {
   Best best;
 };
 
@@ -364,10 +358,8 @@ __device__ __forceinline__ void start_ray(ClosestLane& s, int i, int n_rays,
                                           const float* dy, const float* dz,
                                           const float* tmax) {
   const bool live = i < n_rays;
-  s.r = load_ray(ox, oy, oz, dx, dy, dz, live ? i : 0);
-  s.nodes = octant_nodes(nodes16, s.r, oct_floats);
-  s.w.p = live ? 0 : n_nodes;
-  s.w.leaf = -1;
+  start_lane(s, i, live, n_nodes, nodes16, oct_floats, ox, oy, oz, dx, dy,
+             dz);
   s.best.t = live ? tmax[i] : 0.0f;
   s.best.u = 0.0f;
   s.best.v = 0.0f;
@@ -389,25 +381,29 @@ __device__ __forceinline__ void store_hit(const Best& b, int i,
   if constexpr (kMasked) mixed_out[i] = b.tri >= 0 && b.mix;
 }
 
-// The closest walks' warp-synchronous walk with postponed leaves. Every
-// lane of the warp calls it (a lane with no ray starts finished: w.p =
-// n_nodes), and each lane walks its own ray to its next leaf; when every
-// lane is parked or finished, the warp drains: drain(parked) runs on all
-// 32 lanes with the ballot of the parked ones and tests their leaves
-// together, updating each owner's best (and so its cap). Then the parked
-// lanes go on from their skip links. A warp thus runs one drain per leaf
-// of its busiest lane, where walk<Leaf> ran one leaf loop per distinct
+// The warp-synchronous walk with postponed leaves, of every kernel. Every
+// lane of the warp calls it (a lane with no ray, or an inactive one,
+// starts finished: w.p = n_nodes), and each lane walks its own ray to its
+// next leaf under its cap: a closest walk passes its best t, which the
+// drains shrink, an any-hit walk its fixed tmax. When every lane is parked
+// or finished, the warp drains: drain(parked) runs on all 32 lanes with
+// the ballot of the parked ones and tests their leaves together, updating
+// each owner's best (and so its cap), or, in an any-hit walk, finishing
+// each owner that is blocked (w.p = n_nodes). Then the parked lanes go on
+// from their skip links. A warp thus runs one drain per leaf of its
+// busiest lane, where the per-lane walk ran one leaf loop per distinct
 // moment at which some lane entered a leaf, mostly with one lane active.
-// The walk ends when no lane parks. The __syncwarp after the drain is what
-// makes the next walk run with all 32 lanes: without it the compiler need
-// not reconverge the warp there, and lanes that left a drain's leaf loop
-// early walk on to their next leaf alone, the rest after them: K1 and K2
-// ran about 1.5x slower that way on an H100 (PERF.md).
+// The walk ends when no lane parks. The __syncwarp after the drain is what makes
+// the next walk run with all 32 lanes: without it the compiler need not
+// reconverge the warp there, and lanes that left a drain's leaf loop early
+// walk on to their next leaf alone, the rest after them: K1 and K2 ran
+// about 1.5x slower that way on an H100 (PERF.md).
 template <class Drain>
-__device__ __forceinline__ void walk_postponed(ClosestLane& s, int n_nodes,
+__device__ __forceinline__ void walk_postponed(Lane& s, int n_nodes,
+                                               const float& cap,
                                                Drain&& drain) {
   for (;;) {
-    walk_to_leaf(s.nodes, n_nodes, s.r, s.best.t, s.w);
+    walk_to_leaf(s.nodes, n_nodes, s.r, cap, s.w);
     const unsigned parked = __ballot_sync(kFull, s.w.leaf >= 0);
     if (!parked) return;
     drain(parked);
@@ -435,13 +431,19 @@ closest_kernel(const float* __restrict__ nodes16,
   ClosestLane s;
   start_ray(s, i, n_rays, n_nodes, nodes16, oct_floats, ox, oy, oz, dx, dy,
             dz, tmax);
-  walk_postponed(s, n_nodes, [&](unsigned) {
+  walk_postponed(s, n_nodes, s.best.t, [&](unsigned) {
     if (s.w.leaf >= 0) classic_leaf<kMasked>(tri8, s.w.leaf, s.r, s.best);
   });
   if (i < n_rays)
     store_hit<kMasked>(s.best, i, t_out, tri_out, u_out, v_out, mixed_out);
 }
 
+// Any hit on the classic tree (K3, and K4 with kMasked): the closest
+// walks' postponed walk under the lane's fixed cap; the drain runs each
+// parked lane's own leaf loop, with every parked lane active at once, and
+// a lane whose ray is blocked leaves the walk finished. Inactive lanes
+// and the surplus lanes of the last warp start finished and stay in the
+// warp, so every ballot sees all 32 lanes.
 template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 anyhit_kernel(const float* __restrict__ nodes16,
@@ -454,37 +456,36 @@ anyhit_kernel(const float* __restrict__ nodes16,
               uint8_t* __restrict__ hit_out,
               uint8_t* __restrict__ pending_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  if (!active[i]) {
-    hit_out[i] = 0;
-    if constexpr (kMasked) pending_out[i] = 0;
-    return;
-  }
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  const float4* nodes = octant_nodes(nodes16, r, oct_floats);
+  const bool live = i < n_rays && active[i];
+  Lane s;
+  start_lane(s, i, live, n_nodes, nodes16, oct_floats, ox, oy, oz, dx, dy,
+             dz);
+  const float cap = live ? tmax[i] : 0.0f;
   const float4* tris = reinterpret_cast<const float4*>(tri8);
-  const float cap = tmax[i];
-  uint8_t hit = 0, pending = 0;
-  walk(nodes, n_nodes, r, cap, [&](int meta) {
-    const int first = meta >> 3;
-    const int count = (meta & 7) + 1;
+  bool hit = false, pending = false;
+  walk_postponed(s, n_nodes, cap, [&](unsigned) {
+    if (s.w.leaf < 0) return;
+    const int first = s.w.leaf >> 3;
+    const int count = (s.w.leaf & 7) + 1;
     for (int k = 0; k < count; ++k) {
       float t, u, v;
       float4 c;
-      if (tri_hit(tris, first + k, r, t, u, v, c) && t > t_min && t < cap) {
+      if (tri_hit(tris, first + k, s.r, t, u, v, c) && t > t_min && t < cap) {
         if constexpr (kMasked) {
           const int code = cell_code(tri8, first + k, c, u, v);
-          if (code == 0) pending = 1;  // MIXED: the caller resolves it
-          if (code != 1) continue;     // only an OPAQUE cell blocks
+          if (code == 0) pending = true;  // MIXED: the caller resolves it
+          if (code != 1) continue;        // only an OPAQUE cell blocks
         }
-        hit = 1;
-        return true;
+        hit = true;
+        s.w.p = n_nodes;  // blocked: the lane's walk ends
+        return;
       }
     }
-    return false;
   });
-  hit_out[i] = hit;
-  if constexpr (kMasked) pending_out[i] = pending && !hit;
+  if (i < n_rays) {
+    hit_out[i] = hit;
+    if constexpr (kMasked) pending_out[i] = pending && !hit;
+  }
 }
 
 // Features o x d of a ray (o and d are in the Ray itself).
@@ -585,7 +586,7 @@ closest_kernel_fat(const float* __restrict__ nodes16,
             dz, tmax);
   const Cross x = ray_cross(s.r);
   const float4* cf = reinterpret_cast<const float4*>(coef);
-  walk_postponed(s, n_nodes, [&](unsigned parked) {
+  walk_postponed(s, n_nodes, s.best.t, [&](unsigned parked) {
     const int g = __popc(parked);
     const int w = 32 >> (32 - __clz(g - 1));  // 32 / g', g' = 2^ceil(log2 g)
     const int sub = lane / w;
@@ -645,6 +646,18 @@ closest_kernel_fat(const float* __restrict__ nodes16,
                                    nullptr);
 }
 
+// Fat any hit (K7a): the postponed walk under the lane's fixed cap, and
+// K7c's split drain with an OR in place of the (t, column) butterfly. With
+// g parked lanes, g' the next power of two >= g and w = 32 / g', subgroup
+// s of w lanes serves the parked lane of ballot rank s (its owner), whose
+// features, cap and leaf its lanes read by shuffle. Lane r of a subgroup
+// tests columns k = r, r + w, ... of the owner's leaf with fat_column on
+// (t_min, cap) and stops at its own first hit, with no collective inside
+// the scan; then one full-mask ballot gives each owner its subgroup's w
+// bits, and an owner with any bit set is blocked and leaves the walk
+// finished. Which column hits first does not matter to a flag, so the
+// result is the sequential scan's. Inactive lanes and the surplus lanes
+// of the last warp start finished and stay in the warp.
 __global__ void __launch_bounds__(kThreads)
 anyhit_kernel_fat(const float* __restrict__ nodes16,
                   const float* __restrict__ coef,
@@ -656,29 +669,56 @@ anyhit_kernel_fat(const float* __restrict__ nodes16,
                   int n_nodes, long long oct_floats, int leaf_size,
                   float t_min, uint8_t* __restrict__ hit_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  if (!active[i]) {
-    hit_out[i] = 0;
-    return;
-  }
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  const Cross x = ray_cross(r);
-  const float4* nodes = octant_nodes(nodes16, r, oct_floats);
+  const int lane = threadIdx.x & 31;
+  const bool live = i < n_rays && active[i];
+  Lane s;
+  start_lane(s, i, live, n_nodes, nodes16, oct_floats, ox, oy, oz, dx, dy,
+             dz);
+  const float cap = live ? tmax[i] : 0.0f;
+  const Cross x = ray_cross(s.r);
   const float4* cf = reinterpret_cast<const float4*>(coef);
-  const float cap = tmax[i];
-  uint8_t hit = 0;
-  walk(nodes, n_nodes, r, cap, [&](int leaf) {
-    const int first = leaf * leaf_size;
-    for (int k = 0; k < leaf_size; ++k) {
-      float t, ud, vd, inv;
-      if (fat_column(cf, first + k, r, x, t_min, cap, t, ud, vd, inv)) {
-        hit = 1;
-        return true;
+  bool hit = false;
+  walk_postponed(s, n_nodes, cap, [&](unsigned parked) {
+    const int g = __popc(parked);
+    const int w = 32 >> (32 - __clz(g - 1));  // 32 / g', g' = 2^ceil(log2 g)
+    const int sub = lane / w;
+    const int owner = sub < g ? nth_set_bit(parked, sub) : lane;
+    Ray ro;
+    ro.ox = __shfl_sync(kFull, s.r.ox, owner);
+    ro.oy = __shfl_sync(kFull, s.r.oy, owner);
+    ro.oz = __shfl_sync(kFull, s.r.oz, owner);
+    ro.dx = __shfl_sync(kFull, s.r.dx, owner);
+    ro.dy = __shfl_sync(kFull, s.r.dy, owner);
+    ro.dz = __shfl_sync(kFull, s.r.dz, owner);
+    Cross xo;
+    xo.x = __shfl_sync(kFull, x.x, owner);
+    xo.y = __shfl_sync(kFull, x.y, owner);
+    xo.z = __shfl_sync(kFull, x.z, owner);
+    const float co = __shfl_sync(kFull, cap, owner);
+    const int leaf = __shfl_sync(kFull, s.w.leaf, owner);
+    bool found = false;
+    if (sub < g) {
+      const int first = leaf * leaf_size;
+      for (int k = lane - sub * w; k < leaf_size; k += w) {
+        float t, ud, vd, inv;
+        if (fat_column(cf, first + k, ro, xo, t_min, co, t, ud, vd, inv)) {
+          found = true;
+          break;
+        }
       }
     }
-    return false;
+    const unsigned votes = __ballot_sync(kFull, found);
+    if (s.w.leaf >= 0) {
+      // the owner's subgroup: w bits from lane rank * w (kFull >> (32 - w)
+      // is defined for every w in 1..32, where 1u << 32 is not)
+      const int rank = __popc(parked & ((1u << lane) - 1u));
+      if ((votes >> (rank * w)) & (kFull >> (32 - w))) {
+        hit = true;
+        s.w.p = n_nodes;  // blocked: the lane's walk ends
+      }
+    }
   });
-  hit_out[i] = hit;
+  if (i < n_rays) hit_out[i] = hit;
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }

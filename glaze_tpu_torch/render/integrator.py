@@ -37,10 +37,17 @@ chosen from what the scene carries:
 - the WHOLE-SCENE RE-TRACE loop, when classification left no MIXED
   triangle (``alpha_attr_full`` and ``bvh_alpha`` are None).
 
-The port reads none of the JAX package's environment switches and takes
-their defaults: ``GLAZE_ALPHA_PREFIX`` = 1.0 (no candidates-first sort key,
-the re-test rounds run at full width), ``GLAZE_ALPHA_MASK`` on,
-``GLAZE_ALPHA_ROUNDS`` = 1 (the renderer's round count).
+The JAX package's environment switches that change a result are read as
+it reads them: ``GLAZE_TILE`` (the tile of the lane swizzle and of
+coherent mode 2's chains, below, read once at import), and, elsewhere,
+``GLAZE_COHERENT`` and ``GLAZE_ALPHA_ROUNDS`` (the renderer) and
+``GLAZE_ALPHA_MASK`` (``scene/flatten.py``). ``GLAZE_SIF``,
+``GLAZE_SAMPLER`` and ``GLAZE_ADAPTIVE`` name features that are not ported
+(the renderer refuses them). The switches that only reorder work, and so
+change no result, stay unread: ``GLAZE_SORT`` (the trace sort key; the
+port sorts by Morton code, the default), ``GLAZE_ALPHA_PREFIX`` (the
+candidates-first prefix of the re-test rounds; the port runs them at full
+width, the default 1.0) and the VMEM budgets of the Pallas kernels.
 
 Not ported in this slice (they raise): the ``ld`` sampler, adaptive lane
 masks and more than one sample in flight per pixel.
@@ -48,6 +55,7 @@ masks and more than one sample in flight per pixel.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -68,10 +76,24 @@ RUSSIAN_ROULETTE = PT_STEPS // 2  # path_trace.rgen:11
 INV_2PI = float(np.float32(0.1591549))
 INV_PI = float(np.float32(0.3183099))
 
+
+def tile_from_env():
+    """``(TILE_W, TILE_H)``: 128x16, or ``GLAZE_TILE`` ("WxH") where it is
+    set, the JAX package's knob. The product must stay one 2048-lane
+    packet, or ValueError."""
+    v = os.environ.get("GLAZE_TILE")
+    if not v:
+        return 128, 16
+    w, h = (int(x) for x in v.split("x"))
+    if w * h != 2048:  # not assert: must survive python -O
+        raise ValueError("GLAZE_TILE must multiply to 2048 (one packet)")
+    return w, h
+
+
 # Lanes are tile-swizzled: each TILE_W x TILE_H block of pixels is 2048
-# consecutive lanes (the JAX package's traversal packet).
-TILE_W = 128
-TILE_H = 16
+# consecutive lanes (the JAX package's traversal packet), read once at
+# import as the JAX package does.
+TILE_W, TILE_H = tile_from_env()
 
 
 class PathState(NamedTuple):

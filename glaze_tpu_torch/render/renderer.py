@@ -7,20 +7,25 @@ update_camera}``, raytracer.rs:153-687). ``draw(spp)`` runs
 from the host ``np.random.default_rng(seed)`` in the same chunks as the
 JAX package, so both packages draw the same seeds for the same ``seed``.
 
-Scenes with opacity maps render with one alpha re-test round
-(``alpha_rounds``, the JAX package's default ``GLAZE_ALPHA_ROUNDS=1``),
-set at construction from the materials; without opacity maps it is 0.
+Scenes with opacity maps render with ``GLAZE_ALPHA_ROUNDS`` alpha re-test
+rounds (one by default, as in the JAX package), set at construction from
+the materials; without opacity maps it is 0. The coherent mode follows
+the JAX package's precedence: the ``coherent`` argument, else
+``GLAZE_COHERENT``, else 1 (frame).
 
 Not ported in this slice: checkpoints, device meshes, the display
 denoiser, material / light edits (``update_materials_and_lights`` and its
 opaque/alpha split rebuild), the ``ld`` sampler, adaptive sampling and
-more than one sample in flight per pixel (the integrator raises
-NotImplementedError for the last three).
+more than one sample in flight per pixel. The renderer raises
+NotImplementedError for the last three, whether an argument or the JAX
+package's ``GLAZE_SAMPLER``, ``GLAZE_ADAPTIVE`` or ``GLAZE_SIF`` asks for
+them.
 """
 
 from __future__ import annotations
 
 import enum
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -48,10 +53,56 @@ class Integrator(enum.Enum):
         return "Direct light only" if self is Integrator.DIRECT else "Path tracing"
 
 
-# alpha re-test rounds when some material has an opacity map: one, the
-# JAX package's default (a second stacked MIXED-transparent layer along one
-# segment is treated opaque)
-ALPHA_ROUNDS = 1
+def alpha_rounds() -> int:
+    """Alpha re-test rounds when some material has an opacity map:
+    ``GLAZE_ALPHA_ROUNDS``, else one, the JAX package's default (a second
+    stacked MIXED-transparent layer along one segment is treated
+    opaque)."""
+    return int(os.environ.get("GLAZE_ALPHA_ROUNDS", "1"))
+
+
+def default_coherent() -> int:
+    """The offline coherent mode: ``GLAZE_COHERENT`` (0/1/2 or
+    off/frame/tile) where it is set, else 1 (frame), as the JAX package's
+    ``default_coherent``."""
+    env = os.environ.get("GLAZE_COHERENT")
+    if env not in (None, ""):
+        return integ.resolve_coherent(int(env) if env.isdigit() else env)
+    return 1
+
+
+def check_sampling(samples_in_flight=None, sampler=None, adaptive=None):
+    """Refuses the sampling options that are not ported, taken with the
+    JAX package's precedence: an argument, else ``GLAZE_SIF`` /
+    ``GLAZE_SAMPLER`` / ``GLAZE_ADAPTIVE``, else 1 / pcg / off. Raises
+    ValueError where the JAX package does, and NotImplementedError,
+    naming the variable when one asked for it, for anything but one
+    sample in flight, pcg and no adaptive stopping."""
+    source = {}  # option -> the variable setting it was read from
+    if samples_in_flight is None:
+        samples_in_flight = os.environ.get("GLAZE_SIF", "1")
+        source["sif"] = f"GLAZE_SIF={samples_in_flight}"
+    if sampler is None:
+        sampler = os.environ.get("GLAZE_SAMPLER", "pcg")
+        source["sampler"] = f"GLAZE_SAMPLER={sampler}"
+    if adaptive is None:
+        adaptive = os.environ.get("GLAZE_ADAPTIVE", "0")
+        source["adaptive"] = f"GLAZE_ADAPTIVE={adaptive}"
+        adaptive = int(adaptive)
+    if sampler not in ("pcg", "ld"):
+        raise ValueError(f"sampler {sampler!r}: expected pcg or ld")
+    if int(samples_in_flight) < 1:
+        raise ValueError("samples_in_flight must be >= 1")
+    for key, what, ported in (
+            ("sif", "samples in flight > 1", int(samples_in_flight) == 1),
+            ("sampler", f"sampler {sampler!r}", sampler == "pcg"),
+            ("adaptive", "adaptive sampling", not adaptive)):
+        if not ported:
+            if key in source:
+                what = f"{what} (from {source[key]})"
+            raise NotImplementedError(f"{what} is not yet ported to "
+                                      "glaze_tpu_torch")
+
 
 # launches per chunk of draw(); seeds are drawn per chunk exactly like the
 # JAX package's lax.scan chunks, so the seed streams line up
@@ -74,14 +125,20 @@ class RayTraceRenderer:
 
     def __init__(self, scene, camera=None, width: int = 1920, height: int = 1080,
                  integrator: Integrator = Integrator.PATH_TRACE, seed=None,
-                 coherent=None, device=None):
+                 coherent=None, device=None, samples_in_flight=None,
+                 sampler=None, adaptive=None):
         """``scene``: a DeviceScene (used on its own device) or a
         ParsedScene (flattened onto ``device``: ``cuda`` unless the caller
         passes ``"cpu"``; CUDA without a card raises). ``coherent``:
-        0/'off', 1/'frame' (the default) or 2/'tile' shared-RNG sampling.
-        The sampler is pcg with one sample in flight per pixel."""
+        0/'off', 1/'frame' or 2/'tile' shared-RNG sampling (default:
+        :func:`default_coherent`). ``samples_in_flight``, ``sampler`` and
+        ``adaptive`` are the JAX package's options; only one sample in
+        flight, pcg and no adaptive stopping are ported, and anything else,
+        by argument or by environment, raises NotImplementedError
+        (:func:`check_sampling`)."""
         from glaze_tpu_torch.scene import DeviceScene, flatten_scene
 
+        check_sampling(samples_in_flight, sampler, adaptive)
         self.host = None
         if isinstance(scene, DeviceScene):
             if device is not None and torch.device(device) != scene.device:
@@ -98,16 +155,17 @@ class RayTraceRenderer:
         self.height = int(height)
         self.integrator = integrator
         self.exposure: Optional[float] = None  # None = scene meta exposure
-        self.coherent = 1 if coherent is None else integ.resolve_coherent(coherent)
+        self.coherent = (default_coherent() if coherent is None
+                         else integ.resolve_coherent(coherent))
         self._rng = np.random.default_rng(seed)
         self._scheduler = WorkScheduler()
         self._state = integ.init_state(self.width, self.height, self.device)
         self._request_new_frame = True
-        # ALPHA_ROUNDS when some material has an opacity map, else 0
+        # alpha_rounds() when some material has an opacity map, else 0
         from glaze_tpu_torch.scene.flatten import MT_OPACITY
 
         has_opacity = bool(self.scene.mat_tex[:, MT_OPACITY].any())
-        self._alpha_rounds = ALPHA_ROUNDS if has_opacity else 0
+        self._alpha_rounds = alpha_rounds() if has_opacity else 0
 
     # -- configuration ------------------------------------------------------
     def set_integrator(self, integrator: Integrator):

@@ -20,6 +20,7 @@ world-space triangle area, and the sky CDF is inverted by exact indexing.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -619,10 +620,10 @@ def build_alpha_split(tri_pos, tri_mat, mat_tex, full_order, sentinel_rows,
     join the opaque tree, provably transparent ones are dropped, and only
     the MIXED boundary triangles form the alpha tree; every triangle of
     the full tree then gets baked 8x8 cell masks (all-OPAQUE,
-    all-TRANSPARENT, or real masks for the MIXED set). The masks are
-    always baked: the JAX package's ``GLAZE_ALPHA_MASK=0`` switch is not
-    read (a scene flattened that way still carries over through
-    :func:`device_scene_from_numpy`)."""
+    all-TRANSPARENT, or real masks for the MIXED set). ``GLAZE_ALPHA_MASK=0``
+    bakes none, as in the JAX package: no payload on either tree and no
+    full-order alpha rows, so the integrator takes the opaque/alpha
+    split."""
     none = {"bvh_opaque": None, "bvh_opaque_map": None,
             "bvh_alpha": None, "bvh_alpha_map": None,
             "alpha_boxes": None, "alpha_attr": None,
@@ -661,25 +662,29 @@ def build_alpha_split(tri_pos, tri_mat, mat_tex, full_order, sentinel_rows,
     # FULL-TREE payload for the single-walk closest leg: all-OPAQUE cells
     # for opaque / no-alpha triangles (never skipped, never texture-tested),
     # all-TRANSPARENT for provably transparent ones (skipped mid-walk), real
-    # 8x8 masks for the MIXED boundary set
-    codes_by_orig = np.zeros((max(sel_a.size, 1), 64), np.int8)
-    lut = np.zeros(n, np.int64)  # orig id -> row in codes_by_orig
-    lut[sel_a] = np.arange(sel_a.size)
-    groups_t = (np.unique(opac_tex[tri_mat[sel_a]]) if sel_a.size else [])
-    for t in groups_t:
-        if int(t) == 0 or int(t) >= len(textures):
-            continue
-        sel = sel_a[opac_tex[tri_mat[sel_a]] == t]
-        codes_by_orig[lut[sel]] = _classify_alpha_cells(
-            tri_uv, sel, textures[int(t)])
-    np_pay = np.empty((full_order.shape[0], 4), np.uint32)
-    np_pay[:] = np.uint32(0x55555555)  # code 1 (OPAQUE) in all cells
-    if sel_a.size:
-        np_pay[inv_full[sel_a]] = pack_alpha_masks(
-            codes_by_orig[lut[sel_a]]).view(np.uint32)
-    if dropped.any():
-        np_pay[inv_full[np.nonzero(dropped)[0]]] = np.uint32(0xAAAAAAAA)
-    full_payload = np_pay.view(np.int32)
+    # 8x8 masks for the MIXED boundary set; none with GLAZE_ALPHA_MASK=0
+    masks_on = os.environ.get("GLAZE_ALPHA_MASK", "1") != "0"
+    full_payload = None
+    if masks_on:
+        codes_by_orig = np.zeros((max(sel_a.size, 1), 64), np.int8)
+        lut = np.zeros(n, np.int64)  # orig id -> row in codes_by_orig
+        lut[sel_a] = np.arange(sel_a.size)
+        groups_t = (np.unique(opac_tex[tri_mat[sel_a]]) if sel_a.size
+                    else [])
+        for t in groups_t:
+            if int(t) == 0 or int(t) >= len(textures):
+                continue
+            sel = sel_a[opac_tex[tri_mat[sel_a]] == t]
+            codes_by_orig[lut[sel]] = _classify_alpha_cells(
+                tri_uv, sel, textures[int(t)])
+        np_pay = np.empty((full_order.shape[0], 4), np.uint32)
+        np_pay[:] = np.uint32(0x55555555)  # code 1 (OPAQUE) in all cells
+        if sel_a.size:
+            np_pay[inv_full[sel_a]] = pack_alpha_masks(
+                codes_by_orig[lut[sel_a]]).view(np.uint32)
+        if dropped.any():
+            np_pay[inv_full[np.nonzero(dropped)[0]]] = np.uint32(0xAAAAAAAA)
+        full_payload = np_pay.view(np.int32)
 
     def attr_rows(origs):
         """(K, 10) int32 fused alpha-test rows (uv as f32 bits, the REAL
@@ -696,7 +701,7 @@ def build_alpha_split(tri_pos, tri_mat, mat_tex, full_order, sentinel_rows,
         return a
 
     attr_full = None
-    if sel_a.size:
+    if masks_on and sel_a.size:
         # only MIXED rows can ever be texture-tested; the rest stay zero
         attr_full = np.zeros((full_order.shape[0], 10), np.int32)
         attr_full[inv_full[sel_a]] = attr_rows(sel_a)
@@ -711,7 +716,9 @@ def build_alpha_split(tri_pos, tri_mat, mat_tex, full_order, sentinel_rows,
 
     # alpha TREE payload: the same per-orig cell masks in slot order
     # (leaf-padding slots take orig_a[0]'s mask; their rows are never hit)
-    t_a = attach_tri_payload(t_a, pack_alpha_masks(codes_by_orig[lut[orig_a]]))
+    if masks_on:
+        t_a = attach_tri_payload(t_a,
+                                 pack_alpha_masks(codes_by_orig[lut[orig_a]]))
     return {"bvh_opaque": t_o, "bvh_opaque_map": m_o,
             "bvh_alpha": t_a, "bvh_alpha_map": m_a,
             "alpha_boxes": _alpha_boxes(tri_pos, sel_a),

@@ -313,6 +313,88 @@ def test_split_drain_reduction_order(w, T):
     assert sum(ties) >= 8 and (sk == NONE).sum() >= 4 and (sk != NONE).sum() >= 16
 
 
+FULL32 = 0xFFFFFFFF
+
+
+def _nth_set_bit(m, s):
+    """csrc/traverse.cu nth_set_bit: the position of the (s+1)-th set bit
+    of the 32-bit mask m, by halving."""
+    pos = 0
+    width = 16
+    while width >= 1:
+        low = m & ((1 << width) - 1)
+        c = bin(low).count("1")
+        if s >= c:
+            s -= c
+            m >>= width
+            pos += width
+        else:
+            m = low
+        width >>= 1
+    return pos
+
+
+def _split_or_model(parked, hits):
+    """NumPy model of K7a's drain (csrc/traverse.cu anyhit_kernel_fat) for
+    one warp: ``parked`` the 32-bit ballot of parked lanes, ``hits`` (32,
+    T) bool, row l the hit columns (t in (t_min, cap)) of lane l's leaf.
+    With g parked lanes, w = 32 >> (32 - clz(g - 1)); lane r of subgroup
+    s = lane // w scans columns r, r + w, ... of the owner's leaf and
+    stops at its first hit; one ballot of the lanes that found one; each
+    owner reads the w bits from rank * w. Returns the owners' flags
+    {lane: bool} and the columns each lane scanned."""
+    g = bin(parked).count("1")
+    clz = 32 - (g - 1).bit_length()  # __clz(g - 1), 32 for g = 1
+    w = 32 >> (32 - clz)
+    T = hits.shape[1]
+    votes, scanned = 0, np.zeros(32, np.int64)
+    for lane in range(32):
+        sub = lane // w
+        if sub >= g:
+            continue
+        owner = _nth_set_bit(parked, sub)
+        for k in range(lane - sub * w, T, w):
+            scanned[lane] += 1
+            if hits[owner, k]:
+                votes |= 1 << lane
+                break
+    flags = {}
+    for lane in range(32):
+        if parked >> lane & 1:
+            rank = bin(parked & ((1 << lane) - 1)).count("1")
+            sub_mask = FULL32 >> (32 - w)  # defined for w = 32, as 1 << 32 is not
+            flags[lane] = bool((votes >> (rank * w)) & sub_mask)
+    return flags, scanned, w
+
+
+@pytest.mark.parametrize("g", range(1, 33))
+def test_split_or_drain_matches_sequential_scan(g):
+    """K7a's subgroup OR and owner read-back give every parked lane the
+    flag of the sequential column scan (any column with t in (t_min,
+    cap)), for g parked lanes at scattered and packed positions and T =
+    8, 20, 128 (hits rare, dense, none, or only in the last column); every
+    column of a leaf without a hit is scanned once."""
+    rng = np.random.default_rng(70 + g)
+    for T in (8, 20, 128):
+        for trial in range(6):
+            lanes = (np.arange(g) if trial == 0
+                     else np.sort(rng.choice(32, g, replace=False)))
+            parked = int(sum(1 << int(lane) for lane in lanes))
+            assert _nth_set_bit(parked, g - 1) == lanes[-1]
+            p = (0.002, 0.02, 0.3, 0.0, 0.0, 0.05)[trial]
+            hits = rng.uniform(size=(32, T)) < p
+            if trial == 4:
+                hits[lanes[::2], T - 1] = True
+            flags, scanned, w = _split_or_model(parked, hits)
+            assert w * (1 << (g - 1).bit_length()) == 32
+            assert sorted(flags) == list(lanes)
+            for lane in lanes:
+                assert flags[lane] == bool(hits[lane].any()), (g, T, trial, lane)
+            for sub, lane in enumerate(lanes):
+                if not hits[lane].any():
+                    assert scanned[sub * w:(sub + 1) * w].sum() == T
+
+
 @pytest.mark.parametrize("mode", ["classic", "fat"])
 def test_per_lane_counts_sum_to_totals(mode, monkeypatch):
     """The per-lane counters of the plain closest walkers on the tiny

@@ -275,18 +275,76 @@ def test_kernels_match_plain_on_cuda(scenes):
     assert bool(kp.any()) and bool(kb.any())
 
 
-@pytest.mark.parametrize("kind", ["closest", "masked"])
+def _segment_cells(tree, o, d, t_max, t_min):
+    """Brute force over every triangle row of a masked tree: (R,) bools,
+    whether the segment (t_min, t_max) of each ray crosses an OPAQUE cell
+    and whether it crosses a MIXED one."""
+    from glaze_tpu_torch.accel import bvh as B
+
+    r, n = o.shape[0], tree.tri.shape[0]
+    t, u, v, hit = B._tri_intersect(tree.tri[None, :, :9].expand(r, n, 9),
+                                    o[:, None, :], d[:, None, :])
+    hit = hit & (t > t_min) & (t < t_max[:, None])
+    words = B._payload_words(tree, torch.arange(n)[None].expand(r, n))
+    code = B._mask_bits(words, u, v, hit)
+    return (hit & (code == 1)).any(1), (hit & (code == 0)).any(1)
+
+
+def _any_case_holds(name, kind):
+    """The any-hit cases hold inactive lanes (never blocked), blocked and
+    unblocked active lanes, and, masked, rays that end pending and rays
+    that end blocked after crossing a MIXED cell; on the long lane, lanes
+    that block in their first leaf share warps with lanes that walk the
+    row."""
+    from glaze_tpu_torch.accel import bvh as B
+    from glaze_tpu_torch.accel import fat
+    from glaze_tpu_torch.accel import walk_cases as wc
+
+    rows = {(label.split()[0], k): rest
+            for label, k, *rest in wc.any_cases("cpu")
+            if label.endswith(" 257 rays")}
+    tree, o, d, t_max, t_min, act = rows[(name, kind)]
+    walk = {"any": B.any_hit, "any_masked": B.any_hit_masked,
+            "any_fat": fat.any_hit_fat}[kind]
+    st = B.WalkStats()
+    out = walk(tree, o, d, t_max, t_min=t_min, active=act, stats=st)
+    blocked, pending = out if kind == "any_masked" else (out, None)
+    assert int((~act).sum()) >= 80 and not bool(blocked[~act].any())
+    assert int(blocked.sum()) >= 20 and int((act & ~blocked).sum()) >= 20
+    if kind == "any_masked":
+        assert int(pending.sum()) >= 5 and not bool((pending & blocked).any())
+        opaque, mixed = _segment_cells(tree, o, d, t_max, t_min)
+        assert torch.equal(blocked, opaque & act)
+        assert int((blocked & mixed).sum()) >= 20
+    if name == "long_lane":
+        idx = torch.arange(o.shape[0])
+        long_ = idx % 37 == 0
+        block = ~long_ & (idx % 4 == 1) & act
+        assert bool(act[long_].all()) and int(st.lane_steps[long_].min()) >= 10
+        assert int(st.lane_steps[act & ~long_ & ~block].max()) == 1
+        if kind != "any_masked":
+            assert bool(blocked[block].all())
+            assert int(st.lane_leaves[block].max()) == 1
+            assert torch.equal(blocked[long_], idx[long_] % 74 == 0)
+        assert st.warp_counters()["simd_efficiency"] < 0.2
+
+
+@pytest.mark.parametrize("kind", ["closest", "masked", "any", "any_masked",
+                                  "any_fat"])
 @pytest.mark.parametrize("name", ["duplicates", "long_lane"])
 def test_walk_cases_stress_the_warp(name, kind):
-    """The cases the closest kernels are held to (accel/walk_cases.py)
-    contain what they are meant to, on the plain walkers: duplicated
-    triangles tie exactly and the first copy in the leaf is reported (on
-    the masked tree, the first whose cell at the hit is not TRANSPARENT);
-    a few lanes of the long-lane rays walk along the row while their
-    warp's other lanes take one step."""
+    """The cases the kernels are held to (accel/walk_cases.py) contain
+    what they are meant to, on the plain walkers: duplicated triangles tie
+    exactly and the first copy in the leaf is reported (on the masked
+    tree, the first whose cell at the hit is not TRANSPARENT); a few lanes
+    of the long-lane rays walk along the row while their warp's other
+    lanes take one step. The any-hit kinds: see _any_case_holds."""
     from glaze_tpu_torch.accel import bvh as B
     from glaze_tpu_torch.accel import walk_cases as wc
 
+    if kind.startswith("any"):
+        _any_case_holds(name, kind)
+        return
     rows = {(label.split()[0], k): (tree, o, d, t_max)
             for label, k, tree, o, d, t_max in wc.cases("cpu")
             if label.endswith(" 257 rays")}
@@ -328,3 +386,20 @@ def test_closest_kernels_walk_cases_on_cuda():
 
     assert wc.closest_mismatches("cuda", {"closest": tc.closest_hit_soa,
                                           "masked": tc.closest_hit_soa_masked}) == 0
+
+
+@pytest.mark.cuda
+def test_anyhit_kernels_walk_cases_on_cuda():
+    """Needs a CUDA card (skips here): K3, K4 and K7a against their plain
+    walkers, flag for flag, on every any-hit case of accel/walk_cases.py
+    (inactive lanes, lanes that block in their first leaf beside lanes
+    that walk the whole row, masked rays that end blocked, pending or
+    both, 1/31/33/257 rays)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from glaze_tpu_torch.accel import traverse_cuda as tc
+    from glaze_tpu_torch.accel import walk_cases as wc
+
+    assert wc.any_mismatches("cuda", {"any": tc.any_hit_soa,
+                                      "any_masked": tc.any_hit_soa_masked,
+                                      "any_fat": tc.any_hit_fat_soa}) == 0
