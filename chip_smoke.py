@@ -38,7 +38,6 @@ import contextlib
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -121,7 +120,6 @@ SMS = 132
 # for o' x d)
 OPS_RESOLVE = 14
 OPS_FEATURES = 12
-AIMED_BLOCKS = 16    # T1 check on rays aimed at triangle centroids
 SHORT_CHAIN = 16     # T3a/T3b kernel-against-plain chains
 T_RTOL = 1e-4        # drain t, relative (summation order of exact products)
 UV_ATOL = 5e-3       # drain u/v: ud, vd agree to a few ulps of terms ~20,
@@ -157,14 +155,6 @@ def tree_env(mode):
         _set_tree(saved)
 
 
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
-
-
 def ulp_diff(a, b):
     """|a - b| in float32 units in the last place (finite, same-sign)."""
     ai = a.contiguous().view(torch.int32).to(torch.int64)
@@ -196,10 +186,11 @@ def phase_build():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"[build] {lib} ptxas: {line.strip()}")
     attrs = tc.kernel_attrs()
-    for name, a in attrs.items():
+    for name, a in (*attrs.items(), *pc.kernel_attrs().items()):
         log(f"[build] {name}: {a['registers']} registers, {a['local_bytes']} "
             f"local bytes per thread, {a['blocks_per_sm']} blocks of "
-            f"{a['threads_per_block']} per SM (occupancy {a['occupancy']:.2f})")
+            f"{a['threads_per_block']} per SM (occupancy {a['occupancy']:.2f}"
+            f"{', at T = 128' if name.startswith('drain') else ''})")
     return attrs
 
 
@@ -242,22 +233,30 @@ def _drain_diff(kern, plain, label):
                 max_abs_err=err)
 
 
-def _aimed_rays(T, device, seed=13):
-    """(8, AIMED_BLOCKS * 128) rays from the tool's box aimed at centroids
-    of the tool's triangle cloud (bench_mxu.probe_inputs), so that most
-    rays hit."""
+def _tie_check(T, prec, device):
+    """T1 on bench_mxu.tie_inputs (triangles repeated in rows g and g + 8 of
+    one m16 tile, in two tiles, and a leaf repeated between steps): tri
+    must equal the plain drain's exactly on every ray, the lower column and
+    the earlier step winning each exact tie."""
     from glaze_tpu_torch.tools import bench_mxu as bm
 
-    tri = bm.probe_inputs(T)[0]["tri"]
-    rng = np.random.default_rng(seed)
-    n = AIMED_BLOCKS * 128
-    o = rng.uniform(-22, 22, (n, 3)).astype(np.float32)
-    d = (tri.mean(1)[rng.integers(0, tri.shape[0], n)] - o).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    rays = np.zeros((8, n), np.float32)
-    rays[0:3] = o.T
-    rays[3:6] = d.T
-    return torch.from_numpy(rays).to(device)
+    inp = bm.tie_inputs(T)
+    args = [torch.from_numpy(inp[k]).to(device)
+            for k in ("mats", "centres", "rays", "order")] + [T, prec]
+    kern = bm.drain_probe(*args)
+    plain = bm.drain_probe_plain(*args)
+    s = _drain_diff(kern, plain, f"T1 T={T} {prec} exact ties")
+    tri_p = plain[1][0].cpu().numpy()
+    on_tied = (tri_p >= 0) & inp["tied"][np.maximum(tri_p, 0)]
+    differ = int((kern[1] != plain[1]).sum())
+    log(f"[probes] T1 T={T} {prec} exact ties: {int(on_tied.sum())} rays "
+        f"end on a repeated triangle, {differ} tri differ")
+    if differ or on_tied.sum() < 1024:
+        raise RuntimeError(f"T1 T={T} {prec}: exact ties resolved unlike "
+                           "the plain drain")
+    return dict(on_tied=int(on_tied.sum()), tri_differ=differ,
+                rel_t_err=s["rel_t_err"], uv_err=s["uv_err"],
+                max_abs_err=s["max_abs_err"])
 
 
 def probes_t1(entry, results):
@@ -272,16 +271,18 @@ def probes_t1(entry, results):
         plain, p_ms = timed_call(lambda: bm.drain_probe_plain(
             mats, centres, rays, order, T, prec))
         s = _drain_diff(res["outputs"], plain, f"T1 T={T} {prec}")
-        aimed = _aimed_rays(T, mats.device)
+        aimed = torch.from_numpy(bm.aimed_rays(T)).to(mats.device)
         kern = bm.drain_probe(mats, centres, aimed, order, T, prec)
         hits = _drain_diff(kern, bm.drain_probe_plain(
             mats, centres, aimed, order, T, prec), f"T1 T={T} {prec} aimed")
+        ties = _tie_check(T, prec, mats.device)
         s.update(hit_agree_f64=res["hit_agree"], id_agree_f64=res["id_agree"],
                  rel_t_err_f64=res["rel_t_err"], check_plain_ms=p_ms,
                  aimed={k: hits[k] for k in ("mismatches", "ties",
                                              "rel_t_err", "uv_err")},
-                 clock_mhz=res["clock_mhz"], timings={})
-        s["max_abs_err"] = max(s["max_abs_err"], hits["max_abs_err"])
+                 exact_ties=ties, clock_mhz=res["clock_mhz"], timings={})
+        s["max_abs_err"] = max(s["max_abs_err"], hits["max_abs_err"],
+                               ties["max_abs_err"])
         L, w = mats.shape[0] // 16, mats.shape[1]
         passes = 3 if prec == "highest" else 1
         peak = PEAK_TF32 if prec == "highest" else PEAK_BF16_TC
@@ -376,10 +377,20 @@ def probes_t3a(entry, results):
 
 
 def probes_t3b(entry, results):
-    """T3b: the kernel against the plain chain on a short chain, bounds."""
+    """T3b: the kernel against the plain chain on a short chain at every
+    leaf size (the tool times T = 128 and 64), bounds."""
     from glaze_tpu_torch.tools import bench_dot as bd
     from glaze_tpu_torch.tools.common import timed_call
+    from glaze_tpu_torch.tools.probes_cuda import TS
 
+    timed = {res["T"] for res in results}
+    for T in TS:
+        if T not in timed:
+            mat, feat = bd.chain_inputs(4 * T, "cuda")
+            entry["sets"][f"T{T}"] = _drain_diff(
+                bd.resolve_chain_probe(mat, feat, T, SHORT_CHAIN),
+                bd.as_rows(bd.resolve_chain_plain(mat, feat, T, SHORT_CHAIN),
+                           bd.T_INIT), f"T3b T={T} ({SHORT_CHAIN} steps)")
     for res in results:
         T, reps = res["T"], res["reps"]
         mat, feat = res["inputs"]
@@ -500,6 +511,10 @@ def phase_probes():
     for name, e in entries.items():
         e.update(source="glaze_tpu_torch/csrc/probes.cu",
                  launches_by_path={"probes": counts[name]})
+    attrs = pc.kernel_attrs()
+    entries["fat_drain"].update(attrs["drain_highest"], instances={
+        "highest": attrs["drain_highest"], "default": attrs["drain_default"]})
+    entries["resolve_chain"].update(attrs["drain_carry"])
     probes_t1(entries["fat_drain"], t1)
     probes_t3a(entries["dot_chain"], t3a)
     probes_t3b(entries["resolve_chain"], t3b)
@@ -1123,6 +1138,7 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import glaze_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from glaze_tpu_torch.tools.common import card_line
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1160,6 +1176,7 @@ def main():
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "sets") + tuple(
                 key for key in ("headline", "registers", "local_bytes",
+                                "instances",
                                 "threads_per_block", "blocks_per_sm",
                                 "occupancy", "warp", "in_render_ms_by_path")
                 if key in k)})

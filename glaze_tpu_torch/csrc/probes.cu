@@ -33,28 +33,45 @@
 // product of the leaf's (16, 4T) slab, transposed, with the (16, 128)
 // features of a block's 128 rays gives det, u*det, v*det and t*det of
 // every (triangle, ray) pair; the det-scaled closest-hit resolve of
-// bench_mxu.py:138-163 (|det| >= 1e-12, 1e-4 < t < t_best, the lowest
-// column on an exact tie of t, tri = leaf*T + column) updates the ray's
-// best. Features (T1): [o' x d, o', d, 1, 0...] with o' = o - the leaf's
-// centre; (T3b) feat + carry, where the carry grows by ray 0's least
-// valid t of the step times 1e-30 (bench_dot.py:132, :161).
+// bench_mxu.py:138-163 (|det| >= 1e-12, 1e-4 < t, the step's least t
+// with the lowest column on an exact tie, tri = leaf*T + column) replaces
+// the ray's best where its t is strictly less. Features (T1): [o' x d, o',
+// d, 1, 0...] with o' = o - the leaf's centre; (T3b) feat + carry, where
+// the carry grows by ray 0's new best t times 1e-30 in each step that
+// improves it (bench_dot.py:132, :161).
 // Bound on an H100: one block is one SM. Per (128 rays, leaf) the product
 // is 4T x 128 x 16 multiply-adds per pass (3 passes at highest), and the
 // resolve ~14 f32 operations per (triangle, ray) pair; the slab (16 x 4T
 // floats) comes from L2. At T = 128 and highest the product (6.3 MFLOP,
 // 1.7 us at one SM's share of the TF32 rate) outweighs the resolve
 // (230k operations, 0.45 us at its share of the f32 rate); at default the
-// resolve bounds it. In this simple design the resolve's serial scan, one
-// thread per ray with 4 warps per SM, is latency-bound well above both.
+// resolve bounds it. With 4 warps, one per SM sub-partition, the limit
+// here is the instruction rate and latency of mma.sync and of each warp's
+// TF32 splits of the A fragments.
 // Design: one block of 4 warps per 128 rays, a loop over the leaf order.
 // Each step copies the slab into shared memory (float4 loads, rows padded
 // by 8 floats so the fragment loads do not conflict) and writes the ray
-// features beside it; each warp owns 32 rays (four n8 tiles, B fragments
-// split once per step in registers) and walks the m16 tiles of a chunk of
-// 32 triangles (det, u, v, t rows), writing the accumulators to shared
-// memory; then each thread resolves its own ray over the chunk's
-// triangles in ascending order. No cp.async double buffering, no wgmma:
-// later work.
+// features beside it. Each warp owns 32 rays (four n8 tiles, B fragments
+// split once per step in registers) and walks the m16 tiles of triangles
+// m0 .. m0 + 15: the det, ud, vd and td tiles are slab columns
+// quantity * T + m0, and the f32 accumulator layout (the same for
+// m16n8k8 tf32 and m16n8k16 bf16) puts c[0], c[1] at row g, columns 2q,
+// 2q + 1 and c[2], c[3] at row g + 8, so the four quantities of a pair sit
+// in the same register slot of the same lane. The resolve reads them
+// there: no shared buffer and no barrier. A lane computes the 64
+// accumulators of an m16 tile (4 ray tiles x 4 quantities x 4 slots),
+// tests its 16 pairs for inside without a division or a branch, and only
+// if one passes divides (t = td * (1 / det)), the same operations as the
+// one-part test, so the same bits. Each lane keeps a candidate (t, column,
+// u, v) for each of its 8 ray slots (2 columns x 4 tiles), taking rows g
+// and g + 8 of the tiles in ascending triangle order with a strict <; at
+// the end of the step xor shuffles over lanes 4, 8 and 16
+// (the eight lanes of one q hold the same rays) keep the (t, column)
+// least, u and v come from the lane that holds the winning column, and
+// every lane folds the winner into its copy of the ray's best with a
+// strict <. Lanes with g = 0 write the results. Two barriers per step
+// stay: before the copy (the last step's reads, T3b's carry from thread
+// 0, which holds ray 0) and after it. No cp.async, no wgmma: later work.
 //
 // dot_chain_kernel (T3a). Function: reps dependent products of a (16, W)
 // matrix with f = where(feat > acc[0,0], feat, -feat), each folded into
@@ -100,8 +117,8 @@ constexpr int kRays = 128;   // rays (columns) of one drain or chain block
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTilesPerWarp = kRays / 8 / kWarps;  // n8 tiles of a warp
-constexpr int kLd = kRays + 8;  // padded row stride of features / outputs
-constexpr int kChunk = 32;      // triangles resolved per pass
+constexpr int kLd = kRays + 8;  // padded row stride of the features
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kTMin = 1e-4f;
 constexpr float kDetEps = 1e-12f;
 
@@ -246,6 +263,59 @@ struct DrainArgs {
   int* tri_out;
 };
 
+// A ray slot's hit: within a step the lane's candidate (t, column, u, v),
+// over the steps the ray's best (t, triangle id, u, v).
+struct Hit {
+  float t;
+  int id;
+  float u, v;
+};
+
+// The det-scaled test of one (triangle, ray) pair (bench_mxu.py:138-163)
+// in two parts. inside: |det| >= 1e-12 and the signs of u*det, v*det and
+// det - (u + v)*det, with no division and no branch.
+__device__ __forceinline__ bool inside(float det, float ud, float vd) {
+  return (fabsf(det) >= kDetEps) & (ud * det >= 0.0f) & (vd * det >= 0.0f) &
+         ((ud + vd) * det <= det * det);
+}
+
+// The rest, for a pair that is inside: t = td * (1 / det) and, if t > 1e-4
+// and strictly less than the candidate's, the pair becomes the candidate.
+// A lane meets its columns in ascending order, so an exact tie keeps the
+// lower.
+__device__ __forceinline__ void take_pair(float det, float ud, float vd,
+                                          float td, int col, Hit& c) {
+  const float inv = 1.0f / det;
+  const float t = td * inv;
+  if (t > kTMin && t < c.t) {
+    c.t = t;
+    c.id = col;
+    c.u = ud * inv;
+    c.v = vd * inv;
+  }
+}
+
+// The step's winner of a slot across the eight lanes that share q (lane
+// bits 2-4, g): the least t, on an exact tie the lowest column; u and v
+// come from the lane that holds that column (g = column % 8). Every lane
+// of the eight returns the same hit.
+__device__ __forceinline__ Hit warp_winner(const Hit& c, int q) {
+  float t = c.t;
+  int id = c.id;
+#pragma unroll
+  for (int s = 4; s < 32; s <<= 1) {
+    const float t2 = __shfl_xor_sync(kFull, t, s);
+    const int id2 = __shfl_xor_sync(kFull, id, s);
+    if (t2 < t || (t2 == t && id2 < id)) {
+      t = t2;
+      id = id2;
+    }
+  }
+  const int src = ((id & 7) << 2) | q;
+  return Hit{t, id, __shfl_sync(kFull, c.u, src),
+             __shfl_sync(kFull, c.v, src)};
+}
+
 template <int P, bool kCarry>
 __global__ void __launch_bounds__(kThreads) drain_kernel(const DrainArgs p) {
   extern __shared__ __align__(16) float smem[];
@@ -253,12 +323,10 @@ __global__ void __launch_bounds__(kThreads) drain_kernel(const DrainArgs p) {
   const int lda = 4 * T + 8;
   float* mat_s = smem;                   // (16, 4T) slab of the step's leaf
   float* feat_s = mat_s + kF * lda;      // (16, 128) features
-  float* out_s = feat_s + kF * kLd;      // (4 * chunk, 128) products
   __shared__ float carry_s;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
   const int ray = blockIdx.x * kRays + tid;
-  const int chunk = T < kChunk ? T : kChunk;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
   if constexpr (kCarry) {
     if (tid == 0) carry_s = 0.0f;
@@ -272,8 +340,12 @@ __global__ void __launch_bounds__(kThreads) drain_kernel(const DrainArgs p) {
     feat_s[9 * kLd + tid] = 1.0f;
     for (int k = 10; k < kF; ++k) feat_s[k * kLd + tid] = 0.0f;
   }
-  float bt = p.t_init, bu = 0.0f, bv = 0.0f;
-  int btri = -1;
+  // slot (j, h): ray (warp * kTilesPerWarp + j) * 8 + 2q + h of the block
+  Hit best[kTilesPerWarp][2];
+#pragma unroll
+  for (int j = 0; j < kTilesPerWarp; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) best[j][h] = Hit{p.t_init, -1, 0.0f, 0.0f};
   for (int step = 0; step < p.reps; ++step) {
     const int leaf = p.order[step];
     if (leaf < 0 || leaf >= p.n_leaves) __trap();
@@ -308,53 +380,76 @@ __global__ void __launch_bounds__(kThreads) drain_kernel(const DrainArgs p) {
 #pragma unroll
     for (int j = 0; j < kTilesPerWarp; ++j)
       fb[j] = load_b<P>(feat_s, kLd, (warp * kTilesPerWarp + j) * 8);
-    bool won = false;  // this step improved the ray's best (T3b's carry)
-    for (int k0 = 0; k0 < T; k0 += chunk) {
-      // out_s row r = quantity * chunk + c (det, ud, vd, td of triangle
-      // k0 + c) is column quantity * T + k0 + c of the slab
-      for (int row0 = 0; row0 < 4 * chunk; row0 += 16) {
-        const int quantity = row0 / chunk;
-        const FragA fa =
-            load_a<P>(mat_s, lda, quantity * T + k0 + row0 - quantity * chunk);
+    Hit cand[kTilesPerWarp][2];
 #pragma unroll
-        for (int j = 0; j < kTilesPerWarp; ++j) {
-          float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma_tile<P>(c, fa, fb[j]);
-          const int n = (warp * kTilesPerWarp + j) * 8 + 2 * q;
-          *reinterpret_cast<float2*>(out_s + (row0 + g) * kLd + n) =
-              make_float2(c[0], c[1]);
-          *reinterpret_cast<float2*>(out_s + (row0 + g + 8) * kLd + n) =
-              make_float2(c[2], c[3]);
-        }
+    for (int j = 0; j < kTilesPerWarp; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) cand[j][h] = Hit{INFINITY, T, 0.0f, 0.0f};
+    // m16 tile of triangles m0 .. m0 + 15: its det, ud, vd and td tiles
+    // are slab columns quantity * T + m0, so the four accumulators of a
+    // pair sit in the same register slot of the same lane
+    for (int m0 = 0; m0 < T; m0 += 16) {
+      float c[kTilesPerWarp][4][4] = {};  // [ray tile][quantity][slot]
+      {
+        FragA fa[4];
+#pragma unroll
+        for (int quantity = 0; quantity < 4; ++quantity)
+          fa[quantity] = load_a<P>(mat_s, lda, quantity * T + m0);
+#pragma unroll
+        for (int j = 0; j < kTilesPerWarp; ++j)
+#pragma unroll
+          for (int quantity = 0; quantity < 4; ++quantity)
+            mma_tile<P>(c[j][quantity], fa[quantity], fb[j]);
       }
-      __syncthreads();
-      for (int c = 0; c < chunk; ++c) {
-        const float det = out_s[c * kLd + tid];
-        const float ud = out_s[(chunk + c) * kLd + tid];
-        const float vd = out_s[(2 * chunk + c) * kLd + tid];
-        const float td = out_s[(3 * chunk + c) * kLd + tid];
-        const bool ok = fabsf(det) >= kDetEps;
-        const float inv = ok ? 1.0f / det : 0.0f;
-        const float t = td * inv;
-        if (ok && ud * det >= 0.0f && vd * det >= 0.0f &&
-            (ud + vd) * det <= det * det && t > kTMin && t < bt) {
-          bt = t;
-          btri = leaf * T + k0 + c;
-          bu = ud * inv;
-          bv = vd * inv;
-          won = true;
-        }
+      // c[j][.][e], e = 2r + h: triangle m0 + g + 8r, ray slot (j, h). The
+      // 16 inside tests run without a branch, the division only for the
+      // pairs that pass (few of a leaf's T for any one ray)
+      unsigned in = 0;
+#pragma unroll
+      for (int j = 0; j < kTilesPerWarp; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          in |= unsigned(inside(c[j][0][e], c[j][1][e], c[j][2][e]))
+                << (4 * j + e);
+      if (in) {
+#pragma unroll
+        for (int j = 0; j < kTilesPerWarp; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if ((in >> (4 * j + e)) & 1u)
+              take_pair(c[j][0][e], c[j][1][e], c[j][2][e], c[j][3][e],
+                        m0 + g + 8 * (e >> 1), cand[j][e & 1]);
       }
-      __syncthreads();
     }
+    bool won = false;  // ray 0 improved this step (thread 0: T3b's carry)
+#pragma unroll
+    for (int j = 0; j < kTilesPerWarp; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const Hit w = warp_winner(cand[j][h], q);
+        if (w.t < best[j][h].t) {
+          best[j][h] = Hit{w.t, leaf * T + w.id, w.u, w.v};
+          if (j == 0 && h == 0) won = true;
+        }
+      }
     if constexpr (kCarry) {
-      if (tid == 0) carry_s = carry_s + (won ? bt : INFINITY) * 1e-30f;
+      if (tid == 0)
+        carry_s = carry_s + (won ? best[0][0].t : INFINITY) * 1e-30f;
     }
   }
-  p.t_out[ray] = bt;
-  p.tri_out[ray] = btri;
-  p.u_out[ray] = bu;
-  p.v_out[ray] = bv;
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < kTilesPerWarp; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r =
+            blockIdx.x * kRays + (warp * kTilesPerWarp + j) * 8 + 2 * q + h;
+        p.t_out[r] = best[j][h].t;
+        p.tri_out[r] = best[j][h].id;
+        p.u_out[r] = best[j][h].u;
+        p.v_out[r] = best[j][h].v;
+      }
+  }
 }
 
 template <int P>
@@ -662,12 +757,15 @@ int launch(Kernel kernel, int blocks, int threads, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Dynamic shared memory of drain_kernel at leaf size T: slab and features.
+size_t drain_smem(int T) {
+  return sizeof(float) * (kF * (4 * T + 8) + kF * kLd);
+}
+
 template <int P, bool kCarry>
 int launch_drain(const DrainArgs& a, int n_rays, cudaStream_t s) {
-  const int chunk = a.T < kChunk ? a.T : kChunk;
-  const size_t smem =
-      sizeof(float) * (kF * (4 * a.T + 8) + kF * kLd + 4 * chunk * kLd);
-  return launch(drain_kernel<P, kCarry>, n_rays / kRays, kThreads, smem, s, a);
+  return launch(drain_kernel<P, kCarry>, n_rays / kRays, kThreads,
+                drain_smem(a.T), s, a);
 }
 
 template <int P>
@@ -686,6 +784,14 @@ int launch_walk(const WalkArgs& a, int packet, cudaStream_t s) {
   return launch(walk_overhead_kernel<V, 32>, (a.n_rays + 255) / 256, 256, 0,
                 s, a);
 }
+
+// The drain_kernel instances glaze_probe_kernel_attrs reports on, in its
+// order: T1 at highest and default, T3b.
+const void* const kDrainKernels[] = {
+    reinterpret_cast<const void*>(drain_kernel<kHighest, false>),
+    reinterpret_cast<const void*>(drain_kernel<kDefault, false>),
+    reinterpret_cast<const void*>(drain_kernel<kHighest, true>)};
+constexpr int kDrainCount = sizeof(kDrainKernels) / sizeof(kDrainKernels[0]);
 
 }  // namespace
 
@@ -752,6 +858,36 @@ int glaze_probe_slab_rate(int bf16, const void* o, const void* in,
                 kSlabThreads, 0, s, static_cast<const float*>(o),
                 static_cast<const float*>(in), nodes, n, iters, one,
                 static_cast<float*>(out));
+}
+
+// The number of kernels glaze_probe_kernel_attrs reports on.
+int glaze_probe_kernel_count() { return kDrainCount; }
+
+// Of drain_kernel instance ``which`` (0 T1 highest, 1 T1 default, 2 T3b)
+// at leaf size T: registers and local (spill) bytes per thread, the
+// threads per block it is launched with, its resident blocks per SM with
+// the shared memory of that T, and the most threads an SM of the current
+// card holds. Returns a cudaError_t (0 = ok).
+int glaze_probe_kernel_attrs(int which, int T, int* regs, int* local_bytes,
+                             int* threads_per_block, int* blocks_per_sm,
+                             int* max_threads_per_sm) {
+  if (which < 0 || which >= kDrainCount || T <= 0 || T > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kDrainKernels[which]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *threads_per_block = kThreads;
+  // at most 42 KB (T = 128): under the 48 KB a launch gets without opting in
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kDrainKernels[which], kThreads, drain_smem(T));
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(max_threads_per_sm,
+                                 cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  return static_cast<int>(err);
 }
 
 const char* glaze_probe_error_string(int code) {

@@ -267,6 +267,80 @@ def probe_inputs(T, n_blocks=1):
                 centres=centres, rays=rays, o=o, d=d, L=L), rng
 
 
+AIMED_BLOCKS = 16
+
+
+def aimed_rays(T, n_blocks=AIMED_BLOCKS, seed=13):
+    """(8, n_blocks * 128) rays from the tool's box aimed at centroids of
+    the tool's triangle cloud (:func:`probe_inputs`), so that most hit."""
+    tri = probe_inputs(T)[0]["tri"]
+    rng = np.random.default_rng(seed)
+    n = n_blocks * 128
+    o = rng.uniform(-22, 22, (n, 3)).astype(np.float32)
+    d = (tri.mean(1)[rng.integers(0, tri.shape[0], n)] - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = np.zeros((8, n), np.float32)
+    rays[0:3] = o.T
+    rays[3:6] = d.T
+    return rays
+
+
+def tie_pairs(T):
+    """The (column, copy) pairs of :func:`tie_inputs`: a triangle and its
+    copy in rows g and g + 8 of one m16 tile (columns c, c + 8), in two
+    m16 tiles (c, c + 16) and in the first and last tile (2, T - 1)."""
+    pairs = [(c, c + 8) for c in range(4)]
+    if T >= 32:
+        pairs += [(c, c + 16) for c in range(4, 8)] + [(2, T - 1)]
+    return pairs
+
+
+TIE_LEAVES = 4
+TIE_ORDER = (1, 0, 2, 3, 0, 1, 3)
+
+
+def tie_inputs(T, n_rays=2048, seed=17):
+    """A drain input of exact ties (rng ``seed``): a cloud of
+    ``TIE_LEAVES`` leaves of T triangles in which every leaf repeats
+    triangles in the columns of :func:`tie_pairs` and leaf 1 repeats leaf 0
+    whole, so equal columns give bit-equal t within a step and the two
+    leaves between steps; ``n_rays`` rays aimed at the centroids of the
+    repeated triangles from 2-15 units away, within about 30 degrees of
+    the normal (a grazing ray's t is ill-conditioned in 3xTF32, which the
+    aimed rays of ``chip_smoke.py`` cover; here the point is the tie).
+    Returns a dict of NumPy arrays: ``mats`` (L*16, W),
+    ``centres``, ``rays`` (8, n_rays), ``order`` (:data:`TIE_ORDER`) and
+    ``tied`` (L*T,) bool, the triangle ids that have a copy."""
+    rng = np.random.default_rng(seed)
+    n = TIE_LEAVES * T
+    base = rng.uniform(-20, 20, (n, 1, 3))
+    tri = (base + rng.uniform(-0.6, 0.6, (n, 3, 3))).astype(np.float32)
+    tri = tri.reshape(TIE_LEAVES, T, 3, 3)
+    tied = np.zeros((TIE_LEAVES, T), bool)
+    for c, copy in tie_pairs(T):
+        tri[:, copy] = tri[:, c]
+        tied[:, [c, copy]] = True
+    tri[1] = tri[0]
+    tri = tri.reshape(n, 3, 3)
+    mats, centres = leaf_matrices(tri, T)
+    hit = tri[rng.choice(np.flatnonzero(tied.reshape(-1)), n_rays)]
+    cen = hit.mean(1)
+    nrm = np.cross(hit[:, 1] - hit[:, 0], hit[:, 2] - hit[:, 0])
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    side = nrm * rng.choice([-1.0, 1.0], (n_rays, 1))
+    off = side + rng.uniform(-0.3, 0.3, (n_rays, 3))
+    off /= np.linalg.norm(off, axis=-1, keepdims=True)
+    o = (cen + off * rng.uniform(2.0, 15.0, (n_rays, 1))).astype(np.float32)
+    d = (cen - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = np.zeros((8, n_rays), np.float32)
+    rays[0:3] = o.T
+    rays[3:6] = d.T
+    return dict(mats=mats.reshape(-1, mats.shape[2]), centres=centres,
+                rays=rays, order=np.asarray(TIE_ORDER, np.int32),
+                tied=tied.reshape(-1))
+
+
 def run(T, precision="highest", device=None, check=True,
         timing_reps=TIMING_REPS):
     """The tool's run: the check drain (each leaf once) against the exact

@@ -1,5 +1,5 @@
 """What the probe tools (and ``chip_smoke.py``) share: the ``--device``
-flag, timing with CUDA events, and the card's clocks."""
+flag, timing with CUDA events, the card's clocks, name and power limit."""
 
 from __future__ import annotations
 
@@ -57,6 +57,15 @@ def sm_clocks_mhz():
         capture_output=True, text=True, timeout=60, check=True)
     now, peak = res.stdout.strip().splitlines()[0].split(",")
     return float(now), float(peak)
+
+
+def card_line() -> str:
+    """The first card's name and power limit as nvidia-smi prints them."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
 
 
 @functools.lru_cache(maxsize=1)

@@ -42,29 +42,76 @@ def build() -> str:
     return so
 
 
+def use_library(path=None):
+    """Loads the probe kernels from ``path``, a library built from another
+    ``probes.cu`` with the same C interface (an earlier commit's, to hold
+    a redesign against it), or with None from this package's build."""
+    global _lib
+    _lib = None if path is None else _bind(ctypes.CDLL(path))
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.glaze_probe_drain.argtypes = ([i, i, p, i, i, i, p, p, i] + [p] * 7
-                                          + [i, f] + [p] * 5)
-        lib.glaze_probe_dot_chain.argtypes = [i, p, i, p, i, p, p, p]
-        lib.glaze_probe_walk.argtypes = [i, i, p, p, i] + [p] * 6 + [i, f, p, p, p]
-        lib.glaze_probe_slab_rate.argtypes = [i, p, p, p, i, i, f, p, p]
-        for fn in (lib.glaze_probe_drain, lib.glaze_probe_dot_chain,
-                   lib.glaze_probe_walk, lib.glaze_probe_slab_rate):
-            fn.restype = i
-        lib.glaze_probe_error_string.argtypes = [i]
-        lib.glaze_probe_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = _bind(ctypes.CDLL(build()))
     return _lib
+
+
+def _bind(lib):
+    """Sets the argument and result types of the library's entries; an
+    earlier build may lack the attribute query."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.glaze_probe_drain.argtypes = ([i, i, p, i, i, i, p, p, i] + [p] * 7
+                                      + [i, f] + [p] * 5)
+    lib.glaze_probe_dot_chain.argtypes = [i, p, i, p, i, p, p, p]
+    lib.glaze_probe_walk.argtypes = [i, i, p, p, i] + [p] * 6 + [i, f, p, p, p]
+    lib.glaze_probe_slab_rate.argtypes = [i, p, p, p, i, i, f, p, p]
+    for fn in (lib.glaze_probe_drain, lib.glaze_probe_dot_chain,
+               lib.glaze_probe_walk, lib.glaze_probe_slab_rate):
+        fn.restype = i
+    if hasattr(lib, "glaze_probe_kernel_attrs"):
+        lib.glaze_probe_kernel_count.restype = i
+        lib.glaze_probe_kernel_attrs.argtypes = [i, i] + [p] * 5
+        lib.glaze_probe_kernel_attrs.restype = i
+    lib.glaze_probe_error_string.argtypes = [i]
+    lib.glaze_probe_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _check(code: int, what: str):
     if code != 0:
         msg = _load().glaze_probe_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+
+
+# drain_kernel instances in glaze_probe_kernel_attrs' order
+ATTR_KERNELS = ("drain_highest", "drain_default", "drain_carry")
+
+
+def kernel_attrs() -> dict:
+    """For each ``drain_kernel`` instance (T1 at highest and default, T3b):
+    registers and local (spill) bytes per thread, threads per block,
+    resident blocks per SM with the shared memory of leaf size 128, and
+    the occupancy they give (resident threads over the most an SM holds),
+    as the CUDA runtime reports them for the built library on the current
+    card."""
+    lib = _load()
+    if lib.glaze_probe_kernel_count() != len(ATTR_KERNELS):
+        raise RuntimeError(f"the library reports on "
+                           f"{lib.glaze_probe_kernel_count()} kernels, not "
+                           f"the {len(ATTR_KERNELS)} of ATTR_KERNELS")
+    out = {}
+    for which, name in enumerate(ATTR_KERNELS):
+        regs, local, threads, blocks, most = (ctypes.c_int() for _ in range(5))
+        _check(lib.glaze_probe_kernel_attrs(
+            which, 128, ctypes.byref(regs), ctypes.byref(local),
+            ctypes.byref(threads), ctypes.byref(blocks), ctypes.byref(most)),
+            f"{name} attribute query")
+        out[name] = {"registers": regs.value, "local_bytes": local.value,
+                     "threads_per_block": threads.value,
+                     "blocks_per_sm": blocks.value,
+                     "occupancy": blocks.value * threads.value / most.value}
+    return out
 
 
 def _need(name, t, dtype, shape=None):

@@ -22,7 +22,10 @@ Tolerances:
 
 The kernels run only on a card: the ``cuda``-marked tests hold each
 against its plain version at small sizes, and chip_smoke.py at the tools'
-sizes.
+sizes. What the CPU can check of the drain kernel's register resolve (the
+lane that holds each (triangle, ray) pair, the order of its tests, the
+shuffle reduction and the fold) is a NumPy model of it, held bit for bit
+against the plain resolve.
 """
 
 import os
@@ -232,6 +235,201 @@ def test_drain_run_entry_on_cpu(capsys):
 
 
 # ---------------------------------------------------------------------------
+# T1 / T3b: a NumPy model of drain_kernel's register resolve
+
+WARPS, TILES = 4, 4  # warps of a drain block, n8 ray tiles of a warp
+F32 = np.float32
+
+
+def _fragment_step(out, T):
+    """drain_kernel's resolve of one step's (4T, 128) f32 product, lane by
+    lane. Lane (g, q) of warp w holds, for ray tile j, the accumulators of
+    rows g and g + 8 of every m16 tile (triangles m0 + g, m0 + g + 8) at
+    columns 2q, 2q + 1 (slots h = 0, 1): ray (4w + j) * 8 + 2q + h. The
+    four quantities of a pair are slab columns qty * T + triangle, so they
+    share the slot. Each slot takes its valid pairs in ascending triangle
+    order with a strict < (the kernel tests inside first and divides only
+    for the pairs that pass: the same operations on those pairs, so the
+    same bits); then xor shuffles over 4, 8 and 16 lanes keep
+    the (t, column) least, and u, v come from lane ((column % 8) << 2) | q.
+    Returns the step's (128,) t (inf: none), column, u, v per ray."""
+    out = np.asarray(out, F32)
+    w, lane, j, h = np.meshgrid(np.arange(WARPS), np.arange(32),
+                                np.arange(TILES), np.arange(2), indexing="ij")
+    g, q = lane >> 2, lane & 3
+    ray = (w * TILES + j) * 8 + 2 * q + h
+    ct = np.full(ray.shape, np.inf, F32)
+    cc = np.full(ray.shape, T, np.int32)
+    cu = np.zeros(ray.shape, F32)
+    cv = np.zeros(ray.shape, F32)
+    for m0 in range(0, T, 16):
+        for r in (0, 1):
+            col = m0 + g + 8 * r
+            det, ud, vd, td = (out[k * T + col, ray] for k in range(4))
+            ok = np.abs(det) >= F32(bench_mxu.DET_EPS)
+            with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+                inv = np.where(ok, F32(1.0) / np.where(ok, det, F32(1.0)),
+                               F32(0.0))
+                t = td * inv
+                take = (ok & (ud * det >= 0) & (vd * det >= 0)
+                        & ((ud + vd) * det <= det * det)
+                        & (t > F32(bench_mxu.T_MIN)) & (t < ct))
+                ct = np.where(take, t, ct)
+                cc = np.where(take, col, cc).astype(np.int32)
+                cu = np.where(take, ud * inv, cu)
+                cv = np.where(take, vd * inv, cv)
+    t, c = ct, cc
+    for s in (4, 8, 16):
+        t2, c2 = t[:, np.arange(32) ^ s], c[:, np.arange(32) ^ s]
+        take = (t2 < t) | ((t2 == t) & (c2 < c))
+        t, c = np.where(take, t2, t), np.where(take, c2, c)
+    src = ((c & 7) << 2) | q
+    u = np.take_along_axis(cu, src, axis=1)
+    v = np.take_along_axis(cv, src, axis=1)
+    res = [np.zeros(128, x.dtype) for x in (t, c, u, v)]
+    for x, y in zip(res, (t, c, u, v)):
+        by_g = y.view(np.int32).reshape(WARPS, 8, 4, TILES, 2)
+        assert (by_g == by_g[:, :1]).all()  # the 8 lanes of a q agree
+        x[ray[:, :4]] = y[:, :4]  # lanes g = 0 write
+    return res
+
+
+def _fragment_fold(best, leaf, T, step):
+    """Each slot folds the step's winner into the ray's best with a strict
+    <. Returns the new best and the (128,) mask of rays that improved."""
+    t, c, u, v = step
+    better = t < best["t"]
+    return {"t": np.where(better, t, best["t"]),
+            "tri": np.where(better, leaf * T + c, best["tri"]).astype(np.int32),
+            "u": np.where(better, u, best["u"]),
+            "v": np.where(better, v, best["v"])}, better
+
+
+def _np_best(t_init):
+    return {"t": np.full(128, t_init, F32), "tri": np.full(128, -1, np.int32),
+            "u": np.zeros(128, F32), "v": np.zeros(128, F32)}
+
+
+def _assert_bits_equal(model, plain, label):
+    for k in ("t", "tri", "u", "v"):
+        a, b = np.asarray(model[k]), plain[k].numpy()
+        assert a.dtype == b.dtype and np.array_equal(
+            a.view(np.int32), b.view(np.int32)), f"{label}: {k} differs"
+
+
+def _equal_t_products(T, seed):
+    """Three steps of synthetic (4T, 128) products with exact ties of t:
+    every pair of :func:`bench_mxu.tie_pairs` shares det and t*det with
+    another u, v and the least t of the step (so the lower column must
+    win, with its own u, v); step 1 repeats step 0's det and t*det with
+    other u, v (the earlier step must stay); rays 112-127 have det 0 (no
+    hit)."""
+    rng = np.random.default_rng(seed)
+
+    def uvs():
+        return (rng.uniform(-0.1, 0.6, (T, 128)).astype(F32),
+                rng.uniform(-0.1, 0.6, (T, 128)).astype(F32))
+
+    def step(det, t, u, v):
+        return np.concatenate([det, u * det, v * det, t * det]).astype(F32)
+
+    det = (rng.uniform(0.5, 2.0, (T, 128))
+           * rng.choice([-1.0, 1.0], (T, 128))).astype(F32)
+    t = rng.uniform(1.0, 50.0, (T, 128)).astype(F32)
+    for c, copy in bench_mxu.tie_pairs(T):
+        t[c] = rng.uniform(0.2, 0.9, 128)
+        det[copy], t[copy] = det[c], t[c]
+    det[:, 112:] = 0.0
+    first = step(det, t, *uvs())
+    det2 = (rng.uniform(0.5, 2.0, (T, 128))).astype(F32)
+    det2[:, 112:] = 0.0
+    return [first, step(det, t, *uvs()),
+            step(det2, rng.uniform(0.1, 50.0, (T, 128)).astype(F32), *uvs())]
+
+
+def _t1_products(inp, T, n_miss=16):
+    """The per-step (4T, 128) products (``highest``) of a T1 input's first
+    128 rays, the last ``n_miss`` of them with a zero direction (det 0:
+    no hit)."""
+    rays = torch.from_numpy(inp["rays"][:, :128].copy())
+    rays[3:6, 128 - n_miss:] = 0.0
+    slabs = torch.from_numpy(inp["mats"]).reshape(-1, 16, inp["mats"].shape[1])
+    centres = torch.from_numpy(inp["centres"])
+    return [bench_mxu.product_plain(
+        slabs[leaf, :, :4 * T], bench_mxu.ray_features(
+            rays[0:3], rays[3:6], centres[leaf]), "highest").numpy()
+        for leaf in inp["order"]]
+
+
+@pytest.mark.parametrize("T", probes_cuda.TS)
+@pytest.mark.parametrize("case", ["ties", "equal_t", "cloud"])
+def test_fragment_resolve_model_matches_plain(T, case):
+    """The lane model of the register resolve against resolve_plain +
+    fold_leaf, bit for bit, step by step."""
+    if case == "ties":
+        inp = bench_mxu.tie_inputs(T)
+        outs = _t1_products(inp, T)
+        leaves = list(inp["order"])
+    elif case == "cloud":
+        tri, rays, order = _cloud(T)
+        mats, centres = bench_mxu.leaf_matrices(tri, T)
+        inp = dict(mats=mats.reshape(-1, mats.shape[2]), centres=centres,
+                   rays=rays, order=order)
+        outs = _t1_products(inp, T)
+        leaves = list(inp["order"])
+    else:
+        outs = _equal_t_products(T, seed=T)
+        leaves = [0, 1, 2]
+    model = _np_best(np.inf)
+    plain = bench_mxu.no_hits(128, "cpu")
+    tied = np.unique(bench_mxu.tie_pairs(T))
+    tied_wins = 0  # step winners in a column that has a copy
+    for k, (leaf, out) in enumerate(zip(leaves, outs)):
+        step = _fragment_step(out, T)
+        model, won = _fragment_fold(model, int(leaf), T, step)
+        plain, better = bench_mxu.fold_leaf(
+            plain, int(leaf), T, *bench_mxu.resolve_plain(torch.from_numpy(out), T))
+        assert np.array_equal(won, better.numpy()), f"{case} step {k}"
+        _assert_bits_equal(model, plain, f"T={T} {case} step {k}")
+        tied_wins += int(np.isin(step[1][np.isfinite(step[0])], tied).sum())
+    hit = model["tri"] >= 0
+    assert hit.sum() >= 32 and not hit[112:].any()
+    if case != "cloud":
+        assert tied_wins >= 32, tied_wins
+
+
+@pytest.mark.parametrize("T", probes_cuda.TS)
+def test_fragment_resolve_model_carry_matches_plain(T):
+    """T3b: the lane model with feat + carry, the carry read from ray 0's
+    slot (warp 0, lane 0, tile 0), against resolve_chain_plain."""
+    reps = 6
+    mat, feat = bench_dot.chain_inputs(4 * T, "cpu")
+    model = _np_best(bench_dot.T_INIT)
+    carry = F32(0.0)
+    for _ in range(reps):
+        out = bench_mxu.product_plain(mat[:, :4 * T], feat + torch.tensor(carry),
+                                      "highest").numpy()
+        model, won = _fragment_fold(model, 0, T, _fragment_step(out, T))
+        carry = F32(carry + (model["t"][0] if won[0] else F32(np.inf))
+                    * F32(1e-30))
+    plain = bench_dot.resolve_chain_plain(mat, feat, T, reps)
+    _assert_bits_equal(model, plain, f"T3b T={T}")
+    assert (model["tri"] >= 0).any()
+
+
+def test_drain_digests_cover_every_case_on_cpu():
+    """The digest tool's cases, through the plain drains on the CPU."""
+    from glaze_tpu_torch.tools import drain_digests
+
+    got = drain_digests.digests("cpu", ts=(16,), reps=3, chain=(2,))
+    want = {f"T1_T16_{p}_{c}" for p in bench_mxu.PRECISIONS
+            for c in ("check", "reps3", "aimed", "ties")} | {"T3b_T16_2"}
+    assert set(got) == want
+    assert all(len(v) == 64 for v in got.values())
+    assert got == drain_digests.digests("cpu", ts=(16,), reps=3, chain=(2,))
+
+
+# ---------------------------------------------------------------------------
 # T3a / T3b: product chains
 
 
@@ -437,6 +635,26 @@ def test_drain_kernel_matches_plain_on_cuda(T, precision):
     got = [x.cpu().numpy() for x in bench_mxu.drain_probe(*args)]
     want = [x.cpu().numpy() for x in bench_mxu.drain_probe_plain(*args)]
     _assert_drain_close(got, want, f"T={T} {precision} kernel", KERNEL_UV_ATOL)
+    # exact ties: repeated triangles in rows g and g + 8, in two m16 tiles
+    # and in two leaves; tri equals the plain drain's on every ray
+    tie = bench_mxu.tie_inputs(T)
+    args = [torch.from_numpy(tie[k]).to(dev)
+            for k in ("mats", "centres", "rays", "order")] + [T, precision]
+    got = [x.cpu().numpy() for x in bench_mxu.drain_probe(*args)]
+    want = [x.cpu().numpy() for x in bench_mxu.drain_probe_plain(*args)]
+    _assert_drain_close(got, want, f"T={T} {precision} ties", KERNEL_UV_ATOL)
+    tri = want[1][0]
+    assert (tie["tied"][tri[tri >= 0]]).sum() >= 1024
+
+
+@pytest.mark.cuda
+def test_drain_kernels_do_not_spill_on_cuda():
+    _cuda()
+    attrs = probes_cuda.kernel_attrs()
+    assert set(attrs) == set(probes_cuda.ATTR_KERNELS)
+    for name, a in attrs.items():
+        assert a["local_bytes"] == 0, f"{name} spills"
+        assert a["registers"] <= 255 and a["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda
