@@ -186,11 +186,14 @@ def phase_build():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"[build] {lib} ptxas: {line.strip()}")
     attrs = tc.kernel_attrs()
+    at = {"drain": ", at T = 128", "chain": ", at W = 512"}
     for name, a in (*attrs.items(), *pc.kernel_attrs().items()):
+        where = (", at W = 2048" if name.endswith("w2048")
+                 else at.get(name.split("_")[0], ""))
         log(f"[build] {name}: {a['registers']} registers, {a['local_bytes']} "
             f"local bytes per thread, {a['blocks_per_sm']} blocks of "
             f"{a['threads_per_block']} per SM (occupancy {a['occupancy']:.2f}"
-            f"{', at T = 128' if name.startswith('drain') else ''})")
+            f"{where})")
     return attrs
 
 
@@ -436,19 +439,32 @@ def probes_t2(entry, bvh, o3, d3, results):
             raise RuntimeError(f"T2 {v}/{packet}: kernel disagrees with the plain walk")
         n_packets = r // packet
         slab_tests = int(ip.sum()) * packet
-        tri_tests = int(stats["leaf_bodies"].sum()) * 8 * packet if v == "A" else 0
+        # A's function tests the 8 triangles of a leaf for the rays that hit
+        # its box only; bound_ms_every_ray charges every ray of the packet
+        tri_tests = stats["leaf_ray_hits"] * 8 if v == "A" else 0
+        every_ray = int(stats["leaf_bodies"].sum()) * 8 * packet if v == "A" else 0
         nbytes = (r * (6 * 4 + 4) + n_packets * 4
                   + stats["nodes_read"] * BYTES_PER_NODE
                   + stats["tri_rows_read"] * 8 * BYTES_PER_TRI)
         b_ms, b_by = _probe_bound(nbytes, ops=slab_tests * OPS_PER_NODE
                                   + tri_tests * OPS_PER_TRI)
+        old_ms, _ = _probe_bound(nbytes, ops=slab_tests * OPS_PER_NODE
+                                 + every_ray * OPS_PER_TRI)
         entry["sets"][f"{v}_packet{packet}"] = dict(
             rays=r, ms=res["ms"], plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+            bound_ms_every_ray=old_ms,
             mean_iters=res["mean_iters"], max_iters=int(ip.max()),
             sm_cycles_per_iter=res["cycles_per_iter"],
             leaf_bodies=int(stats["leaf_bodies"].sum()),
+            leaf_ray_hits=stats["leaf_ray_hits"], tri_tests=tri_tests,
             nodes_read=stats["nodes_read"], max_ulp=ulps,
             max_abs_err=float((tk - tp).abs().max()))
+        if v == "A":
+            log(f"[probes] T2 A packet {packet}: {stats['leaf_ray_hits']} rays "
+                f"hit an entered leaf's box of "
+                f"{int(stats['leaf_bodies'].sum()) * packet} rays of the "
+                f"entering packets; bound {b_ms:.4f} ms ({old_ms:.4f} ms "
+                "charging every ray)")
         if (v, packet) == ("A", 2048):
             entry.update(ms=res["ms"], plain_ms=p_ms, bound_ms=b_ms,
                          bound_by=b_by, headline="A, packet 2048, 1080p rays")
@@ -515,6 +531,15 @@ def phase_probes():
     entries["fat_drain"].update(attrs["drain_highest"], instances={
         "highest": attrs["drain_highest"], "default": attrs["drain_default"]})
     entries["resolve_chain"].update(attrs["drain_carry"])
+    entries["dot_chain"].update(attrs["chain_highest"], instances={
+        p: attrs[f"chain_{p}"] for p in ("highest", "default", "split3",
+                                         "highest_w2048")})
+    walks = {f"{v}_{n}": attrs[f"walk_{v}_{n}"] for n in pc.PACKETS
+             for v in pc.VARIANTS}
+    entries["walk_overhead"].update(attrs["walk_A_2048"], instances=walks)
+    few = [k for k, a in walks.items() if k.endswith("2048") and a["blocks_per_sm"] < 2]
+    if few:
+        raise RuntimeError(f"T2 packet-2048 instances {few} fit one block per SM")
     probes_t1(entries["fat_drain"], t1)
     probes_t3a(entries["dot_chain"], t3a)
     probes_t3b(entries["resolve_chain"], t3b)

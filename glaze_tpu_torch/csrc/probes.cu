@@ -75,12 +75,26 @@
 //
 // dot_chain_kernel (T3a). Function: reps dependent products of a (16, W)
 // matrix with f = where(feat > acc[0,0], feat, -feat), each folded into
-// the (8, 128) acc as acc + sum(out.reshape(-1, 8, 128), 0). Bound: the
-// tensor-core rate of one SM (one block). Design: the matrix stays in
-// shared memory for the whole chain; a thread's accumulator fragments
-// hold rows g and g+8 of every m16 tile, both fold row g, so the fold is
-// register-local; acc[0, 0] crosses the block through shared memory, one
-// __syncthreads per step.
+// the (8, 128) acc as acc + sum(out.reshape(-1, 8, 128), 0). Every step
+// runs the full product on the tensor cores, no algebraic reduction:
+// (W/16 m-tiles) x (16 n-tiles) x passes x k-steps mma.sync, 3 x 2 at
+// highest (m16n8k8 tf32), 1 x 1 at default and 3 x 1 at split3 (m16n8k16
+// bf16); 3,072 a step at W = 512 highest. Bound: the tensor-core rate of
+// one SM (one block). Design: 8 warps, two per sub-partition, so one
+// warp's mma latency hides behind the other's. Warp w takes the columns
+// of half w / 4 (8 n-tiles) and the m-tiles w % 4, w % 4 + 4, ...; the
+// constant matrix is split once, at the start of the chain, into the
+// fragment order of shared memory (16-byte loads, no conflicts): hi/lo
+// words, except 3xTF32 above W = 1024, where the 256 KB of hi and lo at W
+// = 2048 would not fit, so the f32 values stay and each warp splits its
+// fragments per step. A lane keeps its feature values and their split in
+// registers and applies each step's sign flip to both parts (the TF32 and
+// bf16 roundings are symmetric). The m-tiles accumulate in the mma's C
+// operand, 8 independent accumulators; rows g and g + 8 fold into row g
+// once per step. Each warp keeps its partial acc for the chain; only the
+// partials of acc[0, 0] cross warps (one slot per m-group, one barrier a
+// step) and the partials are summed across warps once at the end, in the
+// order a00 sums them.
 //
 // walk_overhead_kernel (T2). Function: a packet of rays walks octant 0 of
 // nodes16 from node 0 behind one pointer, with no t cap; it enters a node
@@ -91,10 +105,20 @@
 // 1 per leaf; C has no leaf body; D descends on p % 3 != 2 with no vote at
 // all (its slab tests are kept alive by a product with a runtime zero).
 // Outputs t per ray (0 for C and D, as the tool writes them) and each
-// packet's iteration count. Packet 2048 is the tool's (one block of 1024
-// threads, 2 rays each, __syncthreads_or); packet 32 is one warp
-// (__any_sync), the card's natural packet. Bound: latency of the
-// dependent node loads and of the vote, not bytes or operations.
+// packet's iteration count. Packet 2048 is the tool's; packet 32 is one
+// warp, the card's natural packet. Bound: the latency of one iteration
+// (node row, slab tests, vote) times a packet's iterations, not bytes or
+// operations; at packet 2048 a few packets walk 5x the mean. Design: a
+// 2048-ray packet is a block of 256 threads with 8 rays each, so that two
+// packets are resident on an SM and one packet's vote overlaps another's
+// work, and it loads rows p + 1 and skip[p] as soon as row p arrives (at
+// packet 32 the next row follows the vote, see below). A runs its leaf tests only for the rays that
+// hit the leaf box: at packet 2048 a list built by warp prefix sums and
+// published by the vote's barrier, one listed ray per thread, the leaf's
+// row staged in shared memory; at packet 32 the (ray, triangle) pairs
+// spread over the lanes and gathered by shuffles. Each ray adds its t
+// values in the plain walk's order, so A's outputs are the plain walk's
+// bit for bit.
 //
 // slab_rate_f32 / slab_rate_bf16 (T4). Function: bench_bf16_slab.py:49-83
 // per element, iters times: the node row k % 64 (by lane, from shared
@@ -109,6 +133,8 @@
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -452,66 +478,283 @@ __global__ void __launch_bounds__(kThreads) drain_kernel(const DrainArgs p) {
   }
 }
 
+// T3a -------------------------------------------------------------------
+
+constexpr int kChainWarps = 8;
+constexpr int kChainThreads = 32 * kChainWarps;
+constexpr int kChainNGroups = 2;                            // column halves
+constexpr int kChainMGroups = kChainWarps / kChainNGroups;  // m-tile strides
+constexpr int kChainTiles = kRays / 8 / kChainNGroups;      // n8 tiles a warp
+constexpr size_t kMaxSmem = 227 * 1024;  // dynamic shared memory of a block
+
+// 16-byte words of one lane's A fragment of an m16 tile in shared memory:
+// the pre-split hi (and lo) words, or (kRaw) the 8 f32 values.
+template <int P, bool kRaw>
+__host__ __device__ constexpr int chain_vecs() {
+  return kRaw ? 2 : (P == kHighest ? 4 : (P == kDefault ? 1 : 2));
+}
+
+template <int P, bool kRaw>
+size_t chain_smem(int w) {
+  return static_cast<size_t>(w / 16) * 32 * chain_vecs<P, kRaw>() * 16;
+}
+
+// The 8 values of lane's A fragment of the m16 tile m0 of the (16, w)
+// matrix, in FragA order (load_a's elements, before the split).
 template <int P>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void a_values(const float* __restrict__ a, int w,
+                                         int m0, int lane, float v[8]) {
+  const int g = lane >> 2, q = lane & 3;
+  if constexpr (P == kHighest) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float* k0 = a + (8 * s + q) * w + m0 + g;
+      const float* k4 = k0 + 4 * w;
+      v[4 * s] = __ldg(k0);
+      v[4 * s + 1] = __ldg(k0 + 8);
+      v[4 * s + 2] = __ldg(k4);
+      v[4 * s + 3] = __ldg(k4 + 8);
+    }
+  } else {
+    const float* k0 = a + 2 * q * w + m0 + g;
+    const float* k8 = k0 + 8 * w;
+    v[0] = __ldg(k0);
+    v[1] = __ldg(k0 + w);
+    v[2] = __ldg(k0 + 8);
+    v[3] = __ldg(k0 + w + 8);
+    v[4] = __ldg(k8);
+    v[5] = __ldg(k8 + w);
+    v[6] = __ldg(k8 + 8);
+    v[7] = __ldg(k8 + w + 8);
+  }
+}
+
+template <int P>
+__device__ __forceinline__ FragA split_a(const float v[8]) {
+  FragA f;
+  if constexpr (P == kHighest) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) split_tf32(v[i], f.hi[i], f.lo[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split_bf16(v[2 * i], v[2 * i + 1], f.hi[i], f.lo[i]);
+  }
+  return f;
+}
+
+__device__ __forceinline__ void put4(uint32_t* d, const uint4 x) {
+  d[0] = x.x;
+  d[1] = x.y;
+  d[2] = x.z;
+  d[3] = x.w;
+}
+
+// lane's A fragment of m-tile mt from the fragment-ordered shared copy
+// (a[(mt * vecs + v) * 32 + lane]: conflict-free 16-byte loads).
+template <int P, bool kRaw>
+__device__ __forceinline__ FragA chain_a(const uint4* a, int mt, int lane) {
+  const uint4* p = a + mt * chain_vecs<P, kRaw>() * 32 + lane;
+  if constexpr (kRaw) {
+    const uint4 x = p[0], y = p[32];
+    const float v[8] = {__uint_as_float(x.x), __uint_as_float(x.y),
+                        __uint_as_float(x.z), __uint_as_float(x.w),
+                        __uint_as_float(y.x), __uint_as_float(y.y),
+                        __uint_as_float(y.z), __uint_as_float(y.w)};
+    return split_a<P>(v);
+  } else {
+    FragA f;
+    put4(f.hi, p[0]);
+    if constexpr (P == kHighest) {
+      put4(f.hi + 4, p[32]);
+      put4(f.lo, p[64]);
+      put4(f.lo + 4, p[96]);
+    } else if constexpr (P == kSplit3) {
+      put4(f.lo, p[32]);
+    }
+    return f;
+  }
+}
+
+// One m-tile against the warp's n-tiles: every pass and k-step, each
+// round of kChainTiles mma.sync on independent accumulators.
+template <int P>
+__device__ __forceinline__ void chain_mma(float (*c)[4], const FragA& a,
+                                          const FragB* b) {
+  if constexpr (P == kHighest) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int j = 0; j < kChainTiles; ++j)
+        mma_tf32(c[j], a.hi + 4 * s, b[j].hi + 2 * s);
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int j = 0; j < kChainTiles; ++j)
+        mma_tf32(c[j], a.hi + 4 * s, b[j].lo + 2 * s);
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int j = 0; j < kChainTiles; ++j)
+        mma_tf32(c[j], a.lo + 4 * s, b[j].hi + 2 * s);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kChainTiles; ++j) mma_bf16(c[j], a.hi, b[j].hi);
+    if constexpr (P == kSplit3) {
+#pragma unroll
+      for (int j = 0; j < kChainTiles; ++j) mma_bf16(c[j], a.hi, b[j].lo);
+#pragma unroll
+      for (int j = 0; j < kChainTiles; ++j) mma_bf16(c[j], a.lo, b[j].hi);
+    }
+  }
+}
+
+// Sets the sign of lane's B fragment values of one n-tile to that of f =
+// where(feat > a00, feat, -feat). raw holds feat at the fragment's
+// elements (for bf16 two to a word, the first in the low half); hi and lo
+// parts of -x are those of x negated (both roundings are symmetric), so a
+// sign flip of both parts is the split of the flipped value.
+template <int P>
+__device__ __forceinline__ void flip_b(FragB& b, const float raw[4],
+                                       float a00) {
+  if constexpr (P == kHighest) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t want =
+          __float_as_uint(raw[e]) ^ (raw[e] > a00 ? 0u : 0x80000000u);
+      const uint32_t d = (b.hi[e] ^ want) & 0x80000000u;
+      b.hi[e] ^= d;
+      b.lo[e] ^= d;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const uint32_t s0 =
+          __float_as_uint(raw[2 * e]) ^ (raw[2 * e] > a00 ? 0u : 0x80000000u);
+      const uint32_t s1 = __float_as_uint(raw[2 * e + 1]) ^
+                          (raw[2 * e + 1] > a00 ? 0u : 0x80000000u);
+      const uint32_t want = ((s0 >> 16) & 0x8000u) | (s1 & 0x80000000u);
+      const uint32_t d = (b.hi[e] ^ want) & 0x80008000u;
+      b.hi[e] ^= d;
+      b.lo[e] ^= d;
+    }
+  }
+}
+
+// lane's feature values of the B fragment of the n-tile at column n0
+// (load_b's elements, before the split).
+template <int P>
+__device__ __forceinline__ void b_values(const float* __restrict__ feat,
+                                         int n0, int lane, float raw[4]) {
+  const int g = lane >> 2, q = lane & 3;
+  if constexpr (P == kHighest) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)  // k = 8s + q + 4r, e = 2s + r
+      raw[e] = __ldg(feat + (8 * (e >> 1) + q + 4 * (e & 1)) * kRays + n0 + g);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)  // k = 2q + 8 * (e / 2) + e % 2
+      raw[e] = __ldg(feat + (2 * q + 8 * (e >> 1) + (e & 1)) * kRays + n0 + g);
+  }
+}
+
+template <int P, bool kRaw>
+__global__ void __launch_bounds__(kChainThreads, 1)
 dot_chain_kernel(const float* __restrict__ mat, int w,
                  const float* __restrict__ feat, int reps,
                  float* __restrict__ out, float* __restrict__ trace) {
-  extern __shared__ __align__(16) float smem[];
-  const int lda = w + 8;
-  float* mat_s = smem;               // (16, W), resident for the chain
-  float* f_s = mat_s + kF * lda;     // (16, 128) signed features
-  __shared__ float a00_s;
+  extern __shared__ __align__(16) uint4 a_s[];  // fragment-ordered A
+  __shared__ float part_s[2][kChainMGroups];    // acc[0, 0] partials
+  __shared__ float red_s[kChainMGroups - 1][8][kRays];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
-  const float4* src = reinterpret_cast<const float4*>(mat);
-  for (int i = tid; i < kF * (w / 4); i += kThreads) {
-    const int k = i / (w / 4), m4 = i - k * (w / 4);
-    *reinterpret_cast<float4*>(mat_s + k * lda + 4 * m4) = __ldg(src + i);
-  }
-  float fcol[kF];
-#pragma unroll
-  for (int k = 0; k < kF; ++k) fcol[k] = __ldg(feat + k * kRays + tid);
-  float acc[kTilesPerWarp][2] = {};
-  if (tid == 0) a00_s = 0.0f;
-  __syncthreads();
-  for (int step = 0; step < reps; ++step) {
-    const float a00 = a00_s;
-#pragma unroll
-    for (int k = 0; k < kF; ++k)
-      f_s[k * kLd + tid] = fcol[k] > a00 ? fcol[k] : -fcol[k];
-    __syncthreads();
-    FragB fb[kTilesPerWarp];
-#pragma unroll
-    for (int j = 0; j < kTilesPerWarp; ++j)
-      fb[j] = load_b<P>(f_s, kLd, (warp * kTilesPerWarp + j) * 8);
-    float s[kTilesPerWarp][2] = {};
-    for (int m0 = 0; m0 < w; m0 += 16) {
-      const FragA fa = load_a<P>(mat_s, lda, m0);
-#pragma unroll
-      for (int j = 0; j < kTilesPerWarp; ++j) {
-        float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_tile<P>(c, fa, fb[j]);
-        s[j][0] += c[0] + c[2];  // rows g and g + 8 both fold into row g
-        s[j][1] += c[1] + c[3];
+  const int ng = warp / kChainMGroups, mg = warp % kChainMGroups;
+  const int n_mt = w / 16;
+  // the split of the constant matrix, once for the chain
+  for (int i = tid; i < n_mt * 32; i += kChainThreads) {
+    const int mt = i >> 5, l = i & 31;
+    float v[8];
+    a_values<P>(mat, w, mt * 16, l, v);
+    uint4* d = a_s + mt * chain_vecs<P, kRaw>() * 32 + l;
+    if constexpr (kRaw) {
+      d[0] = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                        __float_as_uint(v[2]), __float_as_uint(v[3]));
+      d[32] = make_uint4(__float_as_uint(v[4]), __float_as_uint(v[5]),
+                         __float_as_uint(v[6]), __float_as_uint(v[7]));
+    } else {
+      const FragA f = split_a<P>(v);
+      d[0] = make_uint4(f.hi[0], f.hi[1], f.hi[2], f.hi[3]);
+      if constexpr (P == kHighest) {
+        d[32] = make_uint4(f.hi[4], f.hi[5], f.hi[6], f.hi[7]);
+        d[64] = make_uint4(f.lo[0], f.lo[1], f.lo[2], f.lo[3]);
+        d[96] = make_uint4(f.lo[4], f.lo[5], f.lo[6], f.lo[7]);
+      } else if constexpr (P == kSplit3) {
+        d[32] = make_uint4(f.lo[0], f.lo[1], f.lo[2], f.lo[3]);
       }
     }
-#pragma unroll
-    for (int j = 0; j < kTilesPerWarp; ++j) {
-      acc[j][0] += s[j][0];
-      acc[j][1] += s[j][1];
-    }
-    if (tid == 0) {  // row 0, column 0: warp 0, g = q = 0, tile 0
-      a00_s = acc[0][0];
-      if (trace != nullptr) trace[step] = acc[0][0];
-    }
-    __syncthreads();
   }
+  // the warp's n-tiles: feature values and their split, kept in registers
+  float raw[kChainTiles][4];
+  FragB fb[kChainTiles];
 #pragma unroll
-  for (int j = 0; j < kTilesPerWarp; ++j) {
-    const int n = (warp * kTilesPerWarp + j) * 8 + 2 * q;
-    out[g * kRays + n] = acc[j][0];
-    out[g * kRays + n + 1] = acc[j][1];
+  for (int j = 0; j < kChainTiles; ++j) {
+    b_values<P>(feat, (ng * kChainTiles + j) * 8, lane, raw[j]);
+    if constexpr (P == kHighest) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(raw[j][e], fb[j].hi[e], fb[j].lo[e]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        split_bf16(raw[j][2 * e], raw[j][2 * e + 1], fb[j].hi[e], fb[j].lo[e]);
+    }
+  }
+  float acc[kChainTiles][2] = {};  // the warp's partial of row g, 2 columns
+  float a00 = 0.0f;
+  __syncthreads();
+  for (int step = 0; step < reps; ++step) {
+#pragma unroll
+    for (int j = 0; j < kChainTiles; ++j) flip_b<P>(fb[j], raw[j], a00);
+    float c[kChainTiles][4] = {};
+#pragma unroll 2
+    for (int mt = mg; mt < n_mt; mt += kChainMGroups)
+      chain_mma<P>(c, chain_a<P, kRaw>(a_s, mt, lane), fb);
+#pragma unroll
+    for (int j = 0; j < kChainTiles; ++j) {
+      acc[j][0] += c[j][0] + c[j][2];  // rows g and g + 8 both fold into g
+      acc[j][1] += c[j][1] + c[j][3];
+    }
+    // only acc[0, 0] crosses warps: one slot per m-group, one barrier
+    const int buf = step & 1;
+    if (ng == 0 && lane == 0) part_s[buf][mg] = acc[0][0];
+    __syncthreads();
+    a00 = part_s[buf][0];
+#pragma unroll
+    for (int k = 1; k < kChainMGroups; ++k) a00 += part_s[buf][k];
+    if (tid == 0 && trace != nullptr) trace[step] = a00;
+  }
+  // the m-groups' partials, summed once in the order of a00's
+  if (mg > 0) {
+#pragma unroll
+    for (int j = 0; j < kChainTiles; ++j) {
+      const int n = (ng * kChainTiles + j) * 8 + 2 * q;
+      red_s[mg - 1][g][n] = acc[j][0];
+      red_s[mg - 1][g][n + 1] = acc[j][1];
+    }
+  }
+  __syncthreads();
+  if (mg == 0) {
+#pragma unroll
+    for (int j = 0; j < kChainTiles; ++j) {
+      const int n = (ng * kChainTiles + j) * 8 + 2 * q;
+      float s0 = acc[j][0], s1 = acc[j][1];
+#pragma unroll
+      for (int k = 0; k < kChainMGroups - 1; ++k) {
+        s0 += red_s[k][g][n];
+        s1 += red_s[k][g][n + 1];
+      }
+      out[g * kRays + n] = s0;
+      out[g * kRays + n + 1] = s1;
+    }
   }
 }
 
@@ -524,13 +767,24 @@ __device__ __forceinline__ float pallas_inv(float d) {
   return fabsf(d) < 1e-20f ? 1e20f : 1.0f / d;
 }
 
-struct PRay {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+// A ray of the walk: its origin and the reciprocal of its direction (the
+// slab test); the direction itself is read where a leaf test needs it.
+struct SlabRay {
+  float ox, oy, oz, ix, iy, iz;
 };
+
+struct PRay {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+__device__ __forceinline__ SlabRay slab_ray(const PRay& r) {
+  return SlabRay{r.ox, r.oy, r.oz, pallas_inv(r.dx), pallas_inv(r.dy),
+                 pallas_inv(r.dz)};
+}
 
 // _slab with t_cap = inf: a = bmin.xyz, bmax.x; b = bmax.yz, meta, skip
 __device__ __forceinline__ bool slab_nocap(const float4 a, const float4 b,
-                                           const PRay& r) {
+                                           const SlabRay& r) {
   const float t0x = (a.x - r.ox) * r.ix;
   const float t1x = (a.w - r.ox) * r.ix;
   const float t0y = (a.y - r.oy) * r.iy;
@@ -544,12 +798,11 @@ __device__ __forceinline__ bool slab_nocap(const float4 a, const float4 b,
   return (tn <= tf) && (tf >= kTMin) && (tn <= INFINITY);
 }
 
-// _tri_hit_rows: Moller-Trumbore against triangle k of tri8.
-__device__ __forceinline__ bool mt_hit(const float4* __restrict__ tri8, int k,
-                                       const PRay& r, float& t) {
-  const float4 a = __ldg(tri8 + 4 * (size_t)k);
-  const float4 b = __ldg(tri8 + 4 * (size_t)k + 1);
-  const float4 c = __ldg(tri8 + 4 * (size_t)k + 2);
+// _tri_hit_rows: Moller-Trumbore against one triangle's tri8 row (v0, e1,
+// e2 in the first 9 floats of its three float4).
+__device__ __forceinline__ bool mt_hit(const float4 a, const float4 b,
+                                       const float4 c, const PRay& r,
+                                       float& t) {
   const float v0x = a.x, v0y = a.y, v0z = a.z;
   const float e1x = a.w, e1y = b.x, e1z = b.y;
   const float e2x = b.z, e2y = b.w, e2z = c.x;
@@ -582,81 +835,233 @@ struct WalkArgs {
   int* iters_out;
 };
 
+__device__ __forceinline__ PRay load_ray(const WalkArgs& p, int i) {
+  return PRay{__ldg(p.ox + i), __ldg(p.oy + i), __ldg(p.oz + i),
+              __ldg(p.dx + i), __ldg(p.dy + i), __ldg(p.dz + i)};
+}
+
+constexpr int kWalkThreads = 256;                // a block at either packet
+constexpr int kWalkPer = 2048 / kWalkThreads;    // rays a thread, packet 2048
+constexpr int kWalkWarps = kWalkThreads / 32;
+constexpr int kWarpRays = 32 * kWalkPer;         // list segment of a warp
+
+// Variant A's leaf lists of a 2048-ray packet, double-buffered by the
+// parity of the iteration (iteration i writes buffer i & 1 before its
+// barrier and reads it after; i + 1 writes the other; i + 2 writes it again
+// only after barrier i + 1, when every read of i is done): the in-packet
+// rays that hit the leaf box, in one segment per warp, each warp's count,
+// and the leaf's tri8 row. acc holds each ray's sum for the whole walk.
+struct LeafLists {
+  float acc[2048];
+  uint16_t list[2][2048];
+  int count[2][kWalkWarps];
+  float4 tri[2][24];
+};
+struct NoLists {};
+
+// Variant A, packet 2048, at a leaf: threads 0-23 stage the leaf's tri8
+// row (tri: their float4, loaded before the slab tests), the rays whose
+// leaf-box test passed (bits of hit, slot j = ray tid + 256 j) are listed,
+// and the barrier that carries the packet's vote publishes the lists. The
+// block's threads each take one listed ray and run its 8 tests in order k
+// = 0..7 against the staged row, adding each hit's t to the ray's sum
+// (adding only the hits leaves the sum of the plain walk's t-or-0 terms
+// bit for bit: x + 0 = x for the sums, which start at +0 and add t >
+// 1e-4). Returns the vote.
+__device__ __forceinline__ bool leaf_lists(LeafLists& L, const WalkArgs& p,
+                                           int base, const float4 tri, int par,
+                                           unsigned hit) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid < 24) L.tri[par][tid] = tri;
+  const int n = __popc(hit);
+  int incl = n;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  int pos = warp * kWarpRays + incl - n;
+#pragma unroll
+  for (int j = 0; j < kWalkPer; ++j)
+    if ((hit >> j) & 1u) L.list[par][pos++] = tid + kWalkThreads * j;
+  if (lane == 31) L.count[par][warp] = incl;
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kWalkWarps; ++w) total += L.count[par][w];
+  for (int e = tid; e < total; e += kWalkThreads) {
+    int w = 0, off = e;
+    while (off >= L.count[par][w]) off -= L.count[par][w++];
+    const int ray = L.list[par][w * kWarpRays + off];
+    const PRay r = load_ray(p, base + ray);
+    float s = L.acc[ray];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float4* row = L.tri[par] + 3 * k;
+      float t;
+      if (mt_hit(row[0], row[1], row[2], r, t)) s = s + t;
+    }
+    L.acc[ray] = s;
+  }
+  return total != 0;
+}
+
+// The position of the set bit of m with n set bits below it (n below m's
+// count of set bits): a search over halves, the same 5 steps on every lane.
+__device__ __forceinline__ int nth_bit(unsigned m, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const int c = __popc(m & ((1u << s) - 1u));
+    if (n >= c) {
+      n -= c;
+      m >>= s;
+      pos += s;
+    }
+  }
+  return pos;
+}
+
+// Variant A, packet 32, at a leaf: the (hitting ray, triangle) pairs are
+// spread over the warp, four rays a round (lane: ray 4 round + lane / 8 of
+// the hitting rays, triangle lane % 8); each ray's owner lane then takes
+// its 8 values by shuffles in order k = 0..7 and adds them (a miss adds
+// +0, as in the plain walk).
+__device__ __forceinline__ float leaf_pairs(const WalkArgs& p, int first,
+                                            unsigned vote, const PRay& mine,
+                                            float acc) {
+  const int lane = threadIdx.x & 31, k = lane & 7;
+  const float4* row = reinterpret_cast<const float4*>(p.tri8) + 4 * (first + k);
+  const float4 ta = __ldg(row), tb = __ldg(row + 1), tc = __ldg(row + 2);
+  const int n_hit = __popc(vote);
+  const bool owner = (vote >> lane) & 1u;
+  const int rank = __popc(vote & ((1u << lane) - 1u));
+  for (int round = 0; 4 * round < n_hit; ++round) {
+    const int i = 4 * round + (lane >> 3);  // the hitting ray of my pair
+    const int src = nth_bit(vote, i);
+    const PRay r{__shfl_sync(kFull, mine.ox, src),
+                 __shfl_sync(kFull, mine.oy, src),
+                 __shfl_sync(kFull, mine.oz, src),
+                 __shfl_sync(kFull, mine.dx, src),
+                 __shfl_sync(kFull, mine.dy, src),
+                 __shfl_sync(kFull, mine.dz, src)};
+    float t;
+    const bool h = i < n_hit && mt_hit(ta, tb, tc, r, t);
+    const float v = h ? t : 0.0f;
+    const bool take = owner && (rank >> 2) == round;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const float x = __shfl_sync(kFull, v, ((rank & 3) << 3) | kk);
+      if (take) acc = acc + x;
+    }
+  }
+  return acc;
+}
+
+// Packet 2048: one block of 256 threads, 8 rays each (up to 128
+// registers, so two or more packets are resident on an SM), the vote by
+// __syncthreads_or (A's leaves: by the lists' barrier); the rows of both
+// successors (p + 1, skip[p]) are loaded as soon as row p arrives, so the
+// next iteration's row does not wait on the vote. Packet 32: one warp of a
+// 256-thread block, the vote by ballot, the next row loaded after it: an
+// SM holds dozens of such packets, whose loads overlap one another's work,
+// and the two extra rows cost them registers and load slots (in a scratch
+// comparison on the card they slowed C at packet 32 and sped it at 2048).
 template <int V, int kPacket>
-__global__ void __launch_bounds__(kPacket == 2048 ? 1024 : 256)
+__global__ void __launch_bounds__(kWalkThreads, kPacket == 2048 ? 2 : 1)
 walk_overhead_kernel(const WalkArgs p) {
-  constexpr int kPer = kPacket == 2048 ? 2 : 1;  // rays per thread
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int packet = kPacket == 2048 ? blockIdx.x : gid >> 5;
+  constexpr bool kBig = kPacket == 2048;
+  constexpr int kPer = kBig ? kWalkPer : 1;
+  __shared__ std::conditional_t<V == kA && kBig, LeafLists, NoLists> sh;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int packet = kBig ? blockIdx.x : (blockIdx.x * kWalkThreads + tid) >> 5;
   if (packet * kPacket >= p.n_rays) return;  // whole packets only
-  PRay r[kPer];
-  int idx[kPer];
-  float acc[kPer];
+  const int base = packet * kPacket;
+  SlabRay r[kPer];
+  PRay mine{};  // A, packet 32: the lane's ray, for the leaf pairs
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
-    idx[j] = kPacket == 2048 ? packet * kPacket + threadIdx.x + 1024 * j : gid;
-    r[j].ox = p.ox[idx[j]];
-    r[j].oy = p.oy[idx[j]];
-    r[j].oz = p.oz[idx[j]];
-    r[j].dx = p.dx[idx[j]];
-    r[j].dy = p.dy[idx[j]];
-    r[j].dz = p.dz[idx[j]];
-    r[j].ix = pallas_inv(r[j].dx);
-    r[j].iy = pallas_inv(r[j].dy);
-    r[j].iz = pallas_inv(r[j].dz);
-    acc[j] = 0.0f;
+    const PRay q = load_ray(p, base + (kBig ? tid + kWalkThreads * j : lane));
+    r[j] = slab_ray(q);
+    if constexpr (V == kA && !kBig) mine = q;
+    if constexpr (V == kA && kBig) sh.acc[tid + kWalkThreads * j] = 0.0f;
   }
   const float4* nodes = reinterpret_cast<const float4*>(p.nodes16);  // octant 0
-  const float4* tris = reinterpret_cast<const float4*>(p.tri8);
+  const unsigned last = p.n_nodes - 1;
   int ptr = 0, iters = 0;
-  float hits = 0.0f;
+  float4 a = __ldg(nodes), b = __ldg(nodes + 1);
+  float leaves = 0.0f;  // B: leaves entered, the same for every ray
+  float acc = 0.0f;     // A, packet 32: the lane's sum
+  float hits = 0.0f;    // D
   while (ptr < p.n_nodes) {
     ++iters;
-    const float4 a = __ldg(nodes + 2 * ptr);
-    const float4 b = __ldg(nodes + 2 * ptr + 1);
     const int meta = __float_as_int(b.z);
     const int skip = __float_as_int(b.w);
     const bool is_leaf = meta >= 0;
-    bool hit[kPer];
-    bool mine = false;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      hit[j] = slab_nocap(a, b, r[j]);
-      mine = mine || hit[j];
+    float4 a1, b1, a2, b2;  // packet 2048: rows p + 1 and skip[p]
+    if constexpr (kBig) {
+      const unsigned n1 = min(static_cast<unsigned>(ptr) + 1u, last);
+      const unsigned n2 = min(static_cast<unsigned>(skip), last);
+      a1 = __ldg(nodes + 2 * n1);
+      b1 = __ldg(nodes + 2 * n1 + 1);
+      a2 = __ldg(nodes + 2 * n2);
+      b2 = __ldg(nodes + 2 * n2 + 1);
     }
+    const int first = (meta >> 3) & ~7;  // the leaf's whole tri8 row
+    float4 tri{};  // A, packet 2048: float4 tid % 3 of triangle tid / 3
+    if constexpr (V == kA && kBig) {
+      if (is_leaf && tid < 24)
+        tri = __ldg(reinterpret_cast<const float4*>(p.tri8) +
+                    4 * (first + tid / 3) + tid % 3);
+    }
+    unsigned hit = 0;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) hit |= unsigned(slab_nocap(a, b, r[j])) << j;
+    bool down;
     if constexpr (V == kD) {
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) hits += hit[j] ? 1.0f : 0.0f;
-      ptr = (ptr % 3 != 2 && !is_leaf) ? ptr + 1 : skip;
-      continue;
-    }
-    const bool any = kPacket == 2048 ? __syncthreads_or(mine) != 0
-                                     : __any_sync(0xffffffffu, mine) != 0;
-    if constexpr (V == kB) {
-      if (any && is_leaf) {
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) acc[j] = acc[j] + 1.0f;
-      }
-    } else if constexpr (V == kA) {
-      if (any && is_leaf) {
-        const int first = (meta >> 3) & ~7;  // the leaf's whole tri8 row
-        for (int k = 0; k < 8; ++k) {
-#pragma unroll
-          for (int j = 0; j < kPer; ++j) {
-            float t;
-            const bool h = mt_hit(tris, first + k, r[j], t);
-            acc[j] = acc[j] + ((h && hit[j]) ? t : 0.0f);
-          }
+      for (int j = 0; j < kPer; ++j) hits += ((hit >> j) & 1u) ? 1.0f : 0.0f;
+      down = ptr % 3 != 2 && !is_leaf;
+    } else {
+      bool any;
+      if constexpr (!kBig) {
+        const unsigned vote = __ballot_sync(kFull, hit != 0);
+        any = vote != 0;
+        if constexpr (V == kA) {
+          if (any && is_leaf) acc = leaf_pairs(p, first, vote, mine, acc);
         }
+      } else if constexpr (V == kA) {
+        any = is_leaf ? leaf_lists(sh, p, base, tri, iters & 1, hit)
+                      : __syncthreads_or(hit != 0) != 0;
+      } else {
+        any = __syncthreads_or(hit != 0) != 0;
       }
+      if constexpr (V == kB) {
+        if (any && is_leaf) leaves = leaves + 1.0f;
+      }
+      down = any && !is_leaf;
     }
-    ptr = (any && !is_leaf) ? ptr + 1 : skip;
+    ptr = down ? ptr + 1 : skip;
+    if constexpr (kBig) {
+      a = down ? a1 : a2;
+      b = down ? b1 : b2;
+    } else if (ptr < p.n_nodes) {
+      a = __ldg(nodes + 2 * ptr);
+      b = __ldg(nodes + 2 * ptr + 1);
+    }
   }
+  if constexpr (V == kA && kBig) __syncthreads();  // the last leaf's sums
 #pragma unroll
-  for (int j = 0; j < kPer; ++j)
-    p.t_out[idx[j]] = V == kD ? acc[j] + hits * p.zero : acc[j];
-  if ((kPacket == 2048 ? threadIdx.x : (threadIdx.x & 31)) == 0)
-    p.iters_out[packet] = iters;
+  for (int j = 0; j < kPer; ++j) {
+    const int ray = kBig ? tid + kWalkThreads * j : lane;
+    float t = 0.0f;
+    if constexpr (V == kA && kBig) t = sh.acc[ray];
+    if constexpr (V == kA && !kBig) t = acc;
+    if constexpr (V == kB) t = leaves;
+    if constexpr (V == kD) t = 0.0f + hits * p.zero;
+    p.t_out[base + ray] = t;
+  }
+  if ((kBig ? tid : lane) == 0) p.iters_out[packet] = iters;
 }
 
 // T4 -------------------------------------------------------------------
@@ -768,30 +1173,81 @@ int launch_drain(const DrainArgs& a, int n_rays, cudaStream_t s) {
                 drain_smem(a.T), s, a);
 }
 
+// Static shared memory of dot_chain_kernel: the acc[0, 0] slots and the
+// buffer of the final reduction across m-groups.
+constexpr size_t kChainStatic =
+    sizeof(float) * (2 * kChainMGroups + (kChainMGroups - 1) * 8 * kRays);
+
+// Whether the chain at width w keeps each fragment's 8 f32 values and
+// splits them per step: only 3xTF32 above W = 1024 (its hi and lo words
+// would take 256 KB at W = 2048).
+template <int P>
+bool chain_raw(int w) {
+  return P == kHighest && chain_smem<P, false>(w) + kChainStatic > kMaxSmem;
+}
+
 template <int P>
 int launch_chain(const float* mat, int w, const float* feat, int reps,
                  float* out, float* trace, cudaStream_t s) {
-  const size_t smem = sizeof(float) * (kF * (w + 8) + kF * kLd);
-  return launch(dot_chain_kernel<P>, 1, kThreads, smem, s, mat, w, feat, reps,
-                out, trace);
+  if constexpr (P == kHighest) {
+    if (chain_raw<P>(w))
+      return launch(dot_chain_kernel<P, true>, 1, kChainThreads,
+                    chain_smem<P, true>(w), s, mat, w, feat, reps, out, trace);
+  }
+  return launch(dot_chain_kernel<P, false>, 1, kChainThreads,
+                chain_smem<P, false>(w), s, mat, w, feat, reps, out, trace);
 }
 
 template <int V>
 int launch_walk(const WalkArgs& a, int packet, cudaStream_t s) {
   if (packet == 2048)
-    return launch(walk_overhead_kernel<V, 2048>, a.n_rays / 2048, 1024, 0, s,
-                  a);
-  return launch(walk_overhead_kernel<V, 32>, (a.n_rays + 255) / 256, 256, 0,
+    return launch(walk_overhead_kernel<V, 2048>, a.n_rays / 2048,
+                  kWalkThreads, 0, s, a);
+  return launch(walk_overhead_kernel<V, 32>,
+                (a.n_rays + kWalkThreads - 1) / kWalkThreads, kWalkThreads, 0,
                 s, a);
 }
 
-// The drain_kernel instances glaze_probe_kernel_attrs reports on, in its
-// order: T1 at highest and default, T3b.
-const void* const kDrainKernels[] = {
-    reinterpret_cast<const void*>(drain_kernel<kHighest, false>),
-    reinterpret_cast<const void*>(drain_kernel<kDefault, false>),
-    reinterpret_cast<const void*>(drain_kernel<kHighest, true>)};
-constexpr int kDrainCount = sizeof(kDrainKernels) / sizeof(kDrainKernels[0]);
+// The kernels glaze_probe_kernel_attrs reports on, in its order, each with
+// the threads it is launched with and the dynamic shared memory it is
+// launched with at leaf size T: T1 at highest and default and T3b (the
+// slab of T); T3a at highest, default and split3 (W = 4T) and the
+// instance that splits 3xTF32 fragments per step (W = 16T: 2,048 at T =
+// 128, the widest case the tool runs); T2 at variants A-D, packet 2048,
+// then packet 32.
+struct AttrKernel {
+  const void* fn;
+  int threads;
+  size_t (*smem)(int T);
+};
+
+size_t no_smem(int) { return 0; }
+
+template <int V, int kPacket>
+AttrKernel walk_attr() {
+  return {reinterpret_cast<const void*>(walk_overhead_kernel<V, kPacket>),
+          kWalkThreads, no_smem};
+}
+
+const AttrKernel kAttrKernels[] = {
+    {reinterpret_cast<const void*>(drain_kernel<kHighest, false>), kThreads,
+     drain_smem},
+    {reinterpret_cast<const void*>(drain_kernel<kDefault, false>), kThreads,
+     drain_smem},
+    {reinterpret_cast<const void*>(drain_kernel<kHighest, true>), kThreads,
+     drain_smem},
+    {reinterpret_cast<const void*>(dot_chain_kernel<kHighest, false>),
+     kChainThreads, [](int T) { return chain_smem<kHighest, false>(4 * T); }},
+    {reinterpret_cast<const void*>(dot_chain_kernel<kDefault, false>),
+     kChainThreads, [](int T) { return chain_smem<kDefault, false>(4 * T); }},
+    {reinterpret_cast<const void*>(dot_chain_kernel<kSplit3, false>),
+     kChainThreads, [](int T) { return chain_smem<kSplit3, false>(4 * T); }},
+    {reinterpret_cast<const void*>(dot_chain_kernel<kHighest, true>),
+     kChainThreads, [](int T) { return chain_smem<kHighest, true>(16 * T); }},
+    walk_attr<kA, 2048>(), walk_attr<kB, 2048>(), walk_attr<kC, 2048>(),
+    walk_attr<kD, 2048>(), walk_attr<kA, 32>(),   walk_attr<kB, 32>(),
+    walk_attr<kC, 32>(),   walk_attr<kD, 32>()};
+constexpr int kAttrCount = sizeof(kAttrKernels) / sizeof(kAttrKernels[0]);
 
 }  // namespace
 
@@ -861,27 +1317,32 @@ int glaze_probe_slab_rate(int bf16, const void* o, const void* in,
 }
 
 // The number of kernels glaze_probe_kernel_attrs reports on.
-int glaze_probe_kernel_count() { return kDrainCount; }
+int glaze_probe_kernel_count() { return kAttrCount; }
 
-// Of drain_kernel instance ``which`` (0 T1 highest, 1 T1 default, 2 T3b)
-// at leaf size T: registers and local (spill) bytes per thread, the
-// threads per block it is launched with, its resident blocks per SM with
-// the shared memory of that T, and the most threads an SM of the current
-// card holds. Returns a cudaError_t (0 = ok).
+// Of kernel ``which`` (kAttrKernels' order) at leaf size T: registers and
+// local (spill) bytes per thread, the threads per block it is launched
+// with, its resident blocks per SM with the shared memory of that T, and
+// the most threads an SM of the current card holds. Returns a cudaError_t
+// (0 = ok).
 int glaze_probe_kernel_attrs(int which, int T, int* regs, int* local_bytes,
                              int* threads_per_block, int* blocks_per_sm,
                              int* max_threads_per_sm) {
-  if (which < 0 || which >= kDrainCount || T <= 0 || T > 128)
+  if (which < 0 || which >= kAttrCount || T <= 0 || T > 128)
     return static_cast<int>(cudaErrorInvalidValue);
+  const AttrKernel& k = kAttrKernels[which];
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kDrainKernels[which]);
+  cudaError_t err = cudaFuncGetAttributes(&attr, k.fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
-  *threads_per_block = kThreads;
-  // at most 42 KB (T = 128): under the 48 KB a launch gets without opting in
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kDrainKernels[which], kThreads, drain_smem(T));
+  *threads_per_block = k.threads;
+  const size_t smem = k.smem(T);
+  if (smem > 48 * 1024)  // as launch() allows it before such a launch
+    err = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k.fn,
+                                                        k.threads, smem);
   int dev = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)

@@ -11,10 +11,10 @@ NO t-pruning, so the walk does not depend on hits found):
 Time(A) - Time(B) = leaf body; B - C = branch; C - D = vote; D = loop floor.
 
 A packet of rays descends where any of its rays hits the node box. Packet
-2048 is the tool's (one block of 1024 threads, two rays each, a block-wide
-vote); packet 32 is one warp, the card's natural packet. The kernel counts
-each packet's iterations, so cycles per iteration come from the measured
-walk lengths. The rays are the primary pixel-centre rays of the
+2048 is the tool's (one block of 256 threads, eight rays each, a
+block-wide vote); packet 32 is one warp, the card's natural packet. The
+kernel counts each packet's iterations, so cycles per iteration come from
+the measured walk lengths. The rays are the primary pixel-centre rays of the
 Sponza-class scene (``scenes.SponzaScene``, 262,440 triangles) at
 1920x1080, 2,088,960 lanes, through the port's camera, as the tool takes
 them on mattest.
@@ -93,7 +93,9 @@ def _leaf_bodies(bvh, acc, sel, first, o, d, hit):
 def walk_overhead_plain(bvh, o3, d3, variant, packet, stats=None):
     """Plain torch version of :func:`walk_overhead` (any device): all
     packets walk together, one node each per step. ``stats``, a dict,
-    receives ``leaf_bodies`` (per packet, variants A and B) and the
+    receives ``leaf_bodies`` (per packet, variants A and B),
+    ``leaf_ray_hits`` (variants A and B: over the leaf bodies, the rays
+    whose leaf-box test passed, the rays whose triangles A tests) and the
     distinct ``nodes_read`` and (variant A) ``tri_rows_read``."""
     nodes, meta, skip = octant0_nodes(bvh)
     n_nodes = bvh.n_nodes
@@ -106,6 +108,7 @@ def walk_overhead_plain(bvh, o3, d3, variant, packet, stats=None):
     acc = torch.zeros((n_packets, packet), dtype=torch.float32, device=dev)
     iters = torch.zeros((n_packets,), dtype=torch.int32, device=dev)
     bodies = torch.zeros((n_packets,), dtype=torch.int64, device=dev)
+    ray_hits = 0
     nodes_read = torch.zeros((n_nodes,), dtype=torch.bool, device=dev)
     rows_read = torch.zeros((bvh.tri8.shape[0],), dtype=torch.bool, device=dev)
     live = torch.arange(n_packets, device=dev)
@@ -124,6 +127,7 @@ def walk_overhead_plain(bvh, o3, d3, variant, packet, stats=None):
             body = any_hit & is_leaf
             if variant in ("A", "B"):
                 bodies[live[body]] += 1
+                ray_hits += int(hit[body].sum())
             if variant == "B":
                 acc[live[body]] += 1.0
             elif variant == "A":
@@ -138,7 +142,8 @@ def walk_overhead_plain(bvh, o3, d3, variant, packet, stats=None):
         keep = nxt < n_nodes
         live, ptr = live[keep], nxt[keep]
     if stats is not None:
-        stats.update(leaf_bodies=bodies, nodes_read=int(nodes_read.sum()),
+        stats.update(leaf_bodies=bodies, leaf_ray_hits=ray_hits,
+                     nodes_read=int(nodes_read.sum()),
                      tri_rows_read=int(rows_read.sum()))
     return acc.reshape(-1), iters
 

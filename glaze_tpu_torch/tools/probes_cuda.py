@@ -84,17 +84,24 @@ def _check(code: int, what: str):
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
-# drain_kernel instances in glaze_probe_kernel_attrs' order
-ATTR_KERNELS = ("drain_highest", "drain_default", "drain_carry")
+# the kernels of glaze_probe_kernel_attrs, in its order: drain_kernel (T1
+# at highest and default, T3b), dot_chain_kernel (T3a at each precision,
+# and the 3xTF32 instance that splits its fragments per step above W =
+# 1024), walk_overhead_kernel (T2, each variant at packet 2048, then 32)
+ATTR_KERNELS = (("drain_highest", "drain_default", "drain_carry",
+                 "chain_highest", "chain_default", "chain_split3",
+                 "chain_highest_w2048")
+                + tuple(f"walk_{v}_{n}" for n in PACKETS for v in VARIANTS))
 
 
 def kernel_attrs() -> dict:
-    """For each ``drain_kernel`` instance (T1 at highest and default, T3b):
-    registers and local (spill) bytes per thread, threads per block,
-    resident blocks per SM with the shared memory of leaf size 128, and
-    the occupancy they give (resident threads over the most an SM holds),
-    as the CUDA runtime reports them for the built library on the current
-    card."""
+    """For each kernel of :data:`ATTR_KERNELS`: registers and local
+    (spill) bytes per thread, threads per block, resident blocks per SM
+    with the shared memory it is launched with at the tools' sizes (leaf
+    size 128 for the drains, W = 512 for the chains, 2048 for
+    ``chain_highest_w2048``), and the occupancy they give (resident threads
+    over the most an SM holds), as the CUDA runtime reports them for the
+    built library on the current card."""
     lib = _load()
     if lib.glaze_probe_kernel_count() != len(ATTR_KERNELS):
         raise RuntimeError(f"the library reports on "

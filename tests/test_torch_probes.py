@@ -25,7 +25,11 @@ against its plain version at small sizes, and chip_smoke.py at the tools'
 sizes. What the CPU can check of the drain kernel's register resolve (the
 lane that holds each (triangle, ray) pair, the order of its tests, the
 shuffle reduction and the fold) is a NumPy model of it, held bit for bit
-against the plain resolve.
+against the plain resolve. Likewise the chain kernel's schedule (the warps'
+m-tiles, C-operand accumulation, the sign flip of the split features, the
+sum across warps) is a NumPy model held within 1e-5 of the plain chain,
+and the walk kernel's leaf lists (packet 2048) and pairs (packet 32) a
+model held bit for bit against the plain walk.
 """
 
 import os
@@ -41,6 +45,7 @@ import jax.numpy as jnp  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from glaze_tpu_torch.accel.bvh import _tri_intersect as bvh_intersect  # noqa: E402
 from glaze_tpu_torch.tools import (bench_bf16_slab, bench_dot,  # noqa: E402
                                    bench_mxu, exp_overhead, probes_cuda)
 
@@ -486,6 +491,104 @@ def test_resolve_chain_matches_tool_kernel(interpret, first_result):
 
 
 # ---------------------------------------------------------------------------
+# T3a: a NumPy model of dot_chain_kernel's schedule
+
+CHAIN_MGROUPS, CHAIN_NTILES = 4, 16  # m-tile strides; n8 tiles of 128 rays
+K_STEPS = {"highest": 2, "default": 1, "split3": 1}  # k8 tf32 / k16 bf16
+
+
+def _parts(x, precision):
+    """The operand parts of ``x`` the tensor cores multiply: [hi, lo], or
+    [the one bf16 part] at ``default``, as float64."""
+    t = torch.from_numpy(np.asarray(x, F32))
+    pairs = bench_mxu.operand_parts(t, t, precision)
+    parts = [pairs[0][0]] if len(pairs) == 1 else [pairs[0][0], pairs[2][0]]
+    return [p.double().numpy() for p in parts]
+
+
+def _chain_model(mat, feat, precision, reps):
+    """dot_chain_kernel's schedule: the matrix split once; m-group mg (the
+    warps w % 4 == mg of both column halves) takes m-tiles mg, mg + 4, ...
+    and accumulates them in its C operand (each mma rounds its k-step's
+    exact sum onto C); rows g and g + 8 fold into row g once per step into
+    the m-group's partial; a00 is the m-groups' partials of acc[0, 0]
+    summed in order, and the output their partials summed once at the end
+    in the same order. The B parts are the split of feat, sign-flipped
+    where feat <= a00. Returns (acc, trace, mma instructions per step)."""
+    m, f0 = mat.numpy(), feat.numpy()
+    w = m.shape[1]
+    n_mt = w // 16
+    a_parts = _parts(m, precision)
+    b_split = _parts(f0, precision)
+    pairs = [(0, 0)] if precision == "default" else [(0, 0), (0, 1), (1, 0)]
+    ks = K_STEPS[precision]
+    kw = 16 // ks
+    part = np.zeros((CHAIN_MGROUPS, 8, 128), F32)
+    a00 = F32(0.0)
+    trace, count = [], 0
+    for _ in range(reps):
+        sign = np.where(f0 > a00, 1.0, -1.0)
+        b_parts = [b * sign for b in b_split]
+        count = 0
+        for mg in range(CHAIN_MGROUPS):
+            c = np.zeros((16, 128), F32)
+            for mt in range(mg, n_mt, CHAIN_MGROUPS):
+                for ia, ib in pairs:
+                    for s in range(ks):
+                        k = slice(kw * s, kw * (s + 1))
+                        prod = a_parts[ia][k, 16 * mt:16 * mt + 16].T @ b_parts[ib][k]
+                        c = (c.astype(np.float64) + prod).astype(F32)
+                        count += CHAIN_NTILES
+            part[mg] = part[mg] + (c[:8] + c[8:])
+        a00 = part[0, 0, 0]
+        for mg in range(1, CHAIN_MGROUPS):
+            a00 = F32(a00 + part[mg, 0, 0])
+        trace.append(a00)
+    out = part[0]
+    for mg in range(1, CHAIN_MGROUPS):
+        out = out + part[mg]
+    return out, np.asarray(trace, F32), count
+
+
+@pytest.mark.parametrize("precision", ["highest", "default", "split3"])
+def test_chain_schedule_model_matches_plain(precision):
+    mat, feat = bench_dot.chain_inputs(256, "cpu")
+    got, trace, _ = _chain_model(mat, feat, precision, 8)
+    want, tr_p = bench_dot.dot_chain_plain(mat, feat, precision, 8, trace=True)
+    assert bench_dot.first_flip(feat, torch.from_numpy(trace), tr_p)[0] is None
+    err = np.abs(got - want.numpy()).max()
+    assert err <= CHAIN_RTOL * np.abs(want.numpy()).max(), err
+    assert got[0, 0] == trace[-1]  # out[0, 0] sums as a00 does
+
+
+@pytest.mark.parametrize("w", [16, 512, 2048])
+@pytest.mark.parametrize("precision", ["highest", "default", "split3"])
+def test_chain_schedule_runs_the_full_product(w, precision):
+    """Every step runs W/16 x 16 x passes x k-steps tensor-core
+    instructions: no algebraic reduction of the product."""
+    mat, feat = bench_dot.chain_inputs(w, "cpu")
+    _, _, count = _chain_model(mat, feat, precision, 1)
+    passes = 1 if precision == "default" else 3
+    assert count == w // 16 * 16 * passes * K_STEPS[precision]
+
+
+@pytest.mark.parametrize("precision", ["highest", "default", "split3"])
+def test_chain_sign_flip_is_the_split_of_the_flipped_features(precision):
+    """Flipping the signs of feat's hi and lo parts gives the parts of
+    where(feat > a00, feat, -feat), bit for bit (both roundings are
+    symmetric; a lo part of 0 may come out as -0, which adds as 0), at
+    thresholds that flip none, some and all."""
+    _, feat = bench_dot.chain_inputs(16, "cpu")
+    f0 = feat.numpy()
+    split = _parts(f0, precision)
+    for a00 in (-1e9, 0.0, 0.37, 1e9):
+        sign = np.where(f0 > a00, 1.0, -1.0)
+        want = _parts(np.where(f0 > a00, f0, -f0), precision)
+        for got, ref in zip(split, want):
+            assert np.array_equal((got * sign).astype(F32), ref.astype(F32))
+
+
+# ---------------------------------------------------------------------------
 # T2: the walk loop
 
 
@@ -568,6 +671,113 @@ def test_walk_matches_tool_kernel(soup, variant, monkeypatch):
         assert np.all(t == float(stats["leaf_bodies"][0]))
     if variant == "D":
         assert int(iters[0]) == exp_overhead.d_walk_length(pb)
+
+
+WALK_THREADS, WALK_PER = 256, 8  # a packet-2048 block: threads, rays each
+
+
+def _leaf_lists_model(acc, hit, tri, o, d, seen):
+    """Packet 2048: warp w lists its threads' hitting rays (thread t, slot
+    j: ray t + 256 j) in one segment, in thread then slot order; the
+    block's threads take the listed rays in turn and each runs its ray's 8
+    tests in order k, adding only the hits' t to the ray's sum."""
+    listed = [t + WALK_THREADS * j for w in range(WALK_THREADS // 32)
+              for t in range(32 * w, 32 * w + 32) for j in range(WALK_PER)
+              if hit[t + WALK_THREADS * j]]
+    assert sorted(listed) == torch.nonzero(hit).flatten().tolist()
+    seen["warps"] = max(seen.get("warps", 0),
+                        len({(r % WALK_THREADS) // 32 for r in listed}))
+    idx = torch.tensor(listed, dtype=torch.int64)
+    t, _, _, h = bvh_intersect(tri[None].expand(len(listed), 8, 9),
+                               o[idx][:, None], d[idx][:, None])
+    s = acc[idx]
+    for k in range(8):
+        s = torch.where(h[:, k], s + t[:, k], s)
+    acc[idx] = s
+
+
+def _leaf_pairs_model(acc, hit, tri, o, d, seen):
+    """Packet 32: round r gives lane l the pair (hitting ray 4r + l // 8,
+    triangle l % 8); the owner of the hitting ray of rank i gathers lanes
+    8 (i % 4) + k, k = 0..7, of round i // 4 and adds them in order (a
+    miss adds +0)."""
+    lanes = torch.arange(32)
+    hitting = torch.nonzero(hit).flatten()
+    n_hit = hitting.numel()
+    seen["rounds"] = max(seen.get("rounds", 0), (n_hit + 3) // 4)
+    for rnd in range((n_hit + 3) // 4):
+        i = 4 * rnd + lanes // 8
+        src = hitting[i.clamp(max=n_hit - 1)]
+        t, _, _, h = bvh_intersect(tri[lanes % 8][:, None], o[src][:, None],
+                                   d[src][:, None])
+        v = torch.where((i < n_hit) & h[:, 0], t[:, 0], torch.zeros(32))
+        rank = torch.arange(n_hit)
+        own = rank // 4 == rnd
+        owners, rank = hitting[own], rank[own]
+        for kk in range(8):
+            acc[owners] = acc[owners] + v[(rank % 4) * 8 + kk]
+
+
+def _walk_schedule_model(pb, o, d, variant, packet):
+    """walk_overhead_kernel's walk of variants A and B, packet by packet:
+    one vote per node; B counts the leaves entered; A runs the leaf tests
+    of the rays that hit the leaf box by the kernel's lists (packet 2048)
+    or pairs (packet 32). Returns (t, iters, what the schedules saw)."""
+    nodes, meta, skip = exp_overhead.octant0_nodes(pb)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    inv = exp_overhead.pallas_inv(d)
+    rows = pb.tri[:, :9]
+    leaf_body = _leaf_lists_model if packet == 2048 else _leaf_pairs_model
+    out = torch.zeros(o.shape[0])
+    iters = torch.zeros(o.shape[0] // packet, dtype=torch.int32)
+    seen = {}
+    for pk in range(iters.numel()):
+        sl = slice(pk * packet, (pk + 1) * packet)
+        acc = torch.zeros(packet)
+        leaves = torch.zeros(())
+        ptr = 0
+        while ptr < pb.n_nodes:
+            iters[pk] += 1
+            hit = exp_overhead._slab(nodes[ptr][None], o[sl][None], inv[sl][None])[0]
+            is_leaf = int(meta[ptr]) >= 0
+            any_hit = bool(hit.any())
+            if any_hit and is_leaf:
+                if variant == "B":
+                    leaves = leaves + 1.0
+                else:
+                    first = (int(meta[ptr]) >> 3) & ~7
+                    leaf_body(acc, hit, rows[first:first + 8], o[sl], d[sl], seen)
+            ptr = ptr + 1 if any_hit and not is_leaf else int(skip[ptr])
+        out[sl] = leaves if variant == "B" else acc
+    return out, iters, seen
+
+
+@pytest.mark.parametrize("packet", [2048, 32])
+@pytest.mark.parametrize("variant", ["A", "B"])
+def test_walk_schedule_model_matches_plain(soup, variant, packet):
+    """The model of the kernel's leaf lists and pairs against the plain
+    walk, bit for bit (packet 32 on the first 512 rays)."""
+    _, pb, o, d = soup
+    n = 2048 if packet == 2048 else 512
+    t, iters, seen = _walk_schedule_model(pb, o[:n], d[:n], variant, packet)
+    tp, ip = _port_walk(pb, o[:n], d[:n], variant, packet)
+    assert torch.equal(iters, ip)
+    assert np.array_equal(t.numpy().view(np.int32), tp.numpy().view(np.int32))
+    if variant == "A":
+        assert (tp > 0).sum() >= 64
+        # lists from several warps; leaves with more than one round of pairs
+        key = "warps" if packet == 2048 else "rounds"
+        assert seen[key] >= 2, seen
+
+
+def test_walk_stats_count_the_rays_that_hit_entered_leaves(soup):
+    _, pb, o, d = soup
+    stats = {}
+    _port_walk(pb, o, d, "B", 32, stats)
+    assert 0 < stats["leaf_ray_hits"] < int(stats["leaf_bodies"].sum()) * 32
+    stats_a = {}
+    _port_walk(pb, o, d, "A", 32, stats_a)
+    assert stats_a["leaf_ray_hits"] == stats["leaf_ray_hits"]
 
 
 def test_d_walk_length_is_the_tools_host_loop(soup):
@@ -655,6 +865,8 @@ def test_drain_kernels_do_not_spill_on_cuda():
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, f"{name} spills"
         assert a["registers"] <= 255 and a["blocks_per_sm"] >= 1
+        if name.startswith("walk") and name.endswith("2048"):
+            assert a["blocks_per_sm"] >= 2, f"{name}: one packet per SM"
 
 
 @pytest.mark.cuda
