@@ -20,9 +20,18 @@ opaque scene uploaded with GLAZE_TREE=fat. It renders the scenes through
 the port's CLI at 1920x1080, 2 spp (full and opaque on the classic tree,
 then opaque with GLAZE_TREE=fat and =hybrid, and full with
 GLAZE_TREE=fat), checks that exactly the expected kernels served each
-render, and renders the golden scene against the stored golden. Any
-failed phase raises, so the script exits non-zero and prints no result.
-Without CUDA (or without the package beside it) it exits non-zero too.
+render, and renders the golden scene against the stored golden. It
+renders the full scene with two samples in flight, the ld sampler,
+coherent off and adaptive stopping ([sampling]), and resumes a
+checkpointed render in a second process against a straight one, resumes a
+CPU-written checkpoint on the card and writes a --profile trace
+([resume]). Any failed phase raises, so the script exits non-zero and
+prints no result. Without CUDA (or without the package beside it) it
+exits non-zero too.
+
+Bounds: bytes over the HBM rate, tensor FLOPs over the tensor peaks, and
+other operations over the card's instruction rate at its maximum SM clock
+(see PEAK_F32).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
@@ -38,6 +47,7 @@ import contextlib
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -50,23 +60,35 @@ import torch  # noqa: E402
 RES = (1920, 1080)
 SPP = 2
 SEED = 7
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32 FLOP/s
+DEVICE = "cuda"  # of the [sampling] and [resume] renders
+# H100 SXM HBM bytes/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
+# Non-tensor operations are counted one instruction each: the kernels are
+# built with --fmad=false (glaze_tpu_torch/cuda_build.py) so that they match
+# their plain versions bit for bit, so no add and mul fuse into an FMA, and
+# min, max, compare and select never fuse. The data sheet's 67 TFLOP/s
+# counts an FMA as two operations; one SM issues at most 128 f32 results a
+# clock, or 128 packed bf16x2 instructions (256 results). The peaks follow
+# from the card's maximum SM clock (nvidia-smi clocks.max.sm), read in
+# main(): 132 x 128 x 1.98 GHz = 33.45e12 f32 and 66.9e12 bf16 results/s.
+F32_PER_SM_CLOCK = 128
+BF16_PER_SM_CLOCK = 256
+PEAK_F32 = None
+PEAK_BF16 = None
 T_MIN = 1e-4  # no hit lies at t <= T_MIN (glaze_tpu_torch.accel.bvh)
-# float operations per plain-walker step: slab test (6 sub, 6 mul, 6
-# min/max, 4 min/max, 3 compares) and Moller-Trumbore (9 mul + 3 sub
-# cross, 3 mul + 2 add det, 1 div, 3 sub, 3x(3 mul + 2 add + 1 mul) for
-# u/v/t, 6 mul + 3 sub second cross, 6 compares); a cell lookup of an
-# accepted hit in the masked walks (2 mul, 2 casts, 2 min, 1 mul-add for
-# the cell, 1 shift and 1 compare for the word, 1 shift, 1 and, 1 compare);
-# a fat-leaf column in K7c/K7a (csrc/traverse.cu fat_column: 19 mul + 15
-# add for det, u*det, v*det, t*det; 1 abs + 1 compare, 1 div, 1 mul for t;
-# 5 mul + 1 add for ud*det, vd*det, (ud+vd)*det, det*det; 5 compares)
+# float operations per walk step, as the sm_90a loops issue them (python -m
+# glaze_tpu_torch.tools.sass_loops traverse closest_kernel): a node's slab
+# test (6 FADD, 6 FMUL, 10 FMNMX, 3 FSETP); a Moller-Trumbore triangle test
+# (27 FMUL, 18 FADD, 6 compares, 3 selects of the best hit, and an IEEE
+# division: MUFU.RCP, 2 FFMA, 1 FADD.FTZ and its range compare); a cell
+# lookup of an accepted hit in the masked walks (2 mul, 2 casts, 2 min, 1
+# mul-add for the cell, 1 shift and 1 compare for the word, 1 shift, 1 and,
+# 1 compare); a fat-leaf column in K7c/K7a (csrc/traverse.cu fat_column: 25
+# FMUL, 16 FADD, 5 compares, and the division of t as above)
 OPS_PER_NODE = 25
-OPS_PER_TRI = 56
+OPS_PER_TRI = 59
 OPS_PER_MASK = 12
-OPS_PER_COLUMN = 48
+OPS_PER_COLUMN = 51
 # bytes of one distinct table row a walk needs: a node (bmin, bmax, meta,
 # skip), a triangle's v0/e1/e2, one payload word of a cell lookup, the 19
 # coefficients of a fat-leaf column
@@ -106,14 +128,22 @@ EXPECTED_FAT_FULL = _expected(closest_hit=LAUNCHES, any_hit=LAUNCHES,
                               closest_hit_masked=4 * LAUNCHES)
 
 # The probe kernels' bounds: the dense tensor rates of TF32 and bf16 (NVIDIA
-# H100 SXM data sheet) and the non-tensor bf16 rate of packed bf16x2
-# arithmetic, twice the f32 rate (NVIDIA H100 Tensor Core GPU Architecture
-# white paper, H100 SXM5: 133.8 TFLOP/s). A kernel that runs on fewer
-# blocks than SMs gets that share of each peak.
+# H100 SXM data sheet; they count a multiply-add as two FLOPs, and so do
+# the tensor FLOP counts below) and the non-tensor instruction rates above
+# (PEAK_F32, PEAK_BF16). A kernel that runs on fewer blocks than SMs gets
+# that share of each peak.
 PEAK_TF32 = 495e12
 PEAK_BF16_TC = 989e12
-PEAK_BF16 = 133.8e12
 SMS = 132
+
+
+def set_peaks(max_sm_clock_mhz):
+    """The non-tensor peaks at the card's maximum SM clock."""
+    global PEAK_F32, PEAK_BF16
+    hz = max_sm_clock_mhz * 1e6
+    PEAK_F32 = SMS * F32_PER_SM_CLOCK * hz
+    PEAK_BF16 = SMS * BF16_PER_SM_CLOCK * hz
+    return PEAK_F32, PEAK_BF16
 # f32 operations of a drain: per (triangle, ray) resolve (|det| and its
 # compare, 1/det, t, ud*det, vd*det, ud+vd and its product, det*det, 5
 # compares); per ray and leaf the features (3 sub for o', 6 mul + 3 sub
@@ -198,11 +228,13 @@ def phase_build():
 
 
 def _probe_bound(nbytes, tc_flops=0.0, tc_peak=PEAK_TF32, ops=0.0,
-                 ops_peak=PEAK_F32, blocks=SMS):
+                 ops_peak=None, blocks=SMS):
     """Least time of a probe's work on ``blocks`` blocks (one SM each, at
     most all SMs): the largest of bytes over the HBM rate, tensor-core
-    FLOPs over ``tc_peak`` and other operations over ``ops_peak``, each
-    peak cut to the SMs the blocks occupy. Returns (ms, bound_by)."""
+    FLOPs over ``tc_peak`` and other operations over ``ops_peak`` (default
+    the f32 instruction rate), each peak cut to the SMs the blocks occupy.
+    Returns (ms, bound_by)."""
+    ops_peak = PEAK_F32 if ops_peak is None else ops_peak
     share = min(blocks, SMS) / SMS
     t_bytes = nbytes / PEAK_BYTES
     t_ops = max(tc_flops / (tc_peak * share), ops / (ops_peak * share))
@@ -473,7 +505,7 @@ def probes_t2(entry, bvh, o3, d3, results):
 
 def probes_t4(entry, results):
     """T4: each dtype and size against the plain loop (every element
-    exact), bounds (f32 at 67 TFLOP/s, packed bf16 at 133.8)."""
+    exact), bounds (f32 and packed bf16 at their instruction rates)."""
     from glaze_tpu_torch.tools import bench_bf16_slab as bs
     from glaze_tpu_torch.tools.common import timed_call
 
@@ -678,7 +710,8 @@ def _bytes_anyhit(stats, r, cap, active, t_min, masked):
 def _bound(nbytes, stats):
     """Least time for the work: the larger of bytes over the HBM rate and
     the walk's float operations (node visits, triangle tests, cell lookups
-    and fat-leaf columns in the kernel's order) over the f32 peak."""
+    and fat-leaf columns in the kernel's order) over the f32 instruction
+    rate."""
     ops = (stats.node_visits * OPS_PER_NODE + stats.tri_tests * OPS_PER_TRI
            + stats.mask_tests * OPS_PER_MASK
            + stats.col_tests * OPS_PER_COLUMN)
@@ -997,34 +1030,33 @@ def phase_fat_kernels(path):
     return {"closest_hit_fat": k7c, "any_hit_fat": k7a}
 
 
-def phase_main_path(label, path, workdir, report, expected, tree=None):
-    """The port's CLI on a scene at 1920x1080, 2 spp, on the card, with
-    GLAZE_TREE=``tree`` around the call; every kernel counter is set to 0
-    just before and read just after, and must equal ``expected`` (every
-    probe counter 0)."""
-    from PIL import Image
-
-    from glaze_tpu_torch import cli
+def _launch_counts():
+    """Every traversal kernel's launch count, by KERNELS name, and every
+    probe kernel's."""
     from glaze_tpu_torch.accel import traverse_cuda as tc
     from glaze_tpu_torch.tools import probes_cuda as pc
 
-    out = os.path.join(workdir, f"sponza_{label}.png")
-    wrappers = dict(zip(KERNELS, (
-        tc.closest_hit_soa, tc.any_hit_soa, tc.closest_hit_soa_masked,
-        tc.any_hit_soa_masked, tc.closest_hit_fat_soa, tc.any_hit_fat_soa)))
-    with tree_env(tree):
-        tc.reset_launch_counts()
-        pc.reset_launch_counts()
-        code, renderer, times = cli.run([
-            path, out, "--res", f"{RES[0]}x{RES[1]}", "--spp", str(SPP),
-            "--seed", str(SEED)])
-        launches = {name: fn.launches for name, fn in wrappers.items()}
-        probe_launches = {fn.__name__: fn.launches for fn in pc.KERNEL_WRAPPERS}
-    if code != 0:
-        raise RuntimeError(f"CLI exited {code}")
+    wrappers = (tc.closest_hit_soa, tc.any_hit_soa, tc.closest_hit_soa_masked,
+                tc.any_hit_soa_masked, tc.closest_hit_fat_soa,
+                tc.any_hit_fat_soa)
+    return ({name: fn.launches for name, fn in zip(KERNELS, wrappers)},
+            {fn.__name__: fn.launches for fn in pc.KERNEL_WRAPPERS})
+
+
+def _reset_counts():
+    from glaze_tpu_torch.accel import traverse_cuda as tc
+    from glaze_tpu_torch.tools import probes_cuda as pc
+
+    tc.reset_launch_counts()
+    pc.reset_launch_counts()
+
+
+def _held_to(tag, label, launches, probe_launches, expected, report):
+    """A path's launch counts against ``expected`` (every probe counter
+    0); the launches go into ``report`` under ``label``."""
     if any(probe_launches.values()):
         raise RuntimeError(f"{label} render launched probes {probe_launches}")
-    log(f"[main:{label}] kernel launches during the render: {launches} "
+    log(f"[{tag}] kernel launches during the render: {launches} "
         f"(expected {expected})")
     if launches != expected:
         raise RuntimeError(f"{label} render launched {launches}, expected "
@@ -1033,6 +1065,53 @@ def phase_main_path(label, path, workdir, report, expected, tree=None):
         if expected[name]:
             report[name]["launches"] += n
             report[name]["launches_by_path"][label] = n
+
+
+def run_cli(argv, env=None):
+    """The port's CLI in this process with the variables ``env`` set
+    around it and every kernel counter set to 0 just before; returns
+    (exit code, renderer, times, launches, probe launches, stderr)."""
+    import io
+
+    from glaze_tpu_torch import cli
+
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    err = io.StringIO()
+    try:
+        _reset_counts()
+        with contextlib.redirect_stderr(err):
+            code, renderer, times = cli.run(argv)
+        launches, probes = _launch_counts()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    text = err.getvalue()
+    for line in text.replace("\r", "\n").splitlines():
+        if line.strip() and not line.startswith("Rendering"):
+            log(f"  cli: {line.strip()}")
+    return code, renderer, times, launches, probes, text
+
+
+def phase_main_path(label, path, workdir, report, expected, tree=None):
+    """The port's CLI on a scene at 1920x1080, 2 spp, on the card, with
+    GLAZE_TREE=``tree`` around the call; every kernel counter is set to 0
+    just before and read just after, and must equal ``expected`` (every
+    probe counter 0)."""
+    from PIL import Image
+
+    out = os.path.join(workdir, f"sponza_{label}.png")
+    with tree_env(tree):
+        code, renderer, times, launches, probe_launches, _ = run_cli([
+            path, out, "--res", f"{RES[0]}x{RES[1]}", "--spp", str(SPP),
+            "--seed", str(SEED)])
+    if code != 0:
+        raise RuntimeError(f"CLI exited {code}")
+    _held_to(f"main:{label}", label, launches, probe_launches, expected,
+             report)
     st = renderer._state
     accum = torch.stack(st.accum)
     if not bool(torch.isfinite(accum).all()):
@@ -1131,31 +1210,325 @@ def _traversal_kernel(key):
     return None
 
 
+GOLDEN = os.path.join(HERE, "tests", "goldens", "matrow_coh1.npz")
+
+
+def _state_np(state):
+    """(accum (P, 3), count (P,)) of a PathState as NumPy."""
+    return (torch.stack(state.accum, -1).cpu().numpy(),
+            state.count.cpu().numpy())
+
+
+def _mc_agree(tag, accum, count, ref_accum, ref_count):
+    """count exact and the clipped image within the Monte-Carlo bound of
+    tests/test_goldens.py (per-pixel MAD < 0.06, image mean within 3%)."""
+    if not np.array_equal(count, ref_count):
+        raise RuntimeError(f"{tag}: count differs")
+    if not np.isfinite(accum).all():
+        raise RuntimeError(f"{tag}: non-finite radiance")
+    ca = np.clip(accum / np.maximum(count, 1.0)[:, None], 0.0, 1.0)
+    cg = np.clip(ref_accum / np.maximum(ref_count, 1.0)[:, None], 0.0, 1.0)
+    mad = float(np.abs(ca - cg).mean())
+    dmean = abs(ca.mean() - cg.mean())
+    log(f"[{tag}] count exact, per-pixel MAD {mad:.3g} (bound 0.06), "
+        f"image mean {ca.mean():.5f} vs {cg.mean():.5f}")
+    if mad >= 0.06 or dmean >= 0.03 * max(cg.mean(), 1e-6):
+        raise RuntimeError(f"{tag}: render outside the MC bound")
+    return mad
+
+
 def phase_golden():
     """The golden scene at 96x48, coherent 1, 8 spp against the stored
     golden of the JAX package (exact count, MAD within the MC bound)."""
     import glaze_tpu_torch.scenes as ps
     from glaze_tpu_torch.render.renderer import RayTraceRenderer
 
-    g = np.load(os.path.join(HERE, "tests", "goldens", "matrow_coh1.npz"))
+    g = np.load(GOLDEN)
     r = RayTraceRenderer(ps.MatRowScene(), width=ps.GOLDEN_W,
                          height=ps.GOLDEN_H, seed=ps.GOLDEN_SEED, coherent=1,
                          device="cuda")
     r.draw(ps.GOLDEN_SPP, return_image=False)
-    accum = torch.stack(r._state.accum, -1).cpu().numpy()
-    count = r._state.count.cpu().numpy()
-    if not np.array_equal(count, g["count"]):
-        raise RuntimeError("golden count differs")
-    if not np.isfinite(accum).all():
-        raise RuntimeError("golden render has non-finite radiance")
-    ca = np.clip(accum / np.maximum(count, 1.0)[:, None], 0.0, 1.0)
-    cg = np.clip(g["accum"] / np.maximum(g["count"], 1.0)[:, None], 0.0, 1.0)
-    mad = float(np.abs(ca - cg).mean())
-    dmean = abs(ca.mean() - cg.mean())
-    log(f"[golden] count exact, per-pixel MAD {mad:.3g} (bound 0.06), "
-        f"image mean {ca.mean():.5f} vs {cg.mean():.5f}")
-    if mad >= 0.06 or dmean >= 0.03 * max(cg.mean(), 1e-6):
-        raise RuntimeError("golden render outside the MC bound")
+    _mc_agree("golden", *_state_np(r._state), g["accum"], g["count"])
+
+
+# [sampling]: the CLI with two samples in flight, the ld sampler, coherent
+# off and adaptive stopping; the small minimum and loose tau make tiles
+# park within the 2 spp. Launches: ceil(2 * 6 / 2) = 6, each tracing two
+# copies of the padded grid; per launch the full scene's kernels as in
+# EXPECTED_FULL.
+SAMPLING_ENV = {"GLAZE_ADAPTIVE_MIN": "6", "GLAZE_ADAPTIVE_TAU": "0.5"}
+SAMPLING_FLAGS = ["--sif", "2", "--sampler", "ld", "--coherent", "off",
+                  "--adaptive", "on"]
+SAMPLING_LAUNCHES = -(-SPP * 6 // 2)
+EXPECTED_SAMPLING = _expected(closest_hit_masked=4 * SAMPLING_LAUNCHES,
+                              any_hit_masked=SAMPLING_LAUNCHES)
+# [resume]: one sample (6 launches) of the full scene per process
+EXPECTED_RESUME = _expected(closest_hit_masked=4 * 6, any_hit_masked=6)
+EXPECTED_PROFILE = _expected(closest_hit=6, any_hit=6)
+
+
+@contextlib.contextmanager
+def lane_log(lanes):
+    """Appends the lane count of every traversal dispatch to ``lanes``."""
+    import glaze_tpu_torch.accel as accel
+
+    orig = {name: getattr(accel, name) for name in Capture.NAMES}
+
+    def wrap(fn):
+        def call(bvh, o3, *a, **k):
+            lanes.append(int(o3[0].shape[0]))
+            return fn(bvh, o3, *a, **k)
+        return call
+
+    for name, fn in orig.items():
+        setattr(accel, name, wrap(fn))
+    try:
+        yield lanes
+    finally:
+        for name, fn in orig.items():
+            setattr(accel, name, fn)
+
+
+@contextlib.contextmanager
+def mask_log(masks):
+    """Appends (mask, count, bounce) of every adaptive mask the renderer
+    takes (once per chunk, from the state before the chunk) to
+    ``masks``."""
+    from glaze_tpu_torch.render import integrator as integ
+
+    real = integ.adaptive_lane_mask
+
+    def mask(state, **kw):
+        m = real(state, **kw)
+        masks.append((m.clone(), state.count.clone(), state.bounce.clone()))
+        return m
+
+    integ.adaptive_lane_mask = mask
+    try:
+        yield masks
+    finally:
+        integ.adaptive_lane_mask = real
+
+
+def phase_sampling(path, workdir, report):
+    """The full scene through the CLI at 1920x1080, 2 spp, with
+    SAMPLING_FLAGS: the launch counters equal EXPECTED_SAMPLING, every
+    dispatch traces 2 x 2,088,960 lanes, some tile parks and the parked
+    lanes' counts stay frozen. Then the golden scene at 96x48 with sif 2,
+    ld and coherent 0 on the card against the port's CPU render of the
+    same arguments."""
+    from PIL import Image
+
+    import glaze_tpu_torch.scenes as ps
+    from glaze_tpu_torch.render import integrator as integ
+    from glaze_tpu_torch.render.renderer import RayTraceRenderer
+
+    out = os.path.join(workdir, "sponza_sampling.png")
+    lanes, masks = [], []
+    with lane_log(lanes), mask_log(masks):
+        code, r, times, launches, probes, _ = run_cli(
+            [path, out, "--res", f"{RES[0]}x{RES[1]}", "--spp", str(SPP),
+             "--seed", str(SEED), "--device", DEVICE] + SAMPLING_FLAGS,
+            env=SAMPLING_ENV)
+    if code != 0:
+        raise RuntimeError(f"CLI exited {code}")
+    _held_to("sampling", "sampling", launches, probes, EXPECTED_SAMPLING,
+             report)
+    want = 2 * integ.pixel_count(*RES)
+    if times["launches"] != SAMPLING_LAUNCHES or set(lanes) != {want}:
+        raise RuntimeError(f"sampling render: {times['launches']} launches, "
+                           f"lane counts {sorted(set(lanes))}, expected "
+                           f"{SAMPLING_LAUNCHES} of {want}")
+    parked = [float(1.0 - m.float().mean()) for m, _, _ in masks]
+    log(f"[sampling] {times['launches']} launches of {want} lanes; parked "
+        f"share of lanes per chunk {parked}")
+    count = r._state.count
+    frozen = 0
+    for m, count0, bounce0 in masks:
+        if bool(m.all()):
+            continue
+        # lanes of a parked tile at a path boundary park at once: their
+        # count stops (this is the last chunk that parks: the render ends
+        # with it)
+        at_rest = ~m & (bounce0 == 0)
+        frozen = int(at_rest.sum())
+        if m is masks[-1][0] and not bool(torch.equal(count[at_rest],
+                                                      count0[at_rest])):
+            raise RuntimeError("parked lanes kept counting")
+    if not frozen or masks[-1][0].all():
+        raise RuntimeError(f"no tile parked: parked shares {parked}")
+    accum = torch.stack(r._state.accum)
+    if not bool(torch.isfinite(accum).all()):
+        raise RuntimeError("non-finite radiance in the sampling render")
+    img = np.asarray(Image.open(out))
+    if img.shape != (RES[1], RES[0], 3) or img.mean() < 5.0:
+        raise RuntimeError(f"sampling PNG {img.shape}, mean {img.mean():.1f}")
+    rays = RES[0] * RES[1] * 2 * times["launches"]
+    log(f"[sampling] {out}: mean {img.mean():.1f}; {frozen} lanes parked at "
+        f"rest in the last chunk; setup {times['setup']:.0f} ms, render "
+        f"{times['render']:.0f} ms = {times['render'] / times['launches']:.1f} "
+        f"ms per launch, {rays / times['render'] / 1e3:.3f} Mrays/s")
+    numbers = {"setup_ms": times["setup"], "render_ms": times["render"],
+               "launches": times["launches"], "lanes_per_launch": want,
+               "ms_per_launch": times["render"] / times["launches"],
+               "mrays_per_s": rays / times["render"] / 1e3,
+               "parked_share_by_chunk": parked, "frozen_lanes": frozen,
+               "image_mean": float(img.mean()), "kernel_launches": launches}
+    del r, masks, count, accum
+    torch.cuda.empty_cache()
+    kw = dict(width=ps.GOLDEN_W, height=ps.GOLDEN_H, seed=ps.GOLDEN_SEED,
+              samples_in_flight=2, sampler="ld", coherent=0)
+    renders = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        g = RayTraceRenderer(ps.MatRowScene(), device=dev, **kw)
+        g.draw(ps.GOLDEN_SPP, return_image=False)
+        renders[dev] = _state_np(g._state)
+        log(f"[sampling] golden scene, sif 2, ld, coherent 0, "
+            f"{ps.GOLDEN_SPP} spp on {dev}: {time.perf_counter() - t0:.1f} s")
+    numbers["golden_mad"] = _mc_agree("sampling:golden", *renders[DEVICE],
+                                      *renders["cpu"])
+    return numbers
+
+
+# the second process of [resume]: the CLI in a fresh interpreter, printing
+# its launch counts and times as JSON
+RESUME_CHILD = """
+import json, sys
+from glaze_tpu_torch import cli
+from glaze_tpu_torch.accel import traverse_cuda as tc
+code, r, t = cli.run(sys.argv[1:])
+print(json.dumps({"code": code, "times": t, "completed_spp": r.completed_spp,
+                  "launches": [tc.closest_hit_soa.launches,
+                               tc.any_hit_soa.launches,
+                               tc.closest_hit_soa_masked.launches,
+                               tc.any_hit_soa_masked.launches,
+                               tc.closest_hit_fat_soa.launches,
+                               tc.any_hit_fat_soa.launches]}))
+"""
+
+
+def phase_resume(paths, workdir, report):
+    """Checkpoints on the card: the full scene through the CLI at
+    1920x1080, one sample with --checkpoint, a second process resuming it
+    to two, against a straight two-sample render (count exact, the largest
+    accum difference logged); a checkpoint of the golden scene written by a
+    CPU render resumed on the card against the stored golden; one render
+    with --profile writing its trace."""
+    import glaze_tpu_torch.scenes as ps
+    from glaze_tpu_torch.render.renderer import RayTraceRenderer
+    from glaze_tpu_torch.utils.runtime import TRACE_FILE
+
+    numbers = {}
+    ck = os.path.join(workdir, "resume.npz")
+    if os.path.exists(ck):
+        os.unlink(ck)
+    base = [paths["full"], "--res", f"{RES[0]}x{RES[1]}", "--seed", str(SEED),
+            "--device", DEVICE]
+
+    def argv(out, spp, *extra):
+        return [base[0], os.path.join(workdir, out)] + base[1:] + [
+            "--spp", str(spp), *extra]
+
+    code, r, t1, launches, probes, _ = run_cli(argv("resume1.png", 1,
+                                                    "--checkpoint", ck))
+    if code != 0 or not os.path.exists(ck):
+        raise RuntimeError(f"checkpointed render exited {code}")
+    _held_to("resume:first", "resume", launches, probes, EXPECTED_RESUME,
+             report)
+    del r
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", RESUME_CHILD]
+        + argv("resume2.png", 2, "--checkpoint", ck),
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise RuntimeError(f"resuming process exited {child.returncode}:\n"
+                           f"{child.stderr[-3000:]}")
+    res = json.loads(child.stdout.strip().splitlines()[-1])
+    got = dict(zip(KERNELS, res["launches"]))
+    log(f"[resume] second process ({child_s:.1f} s): "
+        + "; ".join(line.strip() for line in
+                    child.stderr.replace("\r", "\n").splitlines()
+                    if line.strip() and not line.startswith("Rendering")))
+    if res["code"] != 0 or "Resumed " not in child.stderr \
+            or res["completed_spp"] != 2:
+        raise RuntimeError(f"the second process did not resume: {res}")
+    if got != EXPECTED_RESUME:
+        raise RuntimeError(f"resumed render launched {got}, expected "
+                           f"{EXPECTED_RESUME}")
+    for name, n in got.items():
+        if n:
+            report[name]["launches"] += n
+            report[name]["launches_by_path"]["resume"] += n
+    code, straight, t2, launches, probes, _ = run_cli(argv("straight.png", 2))
+    if code != 0:
+        raise RuntimeError(f"straight render exited {code}")
+    _held_to("resume:straight", "resume_straight", launches, probes,
+             {k: 2 * n for k, n in EXPECTED_RESUME.items()}, report)
+    data = np.load(ck)
+    ck_accum = np.stack([data[f"leaf_{i}"] for i in (9, 10, 11)], -1)
+    accum, count = _state_np(straight._state)
+    if not np.array_equal(data["leaf_12"], count):
+        raise RuntimeError("resumed count differs from the straight render")
+    diff = float(np.abs(ck_accum - accum).max())
+    log(f"[resume] resumed 1 + 1 spp against a straight 2-spp render: count "
+        f"exact, largest accum difference {diff!r} (expected 0.0)")
+    # what a save and a load of a 1080p checkpoint cost (the CLI's render
+    # time holds its saves)
+    tmp = os.path.join(workdir, "timed.npz")
+    t0 = time.perf_counter()
+    straight.save_checkpoint(tmp)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    straight.load_checkpoint(tmp)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"[resume] a 1080p checkpoint: {os.path.getsize(tmp) / 1e6:.1f} MB, "
+        f"save {save_s:.2f} s, load {load_s:.2f} s")
+    numbers.update(first_render_ms=t1["render"], resumed_render_ms=res[
+        "times"]["render"], straight_render_ms=t2["render"],
+        second_process_s=child_s, max_accum_diff=diff,
+        checkpoint_mb=os.path.getsize(tmp) / 1e6, save_s=save_s,
+        load_s=load_s)
+    del straight
+    torch.cuda.empty_cache()
+    # a CPU-written checkpoint of the golden scene resumes on the card
+    g = np.load(GOLDEN)
+    kw = dict(width=ps.GOLDEN_W, height=ps.GOLDEN_H, seed=ps.GOLDEN_SEED,
+              coherent=1)
+    ck_cpu = os.path.join(workdir, "golden_cpu.npz")
+    cpu = RayTraceRenderer(ps.MatRowScene(), device="cpu", **kw)
+    cpu.draw(ps.GOLDEN_SPP // 2, return_image=False)
+    cpu.save_checkpoint(ck_cpu)
+    gpu = RayTraceRenderer(ps.MatRowScene(), device=DEVICE, **kw)
+    gpu.load_checkpoint(ck_cpu)
+    if gpu._state.count.device.type != DEVICE:
+        raise RuntimeError("the checkpoint did not load onto the card")
+    gpu.draw(ps.GOLDEN_SPP - ps.GOLDEN_SPP // 2, return_image=False)
+    numbers["golden_resumed_mad"] = _mc_agree(
+        "resume:golden", *_state_np(gpu._state), g["accum"], g["count"])
+    # --profile
+    prof = os.path.join(workdir, "profile")
+    trace = os.path.join(prof, TRACE_FILE)
+    if os.path.exists(trace):
+        os.unlink(trace)
+    code, r, t3, launches, probes, err = run_cli(
+        [paths["opaque"], os.path.join(workdir, "profiled.png"), "--res",
+         f"{RES[0]}x{RES[1]}", "--spp", "1", "--seed", str(SEED),
+         "--device", DEVICE, "--profile", prof])
+    if code != 0 or "Phases: " not in err or "Profile trace written" not in err:
+        raise RuntimeError(f"--profile render exited {code}")
+    _held_to("resume:profile", "profile", launches, probes, EXPECTED_PROFILE,
+             report)
+    size = os.path.getsize(trace)
+    log(f"[resume] --profile: {trace} ({size / 1e6:.1f} MB), render "
+        f"{t3['render']:.0f} ms profiled")
+    numbers.update(profile_trace_mb=size / 1e6, profiled_render_ms=t3["render"])
+    del r
+    return numbers
 
 
 def main():
@@ -1163,11 +1536,15 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import glaze_tpu_torch  # noqa: F401  (fails outside a checkout)
-    from glaze_tpu_torch.tools.common import card_line
+    from glaze_tpu_torch.tools.common import card_line, max_sm_clock_mhz
 
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    clock = max_sm_clock_mhz()
+    f32, bf16 = set_peaks(clock)
+    log(f"[card] {card}; max SM clock {clock:.0f} MHz: non-tensor peaks "
+        f"{f32:.4g} f32 and {bf16:.4g} packed bf16 results/s; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
     workdir = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     attrs = phase_build()
@@ -1187,11 +1564,13 @@ def main():
         main_numbers[label] = phase_main_path(label, paths[scene], workdir,
                                               report, expected, tree)
     phase_golden()
+    main_numbers["sampling"] = phase_sampling(paths["full"], workdir, report)
+    main_numbers["resume"] = phase_resume(paths, workdir, report)
     for name, a in attrs.items():
         report[name].update(a)
     for label, numbers in main_numbers.items():
-        for name, ms in numbers["profile"].get("traversal_ms_per_launch",
-                                               {}).items():
+        for name, ms in numbers.get("profile", {}).get(
+                "traversal_ms_per_launch", {}).items():
             report[name].setdefault("in_render_ms_by_path", {})[label] = ms
     report.update(probes)
     kernels = []
@@ -1206,7 +1585,9 @@ def main():
                                 "occupancy", "warp", "in_render_ms_by_path")
                 if key in k)})
     log(f"[done] {time.perf_counter() - t_start:.0f} s in all")
-    print(json.dumps({"main_path": main_numbers, "card": card}))
+    print(json.dumps({"main_path": main_numbers, "card": card,
+                      "max_sm_clock_mhz": clock, "peak_f32": f32,
+                      "peak_bf16": bf16}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,13 +2,19 @@
 
 The flags and defaults of ``glaze_tpu/cli.py`` (input scene, output image,
 ``--res WxH`` 1920x1080, ``--spp`` 256, ``--integrator {direct,pt}``,
-``--seed``, ``--coherent``), plus ``--device {cuda,cpu}`` (default cuda).
-Flags whose features are not ported yet exit with an error, and so do the
-JAX package's variables that ask for them where no flag overrides them
-(``GLAZE_SIF``, ``GLAZE_SAMPLER=ld``, ``GLAZE_ADAPTIVE=1``). The variables
-of ported features (``GLAZE_COHERENT``, ``GLAZE_ALPHA_ROUNDS``,
-``GLAZE_TILE``, ``GLAZE_ALPHA_MASK``, ``GLAZE_TREE``) act as they do in
-``glaze_tpu``.
+``--seed``, ``--coherent``, ``--sif``, ``--sampler``, ``--adaptive``,
+``--checkpoint`` with ``--checkpoint-every`` and ``--profile``), plus
+``--device {cuda,cpu}`` (default cuda). ``--mesh`` and ``--denoise`` are
+not ported yet and exit with an error. The JAX package's variables act as
+they do in ``glaze_tpu`` (``GLAZE_COHERENT``, ``GLAZE_SIF``,
+``GLAZE_SAMPLER``, ``GLAZE_ADAPTIVE``, ``GLAZE_ADAPTIVE_TAU``,
+``GLAZE_ADAPTIVE_MIN``, ``GLAZE_ALPHA_ROUNDS``, ``GLAZE_TILE``,
+``GLAZE_ALPHA_MASK``, ``GLAZE_TREE``, ``GLAZE_LOG``), a flag over its
+variable.
+
+A ``--checkpoint`` holds the progressive state in the JAX package's
+``.npz`` layout: a render resumes from it if it exists, saves it every
+``--checkpoint-every`` samples and, on Ctrl-C, saves it and exits 130.
 
 Usage: ``python -m glaze_tpu_torch.cli scene.glaze out.png --res 512x512 --spp 64``
 """
@@ -16,8 +22,8 @@ Usage: ``python -m glaze_tpu_torch.cli scene.glaze out.png --res 512x512 --spp 6
 from __future__ import annotations
 
 import argparse
+import os
 import sys
-import time
 
 NOT_PORTED = "not yet ported to glaze_tpu_torch"
 
@@ -52,40 +58,48 @@ def build_parser():
                    help="coherent sampling: pixels share RNG chains frame-wide "
                         "(the default) or per 2048-pixel tile; 'off' gives "
                         "every pixel its own chain")
+    p.add_argument("--checkpoint", metavar="PATH",
+                   help="progressive-state checkpoint (.npz): resume from PATH "
+                        "if it exists, save every --checkpoint-every samples "
+                        "and on Ctrl-C")
+    p.add_argument("--checkpoint-every", type=int, default=32, metavar="SPP",
+                   help="samples between checkpoint saves (default 32)")
+    p.add_argument("--sif", type=int, default=None, metavar="N",
+                   help="samples in flight per pixel (default env GLAZE_SIF "
+                        "or 1): N path states advance per launch")
+    p.add_argument("--sampler", choices=("pcg", "ld"), default=None,
+                   help="sub-pixel sampler: pcg, the hash chain (default), or "
+                        "ld, per-pixel Owen-scrambled Sobol (env "
+                        "GLAZE_SAMPLER)")
+    p.add_argument("--adaptive", choices=("on", "off"), default=None,
+                   help="per-tile adaptive stopping: converged tiles stop "
+                        "sampling (default off; env GLAZE_ADAPTIVE)")
+    p.add_argument("--profile", nargs="?", const="glaze_profile", default=None,
+                   metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the render to "
+                        "DIR and print per-phase wall-clock")
     # accepted for compatibility with glaze_tpu's CLI; each is rejected
     # below until its feature is ported
     p.add_argument("--mesh", action="store_true", help=NOT_PORTED)
-    p.add_argument("--checkpoint", metavar="PATH", help=NOT_PORTED)
-    p.add_argument("--checkpoint-every", type=int, default=32, metavar="SPP",
-                   help=NOT_PORTED)
-    p.add_argument("--sif", type=int, default=None, metavar="N",
-                   help="samples in flight per pixel: only 1 is ported")
-    p.add_argument("--sampler", choices=("pcg", "ld"), default=None,
-                   help="sub-pixel sampler: only pcg is ported")
-    p.add_argument("--adaptive", choices=("on", "off"), default=None,
-                   help="per-tile adaptive stopping: only off is ported")
     p.add_argument("--denoise", action="store_true", help=NOT_PORTED)
-    p.add_argument("--profile", nargs="?", const="glaze_profile", default=None,
-                   metavar="DIR", help=NOT_PORTED)
     return p
 
 
 def _unported_flag(args):
     if args.mesh:
         return "--mesh"
-    if args.checkpoint:
-        return "--checkpoint"
-    if args.sif not in (None, 1):
-        return "--sif > 1"
-    if args.sampler == "ld":
-        return "--sampler ld"
-    if args.adaptive == "on":
-        return "--adaptive on"
     if args.denoise:
         return "--denoise"
-    if args.profile is not None:
-        return "--profile"
     return None
+
+
+def scene_id(path: str) -> str:
+    """The sha256 of the scene file: the identity a checkpoint is held
+    to."""
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
 
 
 def main(argv=None):
@@ -94,7 +108,8 @@ def main(argv=None):
 
 def run(argv=None):
     """The CLI's work: returns (exit code, renderer or None, timings in
-    ms as a dict with ``setup``, ``render``, ``launches``)."""
+    ms as a dict with ``setup``, ``render``, ``launches``, the launches
+    this run made)."""
     args = build_parser().parse_args(argv)
     flag = _unported_flag(args)
     if flag is not None:
@@ -107,21 +122,24 @@ def run(argv=None):
         RayTraceRenderer,
         check_sampling,
     )
+    from glaze_tpu_torch.utils import Timer, init_logging, profiler_trace
 
+    init_logging()
     sampling = dict(samples_in_flight=args.sif, sampler=args.sampler,
                     adaptive=(None if args.adaptive is None
                               else args.adaptive == "on"))
     try:
         check_sampling(**sampling)
-    except NotImplementedError as e:
+    except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, None, None
     if not converted_file(args.input):
         print(f"error: {args.input!r} is not a .glaze scene (the converter "
               f"is {NOT_PORTED})", file=sys.stderr)
         return 2, None, None
-    t0 = time.perf_counter()
+    timer = Timer()
     parsed = parse(args.input)
+    timer.mark("parse")
     width, height = args.res
     integrator = (Integrator.DIRECT if args.integrator == "direct"
                   else Integrator.PATH_TRACE)
@@ -129,27 +147,86 @@ def run(argv=None):
                                 integrator=integrator, seed=args.seed,
                                 coherent=args.coherent, device=args.device,
                                 **sampling)
-    setup_ms = (time.perf_counter() - t0) * 1000.0
+    timer.mark("upload+bvh")
+    setup_ms = (timer.marks["parse"] + timer.marks["upload+bvh"]) * 1000.0
     print(f"Setup time: {setup_ms:.0f}ms", file=sys.stderr)
 
-    total = args.spp * integrator.steps_per_sample
+    done_spp = 0
+    sid = scene_id(args.input) if args.checkpoint else ""
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        try:
+            renderer.load_checkpoint(args.checkpoint, scene_id=sid)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2, None, None
+        # the checkpoint's resolution, integrator and sif win over the flags
+        if (renderer.integrator is not integrator
+                or (renderer.width, renderer.height) != (width, height)):
+            print(f"Resume overrides flags: {renderer.width}x"
+                  f"{renderer.height} {renderer.integrator.name_str}",
+                  file=sys.stderr)
+        width, height = renderer.width, renderer.height
+        done_spp = min(renderer.completed_spp, args.spp)
+        print(f"Resumed {args.checkpoint}: {done_spp} spp done",
+              file=sys.stderr)
+
+    total = renderer.launches(args.spp)
+    base = renderer.launches(done_spp)
 
     def progress(done):
-        pct = min(100.0, 100.0 * done / max(total, 1))
+        pct = min(100.0, 100.0 * (base + done) / max(total, 1))
         print(f"\rRendering... {pct:5.1f}%", end="", file=sys.stderr, flush=True)
 
-    t1 = time.perf_counter()
-    renderer.draw(args.spp, progress, return_image=False)
-    render_ms = (time.perf_counter() - t1) * 1000.0
+    def save_checkpoint():
+        # atomic: np.savez appends .npz to a name without it, so keep the
+        # suffix and rename over the target
+        tmp = args.checkpoint + ".tmp.npz"
+        renderer.save_checkpoint(tmp, scene_id=sid)
+        os.replace(tmp, args.checkpoint)
+
+    with profiler_trace(args.profile or "", enabled=args.profile is not None):
+        remaining = args.spp - done_spp
+        step = args.checkpoint_every if args.checkpoint else remaining
+        # whole sif groups per chunk: draw(n) runs ceil(n * steps / sif)
+        # launches, so other chunk sizes would sum past launches(spp)
+        sif = renderer.samples_in_flight
+        step = -(-max(step, 1) // sif) * sif
+        try:
+            while remaining > 0:
+                n = min(step, remaining)
+                renderer.draw(n, progress, return_image=False)
+                remaining -= n
+                base = renderer.launches(args.spp - remaining)
+                if args.checkpoint and remaining > 0:
+                    save_checkpoint()
+        except KeyboardInterrupt:
+            if args.checkpoint:
+                save_checkpoint()
+                print(f"\nInterrupted: checkpoint saved to "
+                      f"{args.checkpoint}", file=sys.stderr)
+                return 130, renderer, None
+            raise
+        if args.checkpoint:
+            save_checkpoint()
+    timer.mark("render")
     print(file=sys.stderr)
-    rays = width * height * total
+    render_ms = timer.marks["render"] * 1000.0
+    launches = total - renderer.launches(done_spp)
+    # rays traced this run: launches x sif path states per pixel
+    rays = width * height * renderer.samples_in_flight * launches
     print(f"Render time: {render_ms:.0f}ms "
           f"({rays / max(render_ms, 1e-9) / 1e3:.1f} Mrays/s, "
-          f"{render_ms / max(total, 1):.1f} ms/launch)", file=sys.stderr)
+          f"{render_ms / max(launches, 1):.1f} ms/launch)", file=sys.stderr)
     renderer.save(args.output)
+    timer.mark("save")
+    if args.profile is not None:
+        phases = "  ".join(f"{k}={v * 1e3:.0f}ms"
+                           for k, v in timer.marks.items())
+        print(f"Phases: {phases}", file=sys.stderr)
+        print(f"Profile trace written to {args.profile}/", file=sys.stderr)
     print(f"Saved {args.output}", file=sys.stderr)
     return 0, renderer, {"setup": setup_ms, "render": render_ms,
-                         "launches": total}
+                         "launches": launches}
 
 
 if __name__ == "__main__":

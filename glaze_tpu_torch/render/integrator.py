@@ -41,16 +41,21 @@ The JAX package's environment switches that change a result are read as
 it reads them: ``GLAZE_TILE`` (the tile of the lane swizzle and of
 coherent mode 2's chains, below, read once at import), and, elsewhere,
 ``GLAZE_COHERENT`` and ``GLAZE_ALPHA_ROUNDS`` (the renderer) and
-``GLAZE_ALPHA_MASK`` (``scene/flatten.py``). ``GLAZE_SIF``,
-``GLAZE_SAMPLER`` and ``GLAZE_ADAPTIVE`` name features that are not ported
-(the renderer refuses them). The switches that only reorder work, and so
-change no result, stay unread: ``GLAZE_SORT`` (the trace sort key; the
-port sorts by Morton code, the default), ``GLAZE_ALPHA_PREFIX`` (the
-candidates-first prefix of the re-test rounds; the port runs them at full
-width, the default 1.0) and the VMEM budgets of the Pallas kernels.
+``GLAZE_ALPHA_MASK`` (``scene/flatten.py``), and the renderer's
+``GLAZE_SIF``, ``GLAZE_SAMPLER``, ``GLAZE_ADAPTIVE``,
+``GLAZE_ADAPTIVE_TAU`` and ``GLAZE_ADAPTIVE_MIN``. The switches that only
+reorder work, and so change no result, stay unread: ``GLAZE_SORT`` (the
+trace sort key; the port sorts by Morton code, the default),
+``GLAZE_ALPHA_PREFIX`` (the candidates-first prefix of the re-test rounds;
+the port runs them at full width, the default 1.0) and the VMEM budgets of
+the Pallas kernels.
 
-Not ported in this slice (they raise): the ``ld`` sampler, adaptive lane
-masks and more than one sample in flight per pixel.
+The sampling options of the JAX package: ``sif`` samples in flight per
+pixel (:func:`sif_lanes`: sif copies of the pixel grid back to back, so a
+launch traces sif x P rays), the ``ld`` sampler (per-pixel Owen-scrambled
+Sobol points, :mod:`glaze_tpu_torch.ops.sobol`) and adaptive stopping
+(:func:`adaptive_lane_mask`: converged tiles park at their next path
+boundary).
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ import torch
 from glaze_tpu_torch import accel
 from glaze_tpu_torch.ops import rng as rng_mod
 from glaze_tpu_torch.ops import shading
+from glaze_tpu_torch.ops import sobol as sobol_mod
 from glaze_tpu_torch.ops import spectra
 from glaze_tpu_torch.ops import texture as tx
 from glaze_tpu_torch.ops import vec
@@ -111,14 +117,10 @@ class PathState(NamedTuple):
     sq: torch.Tensor  # (P,) sum of squared per-launch luminance
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not yet ported to glaze_tpu_torch")
-
-
 def init_state(width: int, height: int, device, sif: int = 1) -> PathState:
-    if sif != 1:
-        _not_ported("samples in flight > 1")
-    p = pixel_count(width, height)
+    """Zero state of a ``sif``-samples-in-flight wavefront: sif copies of
+    the swizzled pixel grid back to back (:func:`sif_lanes`)."""
+    p = pixel_count(width, height) * sif
 
     def z():
         return torch.zeros((p,), dtype=torch.float32, device=device)
@@ -202,6 +204,22 @@ def pixel_coords(width: int, height: int, device):
     on ``device``."""
     px, py = _pixel_coords_t(width, height, device)
     return px.to(torch.float32), py.to(torch.float32)
+
+
+def sif_lanes(width: int, height: int, sif: int, device):
+    """(px, py, rng_py) float32 lane coordinates of a sif-samples-in-flight
+    wavefront: sif copies of the swizzled pixel grid back to back, with
+    ``rng_py`` offset by copy x the padded height so no two copies share
+    an srand chain (None at sif = 1)."""
+    px, py = pixel_coords(width, height, device)
+    if sif == 1:
+        return px, py, None
+    p1 = px.shape[0]
+    px = px.repeat(sif)
+    py = py.repeat(sif)
+    _, ph = padded_dims(width, height)
+    copy = torch.arange(sif, dtype=torch.float32, device=px.device) * ph
+    return px, py, py + torch.repeat_interleave(copy, p1)
 
 
 def camera_rays(ndc_x, ndc_y, cam2world, screen2cam, is_persp: bool):
@@ -726,12 +744,18 @@ def _expand_block(a, p: int):
 
 
 def _direct_light(scene, state_rng, wo_w, frame, hit, mat, active,
-                  alpha_rounds=0, expand=None):
+                  alpha_rounds=0, expand=None, draws=None):
     """NEE (path_trace.rgen direct_light, :87-117). Advances the rng by 5
-    draws unconditionally. Returns (rng, radiance (16, R))."""
+    draws unconditionally. Returns (rng, radiance (16, R)).
+
+    ``draws``: optional 5-tuple of lane-width uniforms (pick, a, b, c,
+    bsdf) that replaces the chain's draws, the ``ld`` sampler's points.
+    The chain still advances, so the pcg and ld streams stay aligned."""
     ex = expand if expand is not None else (lambda a: a)
     rng = state_rng
     rng, r_pick = rng_mod.next_f32(rng)
+    if draws is not None:
+        r_pick = draws[0]
     lights_no = scene.lights_no
     lights_no_f = lights_no.to(torch.float32)
     light_idx = torch.minimum((r_pick * lights_no_f).to(torch.int32),
@@ -740,9 +764,13 @@ def _direct_light(scene, state_rng, wo_w, frame, hit, mat, active,
     rng, ra = rng_mod.next_f32(rng)
     rng, rb = rng_mod.next_f32(rng)
     rng, rc = rng_mod.next_f32(rng)
+    if draws is not None:
+        ra, rb, rc = draws[1], draws[2], draws[3]
     wiw, dist, emission, light_pdf = lights_mod.sample_light(
         scene, light_idx, hit["point"], (ra, rb, rc), expand=expand)
     rng, r_bsdf = rng_mod.next_f32(rng)
+    if draws is not None:
+        r_bsdf = draws[4]
 
     wo = shading.to_shading_space_v(wo_w, frame)
     wi = shading.to_shading_space_v(wiw, frame)
@@ -767,20 +795,29 @@ def _direct_light(scene, state_rng, wo_w, frame, hit, mat, active,
 def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
                 screen2cam, px, py, launch_size, *, is_persp: bool,
                 direct_only: bool = False, alpha_rounds: int = 0,
-                coherent=1, sampler: str = "pcg",
-                lane_active=None) -> PathState:
+                rng_py=None, coherent=1, sampler: str = "pcg",
+                sampler_seed=None, lane_active=None) -> PathState:
     """One bounce for all pixels (path_trace.rgen main, :135-239).
 
     ``seed``: uint32 frame seed (a Python int); ``pixel_offset``: (2,)
-    sub-pixel jitter from the WorkScheduler; ``px``/``py``: (P,) float32
-    lane pixel coordinates; ``launch_size``: (W, H) of the full image;
-    ``cam2world``/``screen2cam``: float32 NumPy matrices. ``coherent``:
-    0 = one PCG chain per lane, 1 = one chain for the whole frame,
-    2 = one chain per 2048-lane tile."""
-    if sampler != "pcg":
-        _not_ported(f"sampler {sampler!r}")
-    if lane_active is not None:
-        _not_ported("adaptive sampling (lane_active)")
+    sub-pixel jitter from the WorkScheduler, or a pair of (P,) per-lane
+    tensors when several samples are in flight; ``px``/``py``: (P,)
+    float32 lane pixel coordinates; ``launch_size``: (W, H) of the full
+    image; ``cam2world``/``screen2cam``: float32 NumPy matrices.
+    ``rng_py`` (:func:`sif_lanes`) decorrelates the chains of in-flight
+    copies that share (px, py); None means ``py``. ``coherent``: 0 = one
+    PCG chain per lane, 1 = one chain for the whole frame (one per copy
+    with samples in flight), 2 = one chain per 2048-lane tile.
+
+    ``sampler='ld'``: the sub-pixel jitter comes from each pixel's
+    Owen-scrambled Sobol stream indexed by the lane's path count, and
+    with coherent 0 every path decision of bounce b from domains
+    1 + 9*b + slot of it. ``sampler_seed``: a uint32 (Python int)
+    decorrelating renders.
+
+    ``lane_active``: optional (P,) bool, the adaptive tile mask. Lanes
+    of converged tiles park at their next path boundary: no camera ray,
+    no count, no contribution, and their closest trace is culled."""
     dev = px.device
     p = px.shape[0]
     coh = resolve_coherent(coherent)
@@ -790,29 +827,50 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
 
     # vec3(uint seed, ...) converts to float
     seed_f = float(np.float32(np.uint32(int(seed) & 0xFFFFFFFF)))
-    if coh == 1:
+    if coh == 1 and rng_py is None:
         # frame-shared chain kept at shape (1,): draw-driven table lookups
         # gather one row, broadcast only where per-lane data mixes in
         one = torch.zeros((1,), dtype=torch.float32, device=dev)
         rng = rng_mod.srand_f32x3(one + seed_f, one, one)
     elif coh == 2 and p % (TILE_W * TILE_H) == 0:
-        # one chain per 2048-lane tile, kept at shape (n_tiles,)
+        # one chain per 2048-lane tile, kept at shape (n_tiles,); in-flight
+        # copies are whole tiles, each with its copy offset
         blk = TILE_W * TILE_H
         pxb, pyb = px[::blk], py[::blk]
+        copy_b = (torch.zeros_like(pxb) if rng_py is None
+                  else (rng_py - py)[::blk])
         tiles_x = float(np.ceil(np.float32(width_f) / np.float32(TILE_W)))
         chan = torch.floor(pxb / TILE_W) + torch.floor(pyb / TILE_H) * tiles_x
-        rng = rng_mod.srand_f32x3(torch.full_like(pxb, seed_f), chan,
-                                  torch.zeros_like(pxb))
-    elif coh == 2:
-        tiles_x = float(np.ceil(np.float32(width_f) / np.float32(TILE_W)))
-        chan = torch.floor(px / TILE_W) + torch.floor(py / TILE_H) * tiles_x
-        rng = rng_mod.srand_f32x3(torch.full_like(px, seed_f), chan,
-                                  torch.zeros_like(px))
+        rng = rng_mod.srand_f32x3(torch.full_like(pxb, seed_f), chan, copy_b)
+    elif coh:
+        # rng_py - py is the per-copy offset of sif_lanes: copies stay
+        # decorrelated while the lanes of one copy share draws
+        copy = torch.zeros_like(px) if rng_py is None else rng_py - py
+        if coh == 2:
+            tiles_x = float(np.ceil(np.float32(width_f) / np.float32(TILE_W)))
+            chan = torch.floor(px / TILE_W) + torch.floor(py / TILE_H) * tiles_x
+        else:
+            chan = copy
+        rng = rng_mod.srand_f32x3(torch.full_like(px, seed_f), chan, copy)
     else:
-        rng = rng_mod.srand_f32x3(torch.full_like(px, seed_f), px, py)
+        rng = rng_mod.srand_f32x3(torch.full_like(px, seed_f), px,
+                                  py if rng_py is None else rng_py)
 
-    ju = float(np.float32(pixel_offset[0]))
-    jv = float(np.float32(pixel_offset[1]))
+    pk = None
+    if sampler == "ld":
+        # per-pixel stratified jitter: the lane's path count indexes its
+        # own Owen-Sobol stream (the WorkScheduler offset is unused)
+        pk = (px.to(torch.int64)
+              + (py if rng_py is None else rng_py).to(torch.int64) * 65536)
+        if sampler_seed is not None:
+            pk = pk ^ (int(sampler_seed) & sobol_mod.M32)
+        pk = pk & sobol_mod.M32
+        ju, jv = sobol_mod.sobol02(state.path_no, pk, 0)
+    elif isinstance(pixel_offset[0], torch.Tensor):
+        ju, jv = pixel_offset
+    else:
+        ju = float(np.float32(pixel_offset[0]))
+        jv = float(np.float32(pixel_offset[1]))
     ndc_x = -1.0 + 2.0 * (px + ju) / width_f
     ndc_y = -1.0 + 2.0 * (py + jv) / height_f
     cam_origin, cam_dir = camera_rays(ndc_x, ndc_y, cam2world, screen2cam,
@@ -822,20 +880,54 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
         regen = torch.ones((p,), dtype=torch.bool, device=dev)
     else:
         regen = state.bounce == 0.0
-    count = state.count + enabled.to(torch.float32)
-    new_path_no = state.path_no + regen.to(torch.int64)
+    if lane_active is not None:
+        # adaptive stop: converged tiles park at the path boundary
+        parked = regen & ~lane_active
+        regen = regen & lane_active
+    else:
+        parked = None
+    live = enabled if parked is None else enabled & ~parked
+    count = state.count + live.to(torch.float32)
+    new_path_no = (state.path_no + regen.to(torch.int64)) & sobol_mod.M32
+
+    # ld with coherent 0: every decision of bounce b of a pixel's path i
+    # comes from domain 1 + 9*b + slot of its stream at index i. Lanes
+    # regenerating this launch start path ``path_no``; continuing lanes
+    # extend path ``path_no - 1``
+    ld_draws = None
+    if sampler == "ld" and coh == 0:
+        samp_idx = torch.where(regen, state.path_no,
+                               (state.path_no - 1) & sobol_mod.M32)
+        b_dom = 1 + 9 * state.bounce.to(torch.int64)
+        d_pick = sobol_mod.sobol1(samp_idx, pk, b_dom)
+        d_la, d_lb = sobol_mod.sobol02(samp_idx, pk, b_dom + 1)
+        d_lc = sobol_mod.sobol1(samp_idx, pk, b_dom + 3)
+        d_bv = sobol_mod.sobol1(samp_idx, pk, b_dom + 4)
+        d_rr = sobol_mod.sobol1(samp_idx, pk, b_dom + 5)
+        d_sa, d_sb = sobol_mod.sobol02(samp_idx, pk, b_dom + 6)
+        d_sc = sobol_mod.sobol1(samp_idx, pk, b_dom + 8)
+        ld_draws = (d_pick, d_la, d_lb, d_lc, d_bv, d_rr, d_sa, d_sb, d_sc)
 
     origin = vec.where(regen, cam_origin, state.origin)
     direction = vec.where(regen, cam_dir, state.direction)
     importance = torch.where(regen, spectra.one_t(p, dev), state.importance)
 
-    hit = trace_alpha_sorted(scene, origin, direction,
-                             alpha_rounds=alpha_rounds)
+    if parked is None:
+        hit = trace_alpha_sorted(scene, origin, direction,
+                                 alpha_rounds=alpha_rounds)
+    else:
+        # parked lanes: cap -1 culls their walk (they sort to the tail)
+        hit = trace_alpha_sorted(
+            scene, origin, direction,
+            t_max=torch.where(parked, -1.0, float("inf")),
+            alpha_rounds=alpha_rounds)
     missed = hit["tri"] < 0
 
     # ---- miss: sky radiance only on camera rays / after specular bounces
     sky_visible = (state.bounce == 0.0) | (state.last_specular == 1.0)
     add_sky = missed & sky_visible & (scene.sky_tex > 0)
+    if parked is not None:
+        add_sky = add_sky & ~parked
     sr, sg, sb = _sky_radiance(scene, direction)
     sky_spec = importance * spectra.from_illuminant_color_t(sr, sg, sb)
     mr, mg, mb = spectra.to_rgb_t(sky_spec)
@@ -852,10 +944,14 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
     mat_specular = mat["scalars"][fl.MS_IS_SPECULAR] > 0.5
 
     nee_active = ~missed & ~mat_specular
+    if parked is not None:
+        nee_active = nee_active & ~parked
     ex = lambda a: _expand_block(a, p)  # noqa: E731
     rng, nee_radiance = _direct_light(scene, rng, wo_w, frame, surf, mat,
                                       nee_active, alpha_rounds=alpha_rounds,
-                                      expand=ex)
+                                      expand=ex,
+                                      draws=(None if ld_draws is None
+                                             else ld_draws[:5]))
     nee_radiance = nee_radiance * importance
     nr, ng, nb = spectra.to_rgb_t(nee_radiance)
     nee_contrib = (torch.where(nee_active, nr, zero),
@@ -885,6 +981,8 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
 
     # ---- Russian roulette (path_trace.rgen:196-211)
     rng, rr_roll = rng_mod.next_f32(rng)
+    if ld_draws is not None:
+        rr_roll = ld_draws[5]
     rr_active = state.bounce > RUSSIAN_ROULETTE
     kill_prob = torch.clamp(1.0 - spectra.luminance_t(importance), min=0.05)
     rr_kill = rr_active & (ex(rr_roll) < kill_prob)
@@ -896,6 +994,8 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
     rng, sa = rng_mod.next_f32(rng)
     rng, sb_ = rng_mod.next_f32(rng)
     rng, sc = rng_mod.next_f32(rng)
+    if ld_draws is not None:
+        sa, sb_, sc = ld_draws[6], ld_draws[7], ld_draws[8]
     wo = shading.to_shading_space_v(wo_w, frame)
     wi, value, pdf = bsdf_mod.bsdf_sample(scene, mat, wo, surf["uv"],
                                           (ex(sa), ex(sb_), ex(sc)))
@@ -923,20 +1023,37 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
 def render_steps(scene, state, seeds, offsets, cam2world, screen2cam, *,
                  width, height, is_persp, direct_only, steps,
                  alpha_rounds=0, sif=1, coherent=1, sampler="pcg",
-                 lane_active=None):
+                 sampler_seed=None, lane_active=None):
     """``steps`` launches as a Python loop over :func:`launch_step`;
-    ``seeds`` (steps,) uint32 and ``offsets`` (steps, 2) are NumPy."""
-    if sif != 1:
-        _not_ported("samples in flight > 1")
-    px, py = pixel_coords(width, height, scene.device)
+    ``seeds`` (steps,) uint32 and ``offsets`` are NumPy: (steps, 2), or
+    (steps, sif, 2) with ``sif`` > 1 samples in flight (state from
+    ``init_state(..., sif=sif)``, one jitter per copy)."""
+    px, py, rng_py = sif_lanes(width, height, sif, scene.device)
     size = (float(width), float(height))
+    p1 = pixel_count(width, height)
     for k in range(steps):
+        offset = offsets[k]
+        if sif > 1:  # (sif, 2) -> per-lane jitter
+            off = torch.from_numpy(np.asarray(offset, np.float32)).to(px.device)
+            offset = (torch.repeat_interleave(off[:, 0], p1),
+                      torch.repeat_interleave(off[:, 1], p1))
         state = launch_step(
-            scene, state, int(seeds[k]), offsets[k], cam2world, screen2cam,
+            scene, state, int(seeds[k]), offset, cam2world, screen2cam,
             px, py, size, is_persp=is_persp, direct_only=direct_only,
-            alpha_rounds=alpha_rounds, coherent=coherent, sampler=sampler,
+            alpha_rounds=alpha_rounds, rng_py=rng_py, coherent=coherent,
+            sampler=sampler, sampler_seed=sampler_seed,
             lane_active=lane_active)
     return state
+
+
+def _fold_sif(accum, count, sif: int):
+    """Sums the sif in-flight copies per pixel (estimate = sum(accum) /
+    sum(count))."""
+    if sif == 1:
+        return accum, count
+    p = count.shape[0] // sif
+    return (tuple(a.reshape(sif, p).sum(0) for a in accum),
+            count.reshape(sif, p).sum(0))
 
 
 def _fold_display(accum, count, exposure):
@@ -949,13 +1066,56 @@ def _fold_display(accum, count, exposure):
     return torch.stack(chans, dim=-1)
 
 
-def render_image(state: PathState, exposure, width: int, height: int):
-    """Accumulated sum -> display image (H, W, 3) uint8 NumPy, folded,
-    unswizzled and cropped on the state's device; only the cropped image
-    crosses to the host."""
-    img = _fold_display(state.accum, state.count, exposure)
+def render_image(state: PathState, exposure, width: int, height: int,
+                 sif: int = 1):
+    """Accumulated sum -> display image (H, W, 3) uint8 NumPy, folded over
+    the ``sif`` in-flight copies, unswizzled and cropped on the state's
+    device; only the cropped image crosses to the host."""
+    img = _fold_display(*_fold_sif(state.accum, state.count, sif), exposure)
     px, py = _pixel_coords_t(width, height, img.device)
     pw, ph = padded_dims(width, height)
     full = torch.zeros((ph * pw, 3), dtype=torch.uint8, device=img.device)
     full[py * pw + px] = img
     return full.view(ph, pw, 3)[:height, :width].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Adaptive sample allocation: per-tile stopping from the running moments.
+# A tile (one 2048-lane packet) whose pixels' relative standard errors are
+# small parks (launch_step ``lane_active``); each pixel keeps its own count
+# and stops only at path boundaries, so the estimates stay unbiased.
+
+
+def tile_error(state: PathState, sif: int = 1):
+    """Per-tile relative standard error of the luminance estimate: (T,)
+    float32, T = lanes / 2048 of one copy, the tile mean of se_p /
+    (mean_p + 1e-3) with se_p = sqrt(var_p / n) from (accum, sq, count).
+    The sif in-flight copies of a pixel fold into one estimate first."""
+    accum, count = _fold_sif(state.accum, state.count, sif)
+    if sif == 1:
+        sq = state.sq
+    else:
+        sq = state.sq.reshape(sif, state.count.shape[0] // sif).sum(0)
+    n = torch.clamp(count, min=1.0)
+    lum = 0.2126 * accum[0] + 0.7152 * accum[1] + 0.0722 * accum[2]
+    mean = lum / n
+    var = (torch.clamp(sq / n - mean * mean, min=0.0)
+           * (n / torch.clamp(n - 1.0, min=1.0)))
+    se = torch.sqrt(var / n)
+    rel = se / (mean + 1e-3)
+    return rel.reshape(-1, TILE_W * TILE_H).mean(dim=1)
+
+
+def adaptive_lane_mask(state: PathState, sif: int = 1, tau: float = 0.01,
+                       min_count: float = 64.0):
+    """(P,) bool ``lane_active`` mask: True while the lane's tile still
+    needs samples, i.e. until every pixel of the tile has ``min_count``
+    launches and the tile's mean relative standard error is at most
+    ``tau``."""
+    err = tile_error(state, sif)
+    _, count = _fold_sif(state.accum, state.count, sif)
+    blk = TILE_W * TILE_H
+    min_n = count.reshape(-1, blk).amin(dim=1)
+    active_t = (err > tau) | (min_n < min_count)
+    per_pixel = torch.repeat_interleave(active_t, blk)
+    return per_pixel if sif == 1 else per_pixel.repeat(sif)

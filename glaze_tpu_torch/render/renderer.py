@@ -2,24 +2,28 @@
 
 Port of the main-path surface of :mod:`glaze_tpu.render.renderer`
 (``RayTraceRenderer::{new, draw, set_integrator, set_exposure,
-update_camera}``, raytracer.rs:153-687). ``draw(spp)`` runs
-``spp * steps_per_sample`` launches as a Python loop; launch seeds come
-from the host ``np.random.default_rng(seed)`` in the same chunks as the
-JAX package, so both packages draw the same seeds for the same ``seed``.
+update_camera, change_resolution}``, raytracer.rs:153-687, and the
+checkpoints). ``draw(spp)`` runs ``ceil(spp * steps_per_sample / sif)``
+launches as a Python loop; launch seeds come from the host
+``np.random.default_rng(seed)`` in the same chunks as the JAX package, so
+both packages draw the same seeds for the same ``seed``.
 
 Scenes with opacity maps render with ``GLAZE_ALPHA_ROUNDS`` alpha re-test
 rounds (one by default, as in the JAX package), set at construction from
 the materials; without opacity maps it is 0. The coherent mode follows
 the JAX package's precedence: the ``coherent`` argument, else
-``GLAZE_COHERENT``, else 1 (frame).
+``GLAZE_COHERENT``, else 1 (frame). The sampling options follow it too:
+``samples_in_flight`` (else ``GLAZE_SIF``, else 1), ``sampler`` (else
+``GLAZE_SAMPLER``, else pcg) and ``adaptive`` (else ``GLAZE_ADAPTIVE``,
+else off, with ``GLAZE_ADAPTIVE_TAU`` and ``GLAZE_ADAPTIVE_MIN``).
 
-Not ported in this slice: checkpoints, device meshes, the display
-denoiser, material / light edits (``update_materials_and_lights`` and its
-opaque/alpha split rebuild), the ``ld`` sampler, adaptive sampling and
-more than one sample in flight per pixel. The renderer raises
-NotImplementedError for the last three, whether an argument or the JAX
-package's ``GLAZE_SAMPLER``, ``GLAZE_ADAPTIVE`` or ``GLAZE_SIF`` asks for
-them.
+``save_checkpoint`` / ``load_checkpoint`` write and read the JAX package's
+``.npz`` layout key for key, so a checkpoint crosses between the packages
+either way.
+
+Not ported in this slice: device meshes, the display denoiser, material /
+light edits (``update_materials_and_lights`` and its opaque/alpha split
+rebuild) and scene swaps.
 """
 
 from __future__ import annotations
@@ -35,6 +39,14 @@ from glaze_tpu_torch.core import Camera
 from glaze_tpu_torch.device import resolve_device
 from glaze_tpu_torch.render import integrator as integ
 from glaze_tpu_torch.render.scheduler import WorkScheduler
+from glaze_tpu_torch.utils.log import get_logger
+
+log = get_logger("renderer")
+
+# a checkpoint's PathState leaves are in the order of the JAX package's
+# jax.tree.flatten: importance, origin x3, direction x3, bounce,
+# last_specular, accum x3, count, path_no (uint32 on disk), sq
+PATH_NO_LEAF = 13
 
 
 class Integrator(enum.Enum):
@@ -72,36 +84,21 @@ def default_coherent() -> int:
 
 
 def check_sampling(samples_in_flight=None, sampler=None, adaptive=None):
-    """Refuses the sampling options that are not ported, taken with the
-    JAX package's precedence: an argument, else ``GLAZE_SIF`` /
-    ``GLAZE_SAMPLER`` / ``GLAZE_ADAPTIVE``, else 1 / pcg / off. Raises
-    ValueError where the JAX package does, and NotImplementedError,
-    naming the variable when one asked for it, for anything but one
-    sample in flight, pcg and no adaptive stopping."""
-    source = {}  # option -> the variable setting it was read from
+    """The sampling options with the JAX package's precedence: an
+    argument, else ``GLAZE_SIF`` / ``GLAZE_SAMPLER`` / ``GLAZE_ADAPTIVE``,
+    else 1 / pcg / off. Returns (samples_in_flight, sampler, adaptive);
+    raises ValueError where the JAX package does."""
     if samples_in_flight is None:
         samples_in_flight = os.environ.get("GLAZE_SIF", "1")
-        source["sif"] = f"GLAZE_SIF={samples_in_flight}"
     if sampler is None:
         sampler = os.environ.get("GLAZE_SAMPLER", "pcg")
-        source["sampler"] = f"GLAZE_SAMPLER={sampler}"
     if adaptive is None:
-        adaptive = os.environ.get("GLAZE_ADAPTIVE", "0")
-        source["adaptive"] = f"GLAZE_ADAPTIVE={adaptive}"
-        adaptive = int(adaptive)
+        adaptive = int(os.environ.get("GLAZE_ADAPTIVE", "0"))
     if sampler not in ("pcg", "ld"):
         raise ValueError(f"sampler {sampler!r}: expected pcg or ld")
     if int(samples_in_flight) < 1:
         raise ValueError("samples_in_flight must be >= 1")
-    for key, what, ported in (
-            ("sif", "samples in flight > 1", int(samples_in_flight) == 1),
-            ("sampler", f"sampler {sampler!r}", sampler == "pcg"),
-            ("adaptive", "adaptive sampling", not adaptive)):
-        if not ported:
-            if key in source:
-                what = f"{what} (from {source[key]})"
-            raise NotImplementedError(f"{what} is not yet ported to "
-                                      "glaze_tpu_torch")
+    return int(samples_in_flight), sampler, bool(adaptive)
 
 
 # launches per chunk of draw(); seeds are drawn per chunk exactly like the
@@ -131,14 +128,20 @@ class RayTraceRenderer:
         ParsedScene (flattened onto ``device``: ``cuda`` unless the caller
         passes ``"cpu"``; CUDA without a card raises). ``coherent``:
         0/'off', 1/'frame' or 2/'tile' shared-RNG sampling (default:
-        :func:`default_coherent`). ``samples_in_flight``, ``sampler`` and
-        ``adaptive`` are the JAX package's options; only one sample in
-        flight, pcg and no adaptive stopping are ported, and anything else,
-        by argument or by environment, raises NotImplementedError
-        (:func:`check_sampling`)."""
+        :func:`default_coherent`). ``samples_in_flight``: independent path
+        states per pixel advanced per launch; ``sampler``: 'pcg' or 'ld'
+        (per-pixel Owen-scrambled Sobol); ``adaptive``: per-tile adaptive
+        stopping in ``draw()`` (tiles park once their relative standard
+        error is at most ``GLAZE_ADAPTIVE_TAU``, default 0.01, after
+        ``GLAZE_ADAPTIVE_MIN`` launches, default 64). Defaults as
+        :func:`check_sampling`."""
         from glaze_tpu_torch.scene import DeviceScene, flatten_scene
 
-        check_sampling(samples_in_flight, sampler, adaptive)
+        sif, self.sampler, self.adaptive = check_sampling(
+            samples_in_flight, sampler, adaptive)
+        self.samples_in_flight = sif
+        self.adaptive_tau = float(os.environ.get("GLAZE_ADAPTIVE_TAU", "0.01"))
+        self.adaptive_min = float(os.environ.get("GLAZE_ADAPTIVE_MIN", "64"))
         self.host = None
         if isinstance(scene, DeviceScene):
             if device is not None and torch.device(device) != scene.device:
@@ -158,14 +161,21 @@ class RayTraceRenderer:
         self.coherent = (default_coherent() if coherent is None
                          else integ.resolve_coherent(coherent))
         self._rng = np.random.default_rng(seed)
+        # the ld streams' key, from a generator of its own so the launch
+        # seeds stay those of a pcg render
+        self._sampler_seed = int(np.random.default_rng(seed).integers(0, 2**32))
         self._scheduler = WorkScheduler()
-        self._state = integ.init_state(self.width, self.height, self.device)
+        self._state = self._zero_state()
         self._request_new_frame = True
         # alpha_rounds() when some material has an opacity map, else 0
         from glaze_tpu_torch.scene.flatten import MT_OPACITY
 
         has_opacity = bool(self.scene.mat_tex[:, MT_OPACITY].any())
         self._alpha_rounds = alpha_rounds() if has_opacity else 0
+
+    def _zero_state(self):
+        return integ.init_state(self.width, self.height, self.device,
+                                self.samples_in_flight)
 
     # -- configuration ------------------------------------------------------
     def set_integrator(self, integrator: Integrator):
@@ -183,32 +193,58 @@ class RayTraceRenderer:
         self.camera = camera
         self._request_new_frame = True
 
+    def change_resolution(self, width: int, height: int):
+        self.width, self.height = int(width), int(height)
+        self._state = self._zero_state()
+        self._request_new_frame = True
+
     # -- rendering ------------------------------------------------------------
     def _maybe_restart(self):
         if self._request_new_frame:
             self._request_new_frame = False
             self._scheduler.rewind()
-            self._state = integ.init_state(self.width, self.height, self.device)
+            self._state = self._zero_state()
+
+    def _take_offsets(self, n: int):
+        """Sub-pixel jitters for n launches: (n, 2), or (n, sif, 2), one
+        jitter per in-flight copy."""
+        s = self.samples_in_flight
+        if s == 1:
+            return self._scheduler.take(n)
+        return self._scheduler.take(n * s).reshape(n, s, 2)
+
+    def launches(self, spp: int) -> int:
+        """Launches of ``draw(spp)``: each advances samples_in_flight path
+        states per pixel, so ceil(spp * steps_per_sample / sif)."""
+        return -(-spp * self.integrator.steps_per_sample
+                 // self.samples_in_flight)
 
     def draw(self, spp: int, callback: Optional[Callable[[int], None]] = None,
              return_image: bool = True):
         """Blocking render of ``spp`` samples/pixel; returns (H, W, 3) uint8
         (or None with ``return_image=False``). ``callback(launches_done)``
-        fires after each chunk of launches."""
+        fires after each chunk of launches. With adaptive stopping the tile
+        mask is taken once per chunk, from the state before it."""
         self._maybe_restart()
         c2w, s2c = integ.camera_matrices(self.camera, self.width, self.height)
-        total = spp * self.integrator.steps_per_sample
         done = 0
-        for n in _chunk_sizes(total):
+        for n in _chunk_sizes(self.launches(spp)):
             seeds = self._rng.integers(0, 2**32, size=n, dtype=np.uint32)
-            offsets = self._scheduler.take(n)
+            offsets = self._take_offsets(n)
+            lane_active = None
+            if self.adaptive:
+                lane_active = integ.adaptive_lane_mask(
+                    self._state, sif=self.samples_in_flight,
+                    tau=self.adaptive_tau, min_count=self.adaptive_min)
             self._state = integ.render_steps(
                 self.scene, self._state, seeds, offsets, c2w, s2c,
                 width=self.width, height=self.height,
                 is_persp=self.camera.is_perspective,
                 direct_only=self.integrator is Integrator.DIRECT,
                 steps=n, alpha_rounds=self._alpha_rounds,
-                coherent=self.coherent)
+                sif=self.samples_in_flight, coherent=self.coherent,
+                sampler=self.sampler, sampler_seed=self._sampler_seed,
+                lane_active=lane_active)
             done += n
             if callback is not None:
                 if self.device.type == "cuda":
@@ -225,15 +261,115 @@ class RayTraceRenderer:
         exposure = (self.exposure if self.exposure is not None
                     else self.scene.exposure)
         return integ.render_image(self._state, exposure, self.width,
-                                  self.height)
+                                  self.height, self.samples_in_flight)
 
     def save(self, path: str):
         from PIL import Image
 
         Image.fromarray(self.get_image()).save(path)
 
+    # -- checkpoint / resume --------------------------------------------------
     @property
     def completed_spp(self) -> int:
-        """Samples/pixel accumulated so far."""
+        """Samples/pixel accumulated so far (count is per-lane launches;
+        each launch advances samples_in_flight states per pixel)."""
         count = int(self._state.count.max().item())
-        return count // self.integrator.steps_per_sample
+        return (count * self.samples_in_flight
+                // self.integrator.steps_per_sample)
+
+    def _leaves(self):
+        st = self._state
+        return [st.importance, *st.origin, *st.direction, st.bounce,
+                st.last_specular, *st.accum, st.count, st.path_no, st.sq]
+
+    def save_checkpoint(self, path: str, scene_id: str = ""):
+        """Writes the progressive state to ``path`` in the JAX package's
+        ``.npz`` layout: the 15 PathState leaves (``path_no`` as uint32),
+        the host PCG64 state as decimal strings and the scheduler.
+        ``scene_id``: an opaque scene identity that ``load_checkpoint``
+        holds the checkpoint to."""
+        leaves = []
+        for i, leaf in enumerate(self._leaves()):
+            a = leaf.detach().cpu().numpy()
+            if i == PATH_NO_LEAF:
+                a = (a & 0xFFFFFFFF).astype(np.uint32)
+            leaves.append(a)
+        bg = self._rng.bit_generator.state["state"]
+        sched = self._scheduler
+        np.savez_compressed(
+            path,
+            scene_id=str(scene_id),
+            n_leaves=len(leaves),
+            width=self.width,
+            height=self.height,
+            samples_in_flight=self.samples_in_flight,
+            integrator=self.integrator.value,
+            sampler=self.sampler,
+            sampler_seed=np.uint32(self._sampler_seed),
+            rng_state=str(bg["state"]),
+            rng_inc=str(bg["inc"]),
+            scheduler_current=(np.asarray(sched.current, np.float32)
+                               if sched.current
+                               else np.zeros((0, 2, 2), np.float32)),
+            scheduler_next=(np.asarray(sched.next, np.float32) if sched.next
+                            else np.zeros((0, 2, 2), np.float32)),
+            **{f"leaf_{i}": a for i, a in enumerate(leaves)},
+        )
+
+    def load_checkpoint(self, path: str, scene_id: str = ""):
+        """Restores a checkpoint of :meth:`save_checkpoint` (or of the JAX
+        package) onto the renderer's device. Its resolution, samples in
+        flight, integrator and sampler win over the renderer's. Raises
+        ValueError when both sides carry a scene_id and they differ. A
+        checkpoint with fewer leaves (before ``path_no`` and ``sq``)
+        resumes with zeros for them, and turns adaptive stopping off."""
+        data = np.load(path, allow_pickle=False)
+        ck_scene = str(data["scene_id"]) if "scene_id" in data else ""
+        if scene_id and ck_scene and ck_scene != str(scene_id):
+            raise ValueError(
+                f"checkpoint {path!r} was written for a different scene "
+                f"(scene_id {ck_scene!r} != {str(scene_id)!r})")
+        ck_sif = (int(data["samples_in_flight"])
+                  if "samples_in_flight" in data else 1)
+        if (int(data["width"]) != self.width
+                or int(data["height"]) != self.height
+                or ck_sif != self.samples_in_flight):
+            self.samples_in_flight = ck_sif
+            self.change_resolution(int(data["width"]), int(data["height"]))
+        self.integrator = Integrator(str(data["integrator"]))
+        if "sampler" in data:
+            self.sampler = str(data["sampler"])
+            self._sampler_seed = int(data["sampler_seed"])
+        cur = self._leaves()
+        leaves = []
+        for i, like in enumerate(cur):
+            if i < int(data["n_leaves"]):
+                a = np.asarray(data[f"leaf_{i}"]).astype(
+                    np.int64 if i == PATH_NO_LEAF else np.float32)
+                leaves.append(torch.from_numpy(a).to(self.device))
+            else:
+                # the trailing leaves (path_no, sq) are newer additions:
+                # resume with zeros (the ld stratification restarts)
+                leaves.append(torch.zeros_like(like))
+        shimmed = int(data["n_leaves"]) < len(cur)
+        self._state = integ.PathState(
+            importance=leaves[0], origin=tuple(leaves[1:4]),
+            direction=tuple(leaves[4:7]), bounce=leaves[7],
+            last_specular=leaves[8], accum=tuple(leaves[9:12]),
+            count=leaves[12], path_no=leaves[13], sq=leaves[14])
+        if shimmed and self.adaptive:
+            # a zero sq beside a large count reads as var = 0, which would
+            # park every tile for good
+            log.warning(
+                "checkpoint predates the adaptive variance statistic; "
+                "disabling adaptive sampling for this resumed render")
+            self.adaptive = False
+        state = self._rng.bit_generator.state
+        state["state"]["state"] = int(str(data["rng_state"]))
+        state["state"]["inc"] = int(str(data["rng_inc"]))
+        self._rng.bit_generator.state = state
+        sched = WorkScheduler()
+        sched.current = [tuple(map(tuple, a)) for a in data["scheduler_current"]]
+        sched.next = [tuple(map(tuple, a)) for a in data["scheduler_next"]]
+        self._scheduler = sched
+        self._request_new_frame = False

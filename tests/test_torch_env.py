@@ -1,8 +1,6 @@
 """The JAX package's environment switches in glaze_tpu_torch, on the CPU.
 
-Each switch of a ported feature gives the same result in both packages,
-and each switch of a feature that is not ported is refused, as its flag
-is:
+Each switch gives the same result in both packages:
 
 - ``GLAZE_TILE``: the lane swizzle bit for bit and coherent mode 2's tile
   chains (one launch_step from the same state), and the ValueError of a
@@ -13,9 +11,10 @@ is:
   with it;
 - ``GLAZE_ALPHA_MASK=0``: the flattened tables field for field (no cell
   masks baked) and a whole render on the opaque/alpha split;
-- ``GLAZE_SIF`` > 1, ``GLAZE_SAMPLER=ld``, ``GLAZE_ADAPTIVE=1``: the CLI
-  exits "not yet ported" and RayTraceRenderer raises NotImplementedError,
-  unless a flag or argument overrides the variable, as in glaze_tpu.
+- ``GLAZE_SIF``, ``GLAZE_SAMPLER``, ``GLAZE_ADAPTIVE`` (with
+  ``GLAZE_ADAPTIVE_TAU`` and ``GLAZE_ADAPTIVE_MIN``): both renderers take
+  the variable where no argument is given and the argument over it, and
+  the CLI renders with it (a fresh interpreter with the variables set).
 
 glaze_tpu reads GLAZE_TILE and GLAZE_ALPHA_ROUNDS once, at import, and so
 does the port GLAZE_TILE: a subprocess shows both imports read the same
@@ -313,37 +312,85 @@ def test_alpha_mask_env_tables_and_render_vs_jax(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the switches of features that are not ported
+# the sampling switches, read at construction (a fresh interpreter each)
+
+_SAMPLING_PROBE = """
+import json, os, sys
+import glaze_tpu_torch.scenes as ps
+from glaze_tpu.render.renderer import RayTraceRenderer as JRenderer
+from glaze_tpu_torch import cli
+from glaze_tpu_torch.render.renderer import RayTraceRenderer
+
+var, value, arg, flag, scene = sys.argv[1:6]
+override = json.loads(arg)
+os.environ[var] = value
+os.environ["GLAZE_ADAPTIVE_TAU"] = "0.25"
+os.environ["GLAZE_ADAPTIVE_MIN"] = "3"
+out = {}
+
+def attrs(r):
+    return [r.samples_in_flight, r.sampler, bool(r.adaptive),
+            r.adaptive_tau, r.adaptive_min]
+
+for label, kw in (("env", {}), ("argument", override)):
+    jr = JRenderer(ps.MatRowScene(), width=16, height=8, seed=3, **kw)
+    tr = RayTraceRenderer(ps.MatRowScene(), width=16, height=8, seed=3,
+                          device="cpu", **kw)
+    out[label] = [attrs(jr), attrs(tr)]
+argv = [scene, scene + ".png", "--res", "16x8", "--spp", "2", "--seed", "3",
+        "--device", "cpu"]
+for label, extra in (("cli_env", []), ("cli_flag", flag.split())):
+    code, r, t = cli.run(argv + extra)
+    out[label] = [code, attrs(r), t["launches"],
+                  int(r._state.count.shape[0]), float(r._state.count.max())]
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def sampling_scene(tmp_path_factory):
+    import glaze_tpu_torch.scenes as ps
+
+    path = tmp_path_factory.mktemp("env") / "row.glaze"
+    ps.write_glaze(ps.MatRowScene(), str(path))
+    return str(path)
 
 
 @pytest.mark.parametrize("var,value,override", [
     ("GLAZE_SIF", "4", {"samples_in_flight": 1}),
     ("GLAZE_SAMPLER", "ld", {"sampler": "pcg"}),
     ("GLAZE_ADAPTIVE", "1", {"adaptive": False})])
-def test_unported_env_refused(var, value, override, monkeypatch, tmp_path,
-                              capsys):
-    """The variable is refused as its flag is, by the CLI (exit 2, "not
-    yet ported", naming the variable) and by RayTraceRenderer
-    (NotImplementedError); a flag or argument that asks for the ported
-    value overrides it, as in glaze_tpu."""
-    import glaze_tpu_torch.scenes as ps
-    from glaze_tpu_torch import cli
-    from glaze_tpu_torch.render.renderer import RayTraceRenderer
-
-    scene = tmp_path / "row.glaze"
-    ps.write_glaze(ps.MatRowScene(), str(scene))
-    out = tmp_path / "row.png"
-    argv = [str(scene), str(out), "--res", "16x8", "--spp", "1", "--seed",
-            "3", "--device", "cpu"]
-    monkeypatch.setenv(var, value)
-    assert cli.main(argv) == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and f"{var}={value}" in err
-    assert not out.exists()
-    with pytest.raises(NotImplementedError, match=var):
-        RayTraceRenderer(LaceScene("torch"), width=8, height=8, device="cpu")
-    flag = {"samples_in_flight": ["--sif", "1"], "sampler": ["--sampler", "pcg"],
-            "adaptive": ["--adaptive", "off"]}[next(iter(override))]
-    assert cli.main(argv + flag) == 0 and out.exists()
-    RayTraceRenderer(LaceScene("torch"), width=8, height=8, device="cpu",
-                     **override)
+def test_unported_env_refused(var, value, override, sampling_scene):
+    """The sampling variables, once refused as not ported, act as in
+    glaze_tpu: with the variable set, both renderers take it (and
+    GLAZE_ADAPTIVE_TAU / _MIN); an argument overrides it in both; the CLI
+    renders with it, and its flag overrides it. Under GLAZE_SIF=4 a
+    two-sample render runs ceil(2 * 6 / 4) = 3 launches over 4 copies of
+    the 128x16 padded grid."""
+    env = {k: v for k, v in os.environ.items() if k not in VARS}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in (env.get("PYTHONPATH"),) if p])
+    env.setdefault("JAX_PLATFORMS", "cpu")
+    flag = {"samples_in_flight": "--sif 1", "sampler": "--sampler pcg",
+            "adaptive": "--adaptive off"}[next(iter(override))]
+    res = subprocess.run(
+        [sys.executable, "-c", _SAMPLING_PROBE, var, value,
+         json.dumps(override), flag, sampling_scene],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-2000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    default = [1, "pcg", False, 0.25, 3.0]
+    by_env = list(default)
+    by_env[{"GLAZE_SIF": 0, "GLAZE_SAMPLER": 1, "GLAZE_ADAPTIVE": 2}[var]] = (
+        {"GLAZE_SIF": 4, "GLAZE_SAMPLER": "ld", "GLAZE_ADAPTIVE": True}[var])
+    assert out["env"] == [by_env, by_env]
+    assert out["argument"] == [default, default]
+    sif = by_env[0]
+    launches = -(-12 // sif)
+    assert out["cli_env"][:4] == [0, by_env, launches, 2048 * sif]
+    if var == "GLAZE_ADAPTIVE":
+        # the tile parked once its pixels had 3 launches
+        assert 3.0 <= out["cli_env"][4] < launches
+    else:
+        assert out["cli_env"][4] == launches
+    assert out["cli_flag"] == [0, default, 12, 2048, 12.0]

@@ -35,6 +35,9 @@ def test_port_sources_found():
     assert len(files) > 30
     assert any(f.endswith(os.path.join("accel", "traverse_cuda.py")) for f in files)
     assert any(f.endswith(os.path.join("tools", "probes_cuda.py")) for f in files)
+    for mod in (("ops", "sobol.py"), ("utils", "log.py"),
+                ("utils", "runtime.py")):
+        assert any(f.endswith(os.path.join(*mod)) for f in files), mod
 
 
 @pytest.mark.parametrize("source,bad", [
@@ -163,10 +166,7 @@ def test_cli_default_device_raises_without_cuda(monkeypatch, tmp_path):
                   "--spp", "1"])
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mesh"], ["--checkpoint", "ck.npz"], ["--sif", "2"],
-    ["--sampler", "ld"], ["--adaptive", "on"], ["--denoise"], ["--profile"],
-])
+@pytest.mark.parametrize("flags", [["--mesh"], ["--denoise"]])
 def test_cli_rejects_unported_flags(flags, tmp_path, capsys):
     from glaze_tpu_torch import cli
 
@@ -174,6 +174,26 @@ def test_cli_rejects_unported_flags(flags, tmp_path, capsys):
                      "--device", "cpu"] + flags)
     assert code == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--checkpoint", "ck.npz"], ["--sif", "2"], ["--sampler", "ld"],
+    ["--adaptive", "on"], ["--profile", "prof"],
+])
+def test_cli_accepts_ported_flags(flags, tmp_path, capsys):
+    """The options that this CLI refused before they were ported render a
+    PNG on the CPU (the DIRECT integrator, one sample of 16x8)."""
+    import glaze_tpu_torch.scenes as ps
+    from glaze_tpu_torch import cli
+
+    scene = tmp_path / "s.glaze"
+    ps.write_glaze(ps.MatRowScene(), str(scene))
+    flags = [str(tmp_path / f) if f.endswith((".npz", "prof")) else f
+             for f in flags]
+    code = cli.main([str(scene), str(tmp_path / "o.png"), "--device", "cpu",
+                     "--res", "16x8", "--spp", "2", "-i", "direct"] + flags)
+    assert code == 0 and (tmp_path / "o.png").exists()
+    assert "not yet ported" not in capsys.readouterr().err
 
 
 def test_traverse_wrappers_refuse_cpu_tensors():

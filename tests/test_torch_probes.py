@@ -918,3 +918,44 @@ def test_slab_rate_kernel_matches_plain_on_cuda(dtype):
     want = bench_bf16_slab.slab_rate_plain(o, i, nodes, 64)
     assert torch.equal(got, want)
 
+
+
+_SASS = """
+	code for sm_90a
+		Function : _Z13slab_rate_f32PKfS0_S0_iifPf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+.L_x_1:
+        /*0020*/                   LDS R4, [R2] ;
+        /*0030*/                   FADD R5, R4, -R3 ;
+        /*0040*/                   FMUL R6, R5, R7 ;
+        /*0050*/                   FMNMX R8, R6, R9, PT ;
+        /*0060*/                   FSETP.GTU.AND P0, PT, R8, R6, PT ;
+        /*0070*/                   HMNMX2.BF16_V2 R10, R10, R11, PT ;
+        /*0080*/                   IADD3 R2, R2, 0x4, RZ ;
+        /*0090*/               @P1 BRA `(.L_x_1) ;
+        /*00a0*/                   BRA `(.L_x_2) ;
+.L_x_2:
+        /*00b0*/                   STG.E [R12.64], R8 ;
+        /*00c0*/                   EXIT ;
+		Function : _Z5otherv
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_loops_reads_a_listing():
+    """The SASS loop counter finds the backward branch, and only it, and
+    classes the loop's instructions (the kernels' listings come from the
+    card's toolkit; this is a listing in its format)."""
+    from glaze_tpu_torch.tools import sass_loops as sl
+
+    funcs = sl.functions(_SASS)
+    assert sorted(funcs) == ["_Z13slab_rate_f32PKfS0_S0_iifPf", "_Z5otherv"]
+    insns, found = sl.loops(funcs["_Z13slab_rate_f32PKfS0_S0_iifPf"])
+    assert len(insns) == 13 and found == [(2, 9)]
+    s = sl.summarize(insns, *found[0])
+    assert s["instructions"] == 8
+    assert s["classes"] == {"bf16x2_minmax": 1, "control": 1, "f32_add": 1,
+                            "f32_compare": 1, "f32_minmax": 1, "f32_mul": 1,
+                            "int": 1, "shared": 1}
+    assert s["float_ops"] == 5
