@@ -22,10 +22,12 @@ then opaque with GLAZE_TREE=fat and =hybrid, and full with
 GLAZE_TREE=fat), checks that exactly the expected kernels served each
 render, and renders the golden scene against the stored golden. It
 renders the full scene with two samples in flight, the ld sampler,
-coherent off and adaptive stopping ([sampling]), and resumes a
-checkpointed render in a second process against a straight one, resumes a
-CPU-written checkpoint on the card and writes a --profile trace
-([resume]). Any failed phase raises, so the script exits non-zero and
+coherent off and adaptive stopping, holds K2 and K4 against their plain
+walkers on that render's own rays (parked lanes included) and the golden
+scene with those options on the card against the CPU ([sampling]), and
+resumes a checkpointed render in a second process against a straight
+one, resumes a CPU-written checkpoint on the card and writes a --profile
+trace ([resume]). Any failed phase raises, so the script exits non-zero and
 prints no result. Without CUDA (or without the package beside it) it
 exits non-zero too.
 
@@ -60,7 +62,6 @@ import torch  # noqa: E402
 RES = (1920, 1080)
 SPP = 2
 SEED = 7
-DEVICE = "cuda"  # of the [sampling] and [resume] renders
 # H100 SXM HBM bytes/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12
 # Non-tensor operations are counted one instruction each: the kernels are
@@ -77,7 +78,7 @@ PEAK_F32 = None
 PEAK_BF16 = None
 T_MIN = 1e-4  # no hit lies at t <= T_MIN (glaze_tpu_torch.accel.bvh)
 # float operations per walk step, as the sm_90a loops issue them (python -m
-# glaze_tpu_torch.tools.sass_loops traverse closest_kernel): a node's slab
+# scripts/sass_loops.py traverse closest_kernel): a node's slab
 # test (6 FADD, 6 FMUL, 10 FMNMX, 3 FSETP); a Moller-Trumbore triangle test
 # (27 FMUL, 18 FADD, 6 compares, 3 selects of the best hit, and an IEEE
 # division: MUFU.RCP, 2 FFMA, 1 FADD.FTZ and its range compare); a cell
@@ -505,7 +506,8 @@ def probes_t2(entry, bvh, o3, d3, results):
 
 def probes_t4(entry, results):
     """T4: each dtype and size against the plain loop (every element
-    exact), bounds (f32 and packed bf16 at their instruction rates)."""
+    exact), bounds (f32 and packed bf16 at their instruction rates, bf16
+    by the packed instructions its loop issues)."""
     from glaze_tpu_torch.tools import bench_bf16_slab as bs
     from glaze_tpu_torch.tools.common import timed_call
 
@@ -522,7 +524,8 @@ def probes_t4(entry, results):
         per_thread = 2 if name == "bf16" else 1
         b_ms, b_by = _probe_bound(
             n * o.element_size() * 3 + nodes.numel() * 4,
-            ops=n * res["iters"] * bs.OPS_PER_TEST,
+            ops=n * res["iters"] * (bs.ISSUED_PER_TEST_BF16 if name == "bf16"
+                                    else bs.OPS_PER_TEST),
             ops_peak=PEAK_BF16 if name == "bf16" else PEAK_F32,
             blocks=-(-n // (256 * per_thread)))
         entry["sets"][f"{name}_{res['rows']}rows"] = dict(
@@ -1268,28 +1271,6 @@ EXPECTED_PROFILE = _expected(closest_hit=6, any_hit=6)
 
 
 @contextlib.contextmanager
-def lane_log(lanes):
-    """Appends the lane count of every traversal dispatch to ``lanes``."""
-    import glaze_tpu_torch.accel as accel
-
-    orig = {name: getattr(accel, name) for name in Capture.NAMES}
-
-    def wrap(fn):
-        def call(bvh, o3, *a, **k):
-            lanes.append(int(o3[0].shape[0]))
-            return fn(bvh, o3, *a, **k)
-        return call
-
-    for name, fn in orig.items():
-        setattr(accel, name, wrap(fn))
-    try:
-        yield lanes
-    finally:
-        for name, fn in orig.items():
-            setattr(accel, name, fn)
-
-
-@contextlib.contextmanager
 def mask_log(masks):
     """Appends (mask, count, bounce) of every adaptive mask the renderer
     takes (once per chunk, from the state before the chunk) to
@@ -1310,13 +1291,89 @@ def mask_log(masks):
         integ.adaptive_lane_mask = real
 
 
+def _sampling_kernels(scene, cap, report):
+    """K2 and K4 against their plain walkers (as in [kernels]) on the
+    [sampling] render's own dispatches of 2 x 2,088,960 lanes: K2 on the
+    full tree's walk of launch 0 (camera rays of both copies), launch 1
+    (mostly bounce rays) and the last launch (parked lanes carry cap -1);
+    K4 on the shadow rays of launch 0 and of the last launch (parked lanes
+    inactive). Returns the parked lanes of the last launch's walk."""
+    closest = cap.calls["closest_hit_soa_masked_auto"]
+    anyhit = cap.calls["any_hit_soa_masked_auto"]
+    # launch n's first full-tree call is its walk (n any-hit calls before
+    # it); the second is its re-test round
+    walk = {}
+    for c in closest:
+        if c["bvh"] is scene.bvh:
+            walk.setdefault(c["anyhits_before"], c)
+    last = SAMPLING_LAUNCHES - 1
+    parked = int((walk[last]["t_max"] < 0).sum())
+    log(f"[sampling] launch {last}: {parked} of "
+        f"{walk[last]['o3'][0].shape[0]} lanes parked (cap -1), "
+        f"{int(anyhit[last]['active'].sum())} shadow rays active")
+    if not parked:
+        raise RuntimeError("the last sampling launch traced no parked lane")
+    k2, k4 = report["closest_hit_masked"], report["any_hit_masked"]
+    for label, s in (("sampling_camera", walk[0]),
+                     ("sampling_bounce", walk[1]),
+                     ("sampling_parked", walk[last])):
+        _check_closest(k2, label, scene.bvh, s)
+    for label, s in (("sampling_shadow", anyhit[0]),
+                     ("sampling_shadow_parked", anyhit[last])):
+        _check_anyhit(k4, label, scene.bvh, s)
+    # the headline stays the one-copy sets of [kernels]; the worst error
+    # and the warp counters take the new sets in
+    _summarize(k2, ("camera", "bounce"))
+    _summarize(k4, ("shadow_camera_hits", "shadow_bounce_hits"))
+    return parked
+
+
+# the golden of [sampling]: sif 2, ld, coherent 0 and adaptive stopping
+# whose tiles park within its 8 spp (24 launches, masks before launches
+# 0, 8 and 16), on the card against the port's CPU render
+GOLDEN_SAMPLING = dict(samples_in_flight=2, sampler="ld", coherent=0,
+                       adaptive=True)
+GOLDEN_ADAPTIVE = (0.1, 6.0)  # tau, least launches a pixel
+FLOAT_LEAVES = ("importance", "origin", "direction", "accum", "sq")
+
+
+def _leaf(state, name):
+    """A PathState leaf as NumPy (k, P)."""
+    v = getattr(state, name)
+    v = torch.stack(v) if isinstance(v, tuple) else v
+    return v.cpu().numpy().reshape(-1, state.count.shape[0])
+
+
+def _states_agree(tag, got, want, launches):
+    """The rule of tests/test_torch_sampling.py: count, path_no and
+    bounce exact; the float leaves within rtol/atol 1e-4 on all but 0.1%
+    of the lanes per launch; the image within the MC bound. Returns the
+    share of lanes off and the MAD."""
+    for name in ("count", "path_no", "bounce"):
+        if not np.array_equal(_leaf(got, name), _leaf(want, name)):
+            raise RuntimeError(f"{tag}: {name} differs")
+    off = np.zeros(got.count.shape[0], bool)
+    for name in FLOAT_LEAVES:
+        off |= ~np.isclose(_leaf(got, name), _leaf(want, name), rtol=1e-4,
+                           atol=1e-4).all(0)
+    share = float(off.mean())
+    log(f"[{tag}] count, path_no and bounce exact; {int(off.sum())} of "
+        f"{off.size} lanes have a float leaf off 1e-4 ({share:.3g}, "
+        f"allowed {0.001 * launches:.3g} after {launches} launches)")
+    mad = _mc_agree(tag, *_state_np(got), *_state_np(want))
+    if share > 0.001 * launches:
+        raise RuntimeError(f"{tag}: {int(off.sum())} lanes off 1e-4")
+    return share, mad
+
+
 def phase_sampling(path, workdir, report):
     """The full scene through the CLI at 1920x1080, 2 spp, with
     SAMPLING_FLAGS: the launch counters equal EXPECTED_SAMPLING, every
     dispatch traces 2 x 2,088,960 lanes, some tile parks and the parked
-    lanes' counts stay frozen. Then the golden scene at 96x48 with sif 2,
-    ld and coherent 0 on the card against the port's CPU render of the
-    same arguments."""
+    lanes' counts stay frozen; K2 and K4 against their plain walkers on
+    the render's own rays (_sampling_kernels). Then the golden scene at
+    96x48 with GOLDEN_SAMPLING on the card against the port's CPU render
+    of the same arguments (_states_agree)."""
     from PIL import Image
 
     import glaze_tpu_torch.scenes as ps
@@ -1324,20 +1381,22 @@ def phase_sampling(path, workdir, report):
     from glaze_tpu_torch.render.renderer import RayTraceRenderer
 
     out = os.path.join(workdir, "sponza_sampling.png")
-    lanes, masks = [], []
-    with lane_log(lanes), mask_log(masks):
+    masks = []
+    with Capture() as cap, mask_log(masks):
         code, r, times, launches, probes, _ = run_cli(
             [path, out, "--res", f"{RES[0]}x{RES[1]}", "--spp", str(SPP),
-             "--seed", str(SEED), "--device", DEVICE] + SAMPLING_FLAGS,
+             "--seed", str(SEED), "--device", "cuda"] + SAMPLING_FLAGS,
             env=SAMPLING_ENV)
     if code != 0:
         raise RuntimeError(f"CLI exited {code}")
     _held_to("sampling", "sampling", launches, probes, EXPECTED_SAMPLING,
              report)
     want = 2 * integ.pixel_count(*RES)
-    if times["launches"] != SAMPLING_LAUNCHES or set(lanes) != {want}:
+    lanes = {int(c["o3"][0].shape[0]) for calls in cap.calls.values()
+             for c in calls}
+    if times["launches"] != SAMPLING_LAUNCHES or lanes != {want}:
         raise RuntimeError(f"sampling render: {times['launches']} launches, "
-                           f"lane counts {sorted(set(lanes))}, expected "
+                           f"lane counts {sorted(lanes)}, expected "
                            f"{SAMPLING_LAUNCHES} of {want}")
     parked = [float(1.0 - m.float().mean()) for m, _, _ in masks]
     log(f"[sampling] {times['launches']} launches of {want} lanes; parked "
@@ -1374,20 +1433,33 @@ def phase_sampling(path, workdir, report):
                "mrays_per_s": rays / times["render"] / 1e3,
                "parked_share_by_chunk": parked, "frozen_lanes": frozen,
                "image_mean": float(img.mean()), "kernel_launches": launches}
-    del r, masks, count, accum
+    del masks, count, accum
+    numbers["parked_lanes_checked"] = _sampling_kernels(r.scene, cap, report)
+    del r, cap
     torch.cuda.empty_cache()
-    kw = dict(width=ps.GOLDEN_W, height=ps.GOLDEN_H, seed=ps.GOLDEN_SEED,
-              samples_in_flight=2, sampler="ld", coherent=0)
     renders = {}
-    for dev in (DEVICE, "cpu"):
+    for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        g = RayTraceRenderer(ps.MatRowScene(), device=dev, **kw)
-        g.draw(ps.GOLDEN_SPP, return_image=False)
-        renders[dev] = _state_np(g._state)
-        log(f"[sampling] golden scene, sif 2, ld, coherent 0, "
-            f"{ps.GOLDEN_SPP} spp on {dev}: {time.perf_counter() - t0:.1f} s")
-    numbers["golden_mad"] = _mc_agree("sampling:golden", *renders[DEVICE],
-                                      *renders["cpu"])
+        g = RayTraceRenderer(ps.MatRowScene(), width=ps.GOLDEN_W,
+                             height=ps.GOLDEN_H, seed=ps.GOLDEN_SEED,
+                             device=dev, **GOLDEN_SAMPLING)
+        g.adaptive_tau, g.adaptive_min = GOLDEN_ADAPTIVE
+        g_masks = []
+        with mask_log(g_masks):
+            g.draw(ps.GOLDEN_SPP, return_image=False)
+        shares = [float(1.0 - m.float().mean()) for m, _, _ in g_masks]
+        log(f"[sampling] golden scene, sif 2, ld, coherent 0, adaptive "
+            f"(tau {GOLDEN_ADAPTIVE[0]}, min {GOLDEN_ADAPTIVE[1]:g}), "
+            f"{ps.GOLDEN_SPP} spp on {dev}: {time.perf_counter() - t0:.1f} s; "
+            f"parked share per chunk {shares}")
+        if not any(shares):
+            raise RuntimeError(f"no golden tile parked on {dev}")
+        renders[dev] = g
+    share, mad = _states_agree("sampling:golden", renders["cuda"]._state,
+                               renders["cpu"]._state,
+                               renders["cuda"].launches(ps.GOLDEN_SPP))
+    numbers.update(golden_lanes_off=share, golden_mad=mad,
+                   golden_parked_by_chunk=shares)
     return numbers
 
 
@@ -1424,7 +1496,7 @@ def phase_resume(paths, workdir, report):
     if os.path.exists(ck):
         os.unlink(ck)
     base = [paths["full"], "--res", f"{RES[0]}x{RES[1]}", "--seed", str(SEED),
-            "--device", DEVICE]
+            "--device", "cuda"]
 
     def argv(out, spp, *extra):
         return [base[0], os.path.join(workdir, out)] + base[1:] + [
@@ -1483,8 +1555,7 @@ def phase_resume(paths, workdir, report):
     save_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     straight.load_checkpoint(tmp)
-    if DEVICE == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     log(f"[resume] a 1080p checkpoint: {os.path.getsize(tmp) / 1e6:.1f} MB, "
         f"save {save_s:.2f} s, load {load_s:.2f} s")
@@ -1503,9 +1574,9 @@ def phase_resume(paths, workdir, report):
     cpu = RayTraceRenderer(ps.MatRowScene(), device="cpu", **kw)
     cpu.draw(ps.GOLDEN_SPP // 2, return_image=False)
     cpu.save_checkpoint(ck_cpu)
-    gpu = RayTraceRenderer(ps.MatRowScene(), device=DEVICE, **kw)
+    gpu = RayTraceRenderer(ps.MatRowScene(), device="cuda", **kw)
     gpu.load_checkpoint(ck_cpu)
-    if gpu._state.count.device.type != DEVICE:
+    if gpu._state.count.device.type != "cuda":
         raise RuntimeError("the checkpoint did not load onto the card")
     gpu.draw(ps.GOLDEN_SPP - ps.GOLDEN_SPP // 2, return_image=False)
     numbers["golden_resumed_mad"] = _mc_agree(
@@ -1518,7 +1589,7 @@ def phase_resume(paths, workdir, report):
     code, r, t3, launches, probes, err = run_cli(
         [paths["opaque"], os.path.join(workdir, "profiled.png"), "--res",
          f"{RES[0]}x{RES[1]}", "--spp", "1", "--seed", str(SEED),
-         "--device", DEVICE, "--profile", prof])
+         "--device", "cuda", "--profile", prof])
     if code != 0 or "Phases: " not in err or "Profile trace written" not in err:
         raise RuntimeError(f"--profile render exited {code}")
     _held_to("resume:profile", "profile", launches, probes, EXPECTED_PROFILE,

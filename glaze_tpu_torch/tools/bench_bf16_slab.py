@@ -40,6 +40,11 @@ FILL_ROWS = 2112   # 132 SMs x 2048 threads / 128 lanes
 # operations per element and iteration: 6 add/sub, 6 mul, 10 min/max,
 # 2 compares, the count's add, the cap's min and select
 OPS_PER_TEST = 27
+# packed instructions the sm_90a bf16 loop issues for a pair of elements
+# (scripts/sass_loops.py probes slab_rate_bf16): 25, since two three-input
+# VHMNMX each do two of the min/max. Each is two results of the packed
+# rate, so the bf16 bound charges 25 results an element, not 27.
+ISSUED_PER_TEST_BF16 = 25
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 

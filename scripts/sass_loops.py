@@ -11,8 +11,12 @@ integer; shared and global memory; special functions; control), the
 classes that bound a kernel's operations on the card. An unrolled loop
 shows its unroll factor in the count of its loads.
 
-Usage: python -m glaze_tpu_torch.tools.sass_loops traverse|probes NAME...
+Usage: python scripts/sass_loops.py traverse|probes NAME...
        [--sass FILE] [--json PATH]
+
+It is a measurement script, not part of the port: the counts it printed
+stand in PERF.md and in the bounds' constants (chip_smoke.py,
+glaze_tpu_torch/tools/bench_bf16_slab.py).
 """
 
 from __future__ import annotations
@@ -81,6 +85,8 @@ def cuobjdump() -> str:
 
 def library(which: str) -> str:
     """The built library of ``traverse`` or ``probes``."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     if which == "traverse":
         from glaze_tpu_torch.accel import traverse_cuda as mod
     elif which == "probes":

@@ -15,8 +15,10 @@ FORBIDDEN = {"jax", "jaxlib", "glaze_tpu", "tools"}
 
 def _port_sources():
     files = [os.path.join(ROOT, "chip_smoke.py")]
-    for dirpath, _, names in os.walk(os.path.join(ROOT, "glaze_tpu_torch")):
-        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    for top in ("glaze_tpu_torch", "scripts"):
+        for dirpath, _, names in os.walk(os.path.join(ROOT, top)):
+            files += [os.path.join(dirpath, n) for n in names
+                      if n.endswith(".py")]
     return sorted(files)
 
 

@@ -943,11 +943,23 @@ _SASS = """
 """
 
 
+def _sass_loops():
+    """scripts/sass_loops.py, which is a script beside the package."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "sass_loops.py")
+    spec = importlib.util.spec_from_file_location("sass_loops", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def test_sass_loops_reads_a_listing():
     """The SASS loop counter finds the backward branch, and only it, and
     classes the loop's instructions (the kernels' listings come from the
     card's toolkit; this is a listing in its format)."""
-    from glaze_tpu_torch.tools import sass_loops as sl
+    sl = _sass_loops()
 
     funcs = sl.functions(_SASS)
     assert sorted(funcs) == ["_Z13slab_rate_f32PKfS0_S0_iifPf", "_Z5otherv"]
