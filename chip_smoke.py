@@ -5,7 +5,9 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from the sources in the checkout (one nvcc for
-each library, started together). It drives the probe tools of
+each library, started together) and measures the issue rate of each
+instruction class that the bounds charge ([rates]). It drives the probe
+tools of
 glaze_tpu_torch.tools (the fat-leaf drain T1, the walk-overhead walk T2,
 the product chains T3a/T3b and the slab-rate loop T4) through their entry
 points at the tools' sizes, T2 on the 1080p camera rays of the
@@ -27,13 +29,17 @@ walkers on that render's own rays (parked lanes included) and the golden
 scene with those options on the card against the CPU ([sampling]), and
 resumes a checkpointed render in a second process against a straight
 one, resumes a CPU-written checkpoint on the card and writes a --profile
-trace ([resume]). Any failed phase raises, so the script exits non-zero and
-prints no result. Without CUDA (or without the package beside it) it
-exits non-zero too.
+trace ([resume]), and renders the full scene with --denoise against the
+same render without it, holding the display filter and its G-buffer on
+the card against the CPU ([denoise]). Any failed phase raises, so the
+script exits non-zero and prints no result. Without CUDA (or without the
+package beside it) it exits non-zero too.
 
 Bounds: bytes over the HBM rate, tensor FLOPs over the tensor peaks, and
-other operations over the card's instruction rate at its maximum SM clock
-(see PEAK_F32).
+other operations by instruction class over the rates of their pipes and
+over the issue rate, at the card's maximum SM clock (see SM_HZ); [rates]
+measures those rates first (scripts/issue_rates.py) and fails if a class
+runs above the rate its bounds charge.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
@@ -64,35 +70,30 @@ SPP = 2
 SEED = 7
 # H100 SXM HBM bytes/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12
-# Non-tensor operations are counted one instruction each: the kernels are
-# built with --fmad=false (glaze_tpu_torch/cuda_build.py) so that they match
-# their plain versions bit for bit, so no add and mul fuse into an FMA, and
-# min, max, compare and select never fuse. The data sheet's 67 TFLOP/s
-# counts an FMA as two operations; one SM issues at most 128 f32 results a
-# clock, or 128 packed bf16x2 instructions (256 results). The peaks follow
-# from the card's maximum SM clock (nvidia-smi clocks.max.sm), read in
-# main(): 132 x 128 x 1.98 GHz = 33.45e12 f32 and 66.9e12 bf16 results/s.
-F32_PER_SM_CLOCK = 128
-BF16_PER_SM_CLOCK = 256
-PEAK_F32 = None
-PEAK_BF16 = None
+# Non-tensor operations are charged by instruction class
+# (glaze_tpu_torch.tools.common.RATES and ops_clocks): each pipe's classes
+# over its rate, and all of them over the issue rate (one warp instruction
+# per sub-partition a clock), the larger term binding, at the card's
+# maximum SM clock (nvidia-smi clocks.max.sm, read in main()). The kernels
+# are built with --fmad=false (glaze_tpu_torch/cuda_build.py) so that they
+# match their plain versions bit for bit: no add and mul fuse into an FMA.
+SM_HZ = None
 T_MIN = 1e-4  # no hit lies at t <= T_MIN (glaze_tpu_torch.accel.bvh)
-# float operations per walk step, as the sm_90a loops issue them (python -m
-# scripts/sass_loops.py traverse closest_kernel): a node's slab
-# test (6 FADD, 6 FMUL, 10 FMNMX, 3 FSETP); a Moller-Trumbore triangle test
-# (27 FMUL, 18 FADD, 6 compares, 3 selects of the best hit, and an IEEE
-# division: MUFU.RCP, 2 FFMA, 1 FADD.FTZ and its range compare); a cell
-# lookup of an accepted hit in the masked walks (2 mul, 2 casts, 2 min, 1
+# the instructions of one walk step by class, as the sm_90a loops issue
+# them (python scripts/sass_loops.py traverse closest_kernel): a node's
+# slab test; a Moller-Trumbore triangle test (27 FMUL, 18 FADD, 6 compares,
+# 3 selects of the best hit, and an IEEE division: MUFU.RCP, 2 FFMA, 1
+# FADD.FTZ and its range compare); a cell lookup of an accepted hit in the
+# masked walks (2 mul, 2 min, and 8 integer instructions: 2 casts, 1
 # mul-add for the cell, 1 shift and 1 compare for the word, 1 shift, 1 and,
-# 1 compare); a fat-leaf column in K7c/K7a (csrc/traverse.cu fat_column: 25
-# FMUL, 16 FADD, 5 compares, and the division of t as above)
-OPS_PER_NODE = 25
-OPS_PER_TRI = 59
-OPS_PER_MASK = 12
-OPS_PER_COLUMN = 51
-# bytes of one distinct table row a walk needs: a node (bmin, bmax, meta,
-# skip), a triangle's v0/e1/e2, one payload word of a cell lookup, the 19
-# coefficients of a fat-leaf column
+# 1 compare, charged at the issue rate); a fat-leaf column in K7c/K7a
+# (csrc/traverse.cu fat_column: 25 FMUL, 16 FADD, 5 compares, and the
+# division of t as above)
+NODE_OPS = {"FADD": 6, "FMUL": 6, "FMNMX": 10, "FSETP": 3}
+TRI_OPS = {"FMUL": 27, "FADD": 19, "FSETP": 7, "FSEL": 3, "MUFU": 1,
+           "FFMA": 2}
+MASK_OPS = {"FMUL": 2, "FMNMX": 2, "other": 8}
+COLUMN_OPS = {"FMUL": 25, "FADD": 17, "FSETP": 6, "MUFU": 1, "FFMA": 2}
 BYTES_PER_NODE = 32
 BYTES_PER_TRI = 36
 BYTES_PER_MASK_WORD = 4
@@ -130,25 +131,42 @@ EXPECTED_FAT_FULL = _expected(closest_hit=LAUNCHES, any_hit=LAUNCHES,
 
 # The probe kernels' bounds: the dense tensor rates of TF32 and bf16 (NVIDIA
 # H100 SXM data sheet; they count a multiply-add as two FLOPs, and so do
-# the tensor FLOP counts below) and the non-tensor instruction rates above
-# (PEAK_F32, PEAK_BF16). A kernel that runs on fewer blocks than SMs gets
-# that share of each peak.
+# the tensor FLOP counts below) and the non-tensor rates above. A kernel
+# that runs on fewer blocks than SMs gets that share of each peak.
 PEAK_TF32 = 495e12
 PEAK_BF16_TC = 989e12
 SMS = 132
 
 
-def set_peaks(max_sm_clock_mhz):
-    """The non-tensor peaks at the card's maximum SM clock."""
-    global PEAK_F32, PEAK_BF16
-    hz = max_sm_clock_mhz * 1e6
-    PEAK_F32 = SMS * F32_PER_SM_CLOCK * hz
-    PEAK_BF16 = SMS * BF16_PER_SM_CLOCK * hz
-    return PEAK_F32, PEAK_BF16
+def scaled(ops, n):
+    """The class counts ``ops`` of one step times ``n`` steps."""
+    return {cls: k * n for cls, k in ops.items()}
+
+
+def summed(*counts):
+    """Class counts added class by class."""
+    out = {}
+    for c in counts:
+        for cls, k in c.items():
+            out[cls] = out.get(cls, 0) + k
+    return out
+
+
+def ops_ms(counts, blocks=SMS):
+    """Least milliseconds of the non-tensor instructions ``counts`` (class
+    -> thread instructions of the whole launch) on ``blocks`` blocks (one
+    SM each, at most all SMs): (ms, the term that binds)."""
+    from glaze_tpu_torch.tools.common import ops_clocks
+
+    clocks, term = ops_clocks(counts)
+    return clocks / (min(blocks, SMS) * SM_HZ) * 1e3, term
+
+
 # f32 operations of a drain: per (triangle, ray) resolve (|det| and its
 # compare, 1/det, t, ud*det, vd*det, ud+vd and its product, det*det, 5
 # compares); per ray and leaf the features (3 sub for o', 6 mul + 3 sub
-# for o' x d)
+# for o' x d). They are not split by class (the tensor term binds the
+# drains and chains by far): charged at the issue rate.
 OPS_RESOLVE = 14
 OPS_FEATURES = 12
 SHORT_CHAIN = 16     # T3a/T3b kernel-against-plain chains
@@ -196,9 +214,21 @@ def ulp_diff(a, b):
 # ---------------------------------------------------------------------------
 
 
+def _script(name):
+    """scripts/<name>.py, a measurement script beside the package."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_build():
-    """Builds traverse.cu, probes.cu and the native host library at once
-    (one compiler process each) and prints each ptxas report."""
+    """Builds traverse.cu, probes.cu, scripts/issue_rates.cu and the native
+    host library at once (one compiler process each) and prints each
+    ptxas report."""
     from concurrent.futures import ThreadPoolExecutor
 
     from glaze_tpu_torch import native
@@ -206,12 +236,13 @@ def phase_build():
     from glaze_tpu_torch.tools import probes_cuda as pc
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        jobs = [pool.submit(f) for f in (tc.build, pc.build, native.get_lib)]
+    with ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(f) for f in (tc.build, pc.build, native.get_lib,
+                                         _script("issue_rates").build)]
         for job in jobs:
             job.result()
-    log(f"[build] traverse.cu + probes.cu + native host library in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"[build] traverse.cu + probes.cu + issue_rates.cu + native host "
+        f"library in {time.perf_counter() - t0:.2f} s")
     for lib, text in (("traverse", tc.build_log), ("probes", pc.build_log)):
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
@@ -228,19 +259,39 @@ def phase_build():
     return attrs
 
 
-def _probe_bound(nbytes, tc_flops=0.0, tc_peak=PEAK_TF32, ops=0.0,
-                 ops_peak=None, blocks=SMS):
+def phase_rates():
+    """The issue rate of each instruction class on this card
+    (scripts/issue_rates.py: one loop a class and mixed loops, each
+    loop's SASS checked) against the rates and pipes the bounds charge
+    (glaze_tpu_torch.tools.common.RATES): raises if a class runs more than
+    5% above its charged rate, a mixed loop faster than the charged pipes
+    allow, or a loop is not the opcode it names. Returns the rates."""
+    ir = _script("issue_rates")
+    t0 = time.perf_counter()
+    results, failures = ir.run_all(
+        report=lambda r: log(f"[rates] {ir.describe(r)}"))
+    log(f"[rates] {len(results)} loops in {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise RuntimeError(f"issue rates: {failures}")
+    return {name: {k: r[k] for k in ("classes", "sampled_mhz", "max_mhz",
+                                      "per_sm_clock", "one_pipe", "two_pipes",
+                                      "overlap", "charged") if k in r}
+            for name, r in results.items()}
+
+
+def _probe_bound(nbytes, tc_flops=0.0, tc_peak=PEAK_TF32, ops=None,
+                 blocks=SMS):
     """Least time of a probe's work on ``blocks`` blocks (one SM each, at
     most all SMs): the largest of bytes over the HBM rate, tensor-core
-    FLOPs over ``tc_peak`` and other operations over ``ops_peak`` (default
-    the f32 instruction rate), each peak cut to the SMs the blocks occupy.
+    FLOPs over ``tc_peak`` and the non-tensor instructions ``ops`` (class
+    -> count, :func:`ops_ms`), each peak cut to the SMs the blocks occupy.
     Returns (ms, bound_by)."""
-    ops_peak = PEAK_F32 if ops_peak is None else ops_peak
     share = min(blocks, SMS) / SMS
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(tc_flops / (tc_peak * share), ops / (ops_peak * share))
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = max(tc_flops / (tc_peak * share) * 1e3,
+                ops_ms(ops or {}, blocks)[0])
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def _drain_diff(kern, plain, label):
@@ -327,8 +378,8 @@ def probes_t1(entry, results):
             nbytes = L * 16 * w * 4 + L * 12 + reps * 4 + r * 6 * 4 + r * 16
             b_ms, b_by = _probe_bound(
                 nbytes, passes * 2 * 4 * T * 128 * 16 * reps * blocks, peak,
-                reps * blocks * 128 * (OPS_FEATURES + OPS_RESOLVE * T),
-                blocks=blocks)
+                {"other": reps * blocks * 128
+                 * (OPS_FEATURES + OPS_RESOLVE * T)}, blocks=blocks)
             ns = ms * 1e6 / reps
             s["timings"][f"reps{reps}_blocks{blocks}"] = dict(
                 ms=ms, bound_ms=b_ms, bound_by=b_by, ns_per_row_leaf=ns,
@@ -399,7 +450,7 @@ def probes_t3a(entry, results):
         b_ms, b_by = _probe_bound(
             16 * w * 4 + 16 * 128 * 4 + 8 * 128 * 4,
             passes * 2 * w * 128 * 16 * reps, peak,
-            reps * (w * 128 + 16 * 128 + 8 * 128), blocks=1)
+            {"other": reps * (w * 128 + 16 * 128 + 8 * 128)}, blocks=1)
         entry["sets"][f"T{T}_b{batch}_{prec}"] = dict(
             ms=res["ms"], cycles_per_dot=res["cycles_per_dot"],
             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, flips=flips,
@@ -437,7 +488,7 @@ def probes_t3b(entry, results):
         b_ms, b_by = _probe_bound(
             16 * 4 * T * 4 + 16 * 128 * 4 + 128 * 16,
             3 * 2 * 4 * T * 128 * 16 * reps, PEAK_TF32,
-            reps * 128 * (OPS_RESOLVE * T + 16), blocks=1)
+            {"other": reps * 128 * (OPS_RESOLVE * T + 16)}, blocks=1)
         s.update(ms=res["ms"], cycles=res["cycles"], bound_ms=b_ms,
                  bound_by=b_by)
         entry["sets"][f"T{T}"] = s
@@ -479,10 +530,10 @@ def probes_t2(entry, bvh, o3, d3, results):
         nbytes = (r * (6 * 4 + 4) + n_packets * 4
                   + stats["nodes_read"] * BYTES_PER_NODE
                   + stats["tri_rows_read"] * 8 * BYTES_PER_TRI)
-        b_ms, b_by = _probe_bound(nbytes, ops=slab_tests * OPS_PER_NODE
-                                  + tri_tests * OPS_PER_TRI)
-        old_ms, _ = _probe_bound(nbytes, ops=slab_tests * OPS_PER_NODE
-                                 + every_ray * OPS_PER_TRI)
+        b_ms, b_by = _probe_bound(nbytes, ops=summed(
+            scaled(NODE_OPS, slab_tests), scaled(TRI_OPS, tri_tests)))
+        old_ms, _ = _probe_bound(nbytes, ops=summed(
+            scaled(NODE_OPS, slab_tests), scaled(TRI_OPS, every_ray)))
         entry["sets"][f"{v}_packet{packet}"] = dict(
             rays=r, ms=res["ms"], plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
             bound_ms_every_ray=old_ms,
@@ -506,8 +557,8 @@ def probes_t2(entry, bvh, o3, d3, results):
 
 def probes_t4(entry, results):
     """T4: each dtype and size against the plain loop (every element
-    exact), bounds (f32 and packed bf16 at their instruction rates, bf16
-    by the packed instructions its loop issues)."""
+    exact), bounds (the instructions of a test by class: an element in
+    f32, a pair of elements in bf16)."""
     from glaze_tpu_torch.tools import bench_bf16_slab as bs
     from glaze_tpu_torch.tools.common import timed_call
 
@@ -520,17 +571,19 @@ def probes_t4(entry, results):
             f"{plain.numel()} elements differ from the plain loop")
         if differ:
             raise RuntimeError(f"T4 {name}: kernel disagrees with the plain loop")
-        n = o.numel()
         per_thread = 2 if name == "bf16" else 1
-        b_ms, b_by = _probe_bound(
-            n * o.element_size() * 3 + nodes.numel() * 4,
-            ops=n * res["iters"] * (bs.ISSUED_PER_TEST_BF16 if name == "bf16"
-                                    else bs.OPS_PER_TEST),
-            ops_peak=PEAK_BF16 if name == "bf16" else PEAK_F32,
-            blocks=-(-n // (256 * per_thread)))
+        threads = o.numel() // per_thread
+        ops = scaled(bs.TEST_OPS_BF16 if name == "bf16" else bs.TEST_OPS_F32,
+                     threads * res["iters"])
+        blocks = -(-threads // 256)
+        b_ms, b_by = _probe_bound(o.numel() * o.element_size() * 3
+                                  + nodes.numel() * 4, ops=ops, blocks=blocks)
+        term = ops_ms(ops, blocks)[1]
         entry["sets"][f"{name}_{res['rows']}rows"] = dict(
             ms=res["ms"], gtest_per_s=res["rate"], plain_ms=p_ms,
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
+            bound_ms=b_ms, bound_by=b_by, bound_term=term, max_abs_err=0.0)
+        log(f"[probes] T4 {name} {res['rows']} rows: {res['ms']:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}, {term}), {res['ms'] / b_ms:.2f}x")
         if (name, res["rows"]) == ("bf16", bs.FILL_ROWS):
             entry.update(ms=res["ms"], plain_ms=p_ms, bound_ms=b_ms,
                          bound_by=b_by, headline=f"bf16, {bs.FILL_ROWS} rows")
@@ -710,17 +763,23 @@ def _bytes_anyhit(stats, r, cap, active, t_min, masked):
     return _table_bytes(stats) + ray_in + r * (1 + int(masked)), live
 
 
+def walk_ops(stats):
+    """The class counts of a walk's work (node visits, triangle tests,
+    cell lookups and fat-leaf columns in the kernel's order)."""
+    return summed(scaled(NODE_OPS, stats.node_visits),
+                  scaled(TRI_OPS, stats.tri_tests),
+                  scaled(MASK_OPS, stats.mask_tests),
+                  scaled(COLUMN_OPS, stats.col_tests))
+
+
 def _bound(nbytes, stats):
     """Least time for the work: the larger of bytes over the HBM rate and
-    the walk's float operations (node visits, triangle tests, cell lookups
-    and fat-leaf columns in the kernel's order) over the f32 instruction
-    rate."""
-    ops = (stats.node_visits * OPS_PER_NODE + stats.tri_tests * OPS_PER_TRI
-           + stats.mask_tests * OPS_PER_MASK
-           + stats.col_tests * OPS_PER_COLUMN)
+    the walk's instructions (:func:`walk_ops`, :func:`ops_ms`). Returns
+    (ms, bound_by, the operations' binding term)."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_F32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_ops, term = ops_ms(walk_ops(stats))
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", term)
 
 
 def _walks(name):
@@ -790,11 +849,11 @@ def _check_closest(entry, label, bvh, s):
     k_ms = cuda_ms(lambda: kern_fn(bvh, o3, d3, cap_), 5)
     p_ms = cuda_ms(lambda: plain_fn(
         bvh, torch.stack(o3, -1), torch.stack(d3, -1), cap_), 1, warmup=0)
-    b_ms, b_by = _bound(nbytes, stats)
+    b_ms, b_by, term = _bound(nbytes, stats)
     entry["sets"][label] = dict(
         rays=r, live=live, mismatches=n_bad, ties=n_tie, max_abs_err=err,
-        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-        warp=warp, **_work(stats))
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, bound_term=term,
+        bytes=nbytes, warp=warp, **_work(stats))
 
 
 def _check_anyhit(entry, label, bvh, s):
@@ -833,11 +892,12 @@ def _check_anyhit(entry, label, bvh, s):
     p_ms = cuda_ms(lambda: plain_fn(
         bvh, torch.stack(o3, -1), torch.stack(d3, -1), tm, t_min=t_min,
         active=act), 1, warmup=0)
-    b_ms, b_by = _bound(nbytes, stats)
+    b_ms, b_by, term = _bound(nbytes, stats)
     entry["sets"][label] = dict(
         rays=r, active=int(act.sum()), live=live, mismatches=n_bad,
         max_abs_err=float(n_bad), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-        bound_by=b_by, bytes=nbytes, warp=warp, **_work(stats))
+        bound_by=b_by, bound_term=term, bytes=nbytes, warp=warp,
+        **_work(stats))
 
 
 def _warp_text(warp):
@@ -1602,6 +1662,140 @@ def phase_resume(paths, workdir, report):
     return numbers
 
 
+# [denoise]: the full scene's 2-spp render with --denoise. The G-buffer
+# pass traces the camera rays once through trace_alpha (one alpha round on
+# the full masked tree: the walk and one re-test round of K2)
+EXPECTED_DENOISE = dict(EXPECTED_FULL,
+                        closest_hit_masked=EXPECTED_FULL["closest_hit_masked"]
+                        + 2)
+# the G-buffer held card against CPU on the full scene at this size (the
+# plain walkers on the CPU take seconds a 100k rays)
+GBUFFER_RES = (320, 180)
+# depth, normal and albedo, card against CPU. The walks agree with the
+# plain walkers to 1 ulp in u and v ([kernels]), and a texture sample
+# moves by that ulp times the texture's width in texels, so the albedo
+# is held to the geometry's tolerance, not bit for bit
+GUIDE_TOL = 1e-4
+
+
+def _gbuffer_on(device, path, res):
+    """The port's G-buffer of the scene at ``path`` on ``device`` for its
+    own camera at ``res``, with the renderer's alpha rounds."""
+    from glaze_tpu_torch.parser import parse
+    from glaze_tpu_torch.render.renderer import RayTraceRenderer
+
+    r = RayTraceRenderer(parse(path), width=res[0], height=res[1], seed=SEED,
+                         device=device)
+    gb = r._gbuffer()
+    return {k: torch.stack(v).cpu() if isinstance(v, tuple) else v.cpu()
+            for k, v in gb.items()}
+
+
+def phase_denoise(path, workdir, report):
+    """The display denoiser on the card: the full scene through the CLI at
+    1920x1080, 2 spp, with --denoise and --checkpoint against the same
+    render without --denoise (launch counters, checkpoint and accumulation
+    bit for bit, the PNGs differ); the G-buffer on the card against the
+    CPU; denoised_display on the card against the CPU on the same state;
+    the filter's time at 1080p."""
+    from PIL import Image
+
+    from glaze_tpu_torch.render import denoise as dn
+    from glaze_tpu_torch.tools.common import card_line, cuda_ms
+
+    numbers = {}
+    runs = {}
+    for label, extra in (("denoise", ["--denoise"]), ("raw", [])):
+        ck = os.path.join(workdir, f"denoise_{label}.npz")
+        if os.path.exists(ck):
+            os.unlink(ck)
+        out = os.path.join(workdir, f"sponza_{label}.png")
+        code, r, times, launches, probes, _ = run_cli(
+            [path, out, "--res", f"{RES[0]}x{RES[1]}", "--spp", str(SPP),
+             "--seed", str(SEED), "--device", "cuda", "--checkpoint", ck]
+            + extra)
+        if code != 0:
+            raise RuntimeError(f"{label} render exited {code}")
+        _held_to(f"denoise:{label}", f"denoise_{label}", launches, probes,
+                 EXPECTED_DENOISE if extra else EXPECTED_FULL, report)
+        runs[label] = (r, np.asarray(Image.open(out)), dict(np.load(ck)),
+                       times)
+    (r, img, ck, times), (raw_r, raw_img, raw_ck, _) = runs["denoise"], runs["raw"]
+    same_ck = sorted(ck) == sorted(raw_ck) and all(
+        ck[k].dtype == raw_ck[k].dtype and np.array_equal(ck[k], raw_ck[k])
+        for k in ck)
+    same_state = all(torch.equal(a, b) for a, b in zip(
+        r._leaves(), raw_r._leaves()))
+    changed = float((img != raw_img).any(-1).mean())
+    log(f"[denoise] --denoise render: {times['render']:.0f} ms render; "
+        f"checkpoint {'equal' if same_ck else 'DIFFERENT'} and accumulation "
+        f"{'equal' if same_state else 'DIFFERENT'} to the raw render's, bit "
+        f"for bit; {changed:.1%} of the saved pixels differ from the raw "
+        f"image (mean {img.mean():.1f} vs {raw_img.mean():.1f})")
+    if not (same_ck and same_state) or img.shape != (RES[1], RES[0], 3) \
+            or changed == 0.0:
+        raise RuntimeError("--denoise changed the accumulation or the "
+                           "checkpoint, or left the image raw")
+    numbers.update(render_ms=times["render"], pixels_changed=changed)
+    # the filter: card against CPU on the same state and G-buffer
+    gb = r._gbuffer()
+    inv, pw, ph = dn.lane_to_image(*RES, r.device)
+    st = r._state
+    kw = dict(pw=pw, ph=ph, sif=r.samples_in_flight,
+              launches_per_spp=r.integrator.steps_per_sample)
+    exposure = r._exposure()
+    card = dn.denoised_display(st.accum, st.count, gb, inv, exposure, **kw)
+    ms = cuda_ms(lambda: dn.denoised_display(st.accum, st.count, gb, inv,
+                                             exposure, **kw), runs=5)
+
+    def cpu(x):
+        if isinstance(x, tuple):
+            return tuple(v.cpu() for v in x)
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    host = dn.denoised_display(cpu(st.accum), cpu(st.count),
+                               {k: cpu(v) for k, v in gb.items()}, inv.cpu(),
+                               cpu(exposure), **kw)
+    diff = (card.cpu().int() - host.int()).abs()
+    differ = int((diff > 0).any(-1).sum())
+    log(f"[denoise] denoised_display at {RES[0]}x{RES[1]} (4 iterations): "
+        f"{ms:.2f} ms on the card ({card_line()}); card against CPU on the "
+        f"same state: {differ} of {pw * ph} pixels differ, at most "
+        f"{int(diff.max())} level")
+    if int(diff.max()) > 1:
+        raise RuntimeError("denoised_display: card and CPU more than one "
+                           "level apart")
+    numbers.update(filter_ms=ms, filter_pixels_differ=differ,
+                   filter_max_level_diff=int(diff.max()))
+    del runs, r, raw_r, gb, st, card, host
+    torch.cuda.empty_cache()
+    # the G-buffer: card against CPU for the same camera
+    t0 = time.perf_counter()
+    g_card = _gbuffer_on("cuda", path, GBUFFER_RES)
+    g_cpu = _gbuffer_on("cpu", path, GBUFFER_RES)
+    z_c, z_h = g_card["depth"], g_cpu["depth"]
+    off = ((z_c - z_h).abs() > GUIDE_TOL * z_h.abs()) | (
+        (g_card["normal"] - g_cpu["normal"]).abs() > GUIDE_TOL).any(0)
+    # an exact-t tie: the same depth, another triangle's normal
+    ties = off & (z_c == z_h)
+    alb = (g_card["albedo"] - g_cpu["albedo"]).abs()
+    log(f"[denoise] G-buffer at {GBUFFER_RES[0]}x{GBUFFER_RES[1]}, card "
+        f"against CPU ({time.perf_counter() - t0:.1f} s): "
+        f"{int((z_h < 1e8).sum())} of {z_h.numel()} lanes hit; "
+        f"{int(off.sum())} off {GUIDE_TOL:g} in depth or normal, "
+        f"{int(ties.sum())} of them exact-t ties; depth max "
+        f"{float(((z_c - z_h).abs() / z_h.abs()).max()):.2e} relative; "
+        f"albedo: {int((alb > 0).any(0).sum())} lanes differ, max "
+        f"{float(alb.max()):.2e}")
+    if int((off & ~ties).sum()) or float(alb.max()) > GUIDE_TOL:
+        raise RuntimeError("the G-buffer on the card disagrees with the CPU")
+    numbers.update(gbuffer_lanes_off=int(off.sum()),
+                   gbuffer_ties=int(ties.sum()),
+                   gbuffer_albedo_lanes_differ=int((alb > 0).any(0).sum()),
+                   gbuffer_albedo_max_diff=float(alb.max()))
+    return numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1610,15 +1804,16 @@ def main():
     from glaze_tpu_torch.tools.common import card_line, max_sm_clock_mhz
 
     t_start = time.perf_counter()
+    global SM_HZ
     card = card_line()
     clock = max_sm_clock_mhz()
-    f32, bf16 = set_peaks(clock)
-    log(f"[card] {card}; max SM clock {clock:.0f} MHz: non-tensor peaks "
-        f"{f32:.4g} f32 and {bf16:.4g} packed bf16 results/s; torch "
+    SM_HZ = clock * 1e6
+    log(f"[card] {card}; max SM clock {clock:.0f} MHz; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     workdir = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     attrs = phase_build()
+    rates = phase_rates()
     phase_walk_cases()
     probes = phase_probes()
     paths = phase_scene(workdir)
@@ -1637,6 +1832,7 @@ def main():
     phase_golden()
     main_numbers["sampling"] = phase_sampling(paths["full"], workdir, report)
     main_numbers["resume"] = phase_resume(paths, workdir, report)
+    main_numbers["denoise"] = phase_denoise(paths["full"], workdir, report)
     for name, a in attrs.items():
         report[name].update(a)
     for label, numbers in main_numbers.items():
@@ -1657,8 +1853,7 @@ def main():
                 if key in k)})
     log(f"[done] {time.perf_counter() - t_start:.0f} s in all")
     print(json.dumps({"main_path": main_numbers, "card": card,
-                      "max_sm_clock_mhz": clock, "peak_f32": f32,
-                      "peak_bf16": bf16}))
+                      "max_sm_clock_mhz": clock, "rates": rates}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,9 @@
 The flags and defaults of ``glaze_tpu/cli.py`` (input scene, output image,
 ``--res WxH`` 1920x1080, ``--spp`` 256, ``--integrator {direct,pt}``,
 ``--seed``, ``--coherent``, ``--sif``, ``--sampler``, ``--adaptive``,
-``--checkpoint`` with ``--checkpoint-every`` and ``--profile``), plus
-``--device {cuda,cpu}`` (default cuda). ``--mesh`` and ``--denoise`` are
-not ported yet and exit with an error. The JAX package's variables act as
+``--checkpoint`` with ``--checkpoint-every``, ``--profile`` and
+``--denoise``), plus ``--device {cuda,cpu}`` (default cuda). ``--mesh`` is
+not ported yet and exits with an error. The JAX package's variables act as
 they do in ``glaze_tpu`` (``GLAZE_COHERENT``, ``GLAZE_SIF``,
 ``GLAZE_SAMPLER``, ``GLAZE_ADAPTIVE``, ``GLAZE_ADAPTIVE_TAU``,
 ``GLAZE_ADAPTIVE_MIN``, ``GLAZE_ALPHA_ROUNDS``, ``GLAZE_TILE``,
@@ -78,18 +78,21 @@ def build_parser():
                    metavar="DIR",
                    help="write a torch.profiler Chrome trace of the render to "
                         "DIR and print per-phase wall-clock")
-    # accepted for compatibility with glaze_tpu's CLI; each is rejected
-    # below until its feature is ported
+    p.add_argument(
+        "--denoise", action="store_true",
+        help="apply the edge-aware SVGF-style reconstruction filter to "
+             "the SAVED image (render/denoise.py; display-time only — "
+             "the accumulation itself stays unbiased, and the filter "
+             "fades to identity as spp grows)")
+    # accepted for compatibility with glaze_tpu's CLI; rejected below until
+    # its feature is ported
     p.add_argument("--mesh", action="store_true", help=NOT_PORTED)
-    p.add_argument("--denoise", action="store_true", help=NOT_PORTED)
     return p
 
 
 def _unported_flag(args):
     if args.mesh:
         return "--mesh"
-    if args.denoise:
-        return "--denoise"
     return None
 
 
@@ -217,6 +220,9 @@ def run(argv=None):
     print(f"Render time: {render_ms:.0f}ms "
           f"({rays / max(render_ms, 1e-9) / 1e3:.1f} Mrays/s, "
           f"{render_ms / max(launches, 1):.1f} ms/launch)", file=sys.stderr)
+    # display-time only: the accumulation (and any checkpoint) is saved
+    # raw; the filter is applied once, to the written image
+    renderer.denoise = args.denoise
     renderer.save(args.output)
     timer.mark("save")
     if args.profile is not None:

@@ -126,7 +126,19 @@
 // the capped t; out = acc + t_cap. f32: one element per thread; bf16: one
 // __nv_bfloat162 (two neighbouring lanes) per thread with packed
 // __hsub2/__hadd2/__hmul2/__hmin2/__hmax2 and packed compares (a bf16
-// compare is exact, as in f32). Bound: the non-tensor f32 or bf16 rate.
+// compare is exact, as in f32). Bound: the issue rate (128 instructions
+// per SM-clock) and the 64-wide pipe of min, max, compare, select and
+// logic (scripts/issue_rates.py): f32 issues 27 instructions a test, 14
+// on that pipe; bf16 26 a pair, 13 on it. Design (bf16): the node rows
+// are converted to packed bf16 once, when a block loads them, and one
+// 16-byte shared load brings four rows, so the loop holds no conversion
+// and no modulo addressing; the two compares are lane masks, and one
+// LOP3 makes the count's 1.0 and one the capped t's operand (a NaN where
+// the test misses, which min() passes over), in place of a product and
+// six integer instructions of a bit select: 26 instructions a pair and
+// iteration, from 35. The count and t_cap keep the plain loop's serial
+// order, so the output is the plain loop's bit for bit (bf16 addition of
+// 1.0 is inexact above 256).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1107,42 +1119,87 @@ slab_rate_f32(const float* __restrict__ o, const float* __restrict__ in,
   out[e] = acc + t_cap;
 }
 
+// bf16: the node rows live in shared memory as packed bf16, converted once
+// per block: lane pair p's 64 rows at words p * kNodeStride .. + 63, the
+// stride padded so that the eight lanes of a 16-byte load phase hit
+// distinct banks; one 16-byte load brings four rows.
+constexpr int kPairs = kLanes / 2;
+constexpr int kNodeStride = kNodeRows + 4;
+constexpr uint32_t kBf16Ones = 0x3F803F80u;  // bf16 1.0 in both halves
+
+template <int kLut>
+__device__ __forceinline__ uint32_t lop3(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, %4;"
+      : "=r"(d) : "r"(a), "r"(b), "r"(c), "n"(kLut));
+  return d;
+}
+
+struct SlabPair {
+  __nv_bfloat162 ox, ix, oxo, zero, acc, t_cap;
+};
+
+// One slab test of a pair against the packed node row ``node``. The
+// compares are lane masks (0xFFFF a true half); one LOP3 turns both into
+// the count's 1.0 (a & b & ones) and one into the capped t's operand
+// (tf | ~(a & b)): a missing half is all ones, a NaN, and min() returns
+// the other operand, t_cap. Same operations and order as the plain loop.
+__device__ __forceinline__ void slab_test_bf16(SlabPair& s, uint32_t node) {
+  const __nv_bfloat162 b = from_bits(node);
+  const __nv_bfloat162 t0x = __hmul2(__hsub2(b, s.ox), s.ix);
+  const __nv_bfloat162 t1x = __hmul2(__hadd2(b, s.ox), s.ix);
+  const __nv_bfloat162 t0y = __hmul2(__hsub2(b, s.oxo), s.ix);
+  const __nv_bfloat162 t1y = __hmul2(__hadd2(b, s.oxo), s.ix);
+  const __nv_bfloat162 t0z = __hmul2(__hsub2(b, s.ix), s.ox);
+  const __nv_bfloat162 t1z = __hmul2(__hadd2(b, s.ix), s.ox);
+  const __nv_bfloat162 tn = __hmax2(
+      __hmax2(__hmin2(t0x, t1x), __hmin2(t0y, t1y)), __hmin2(t0z, t1z));
+  const __nv_bfloat162 tf = __hmin2(
+      __hmin2(__hmax2(t0x, t1x), __hmax2(t0y, t1y)), __hmax2(t0z, t1z));
+  const uint32_t near = __hle2_mask(tn, tf);
+  const uint32_t ahead = __hge2_mask(tf, s.zero);
+  s.acc = __hadd2(s.acc, from_bits(lop3<0x80>(near, ahead, kBf16Ones)));
+  s.t_cap = __hmin2(s.t_cap, from_bits(lop3<0xF7>(bits(tf), near, ahead)));
+}
+
 __global__ void __launch_bounds__(kSlabThreads)
 slab_rate_bf16(const __nv_bfloat162* __restrict__ o,
                const __nv_bfloat162* __restrict__ in,
                const float* __restrict__ nodes, int n2, int iters, float one_f,
                __nv_bfloat162* __restrict__ out) {
-  __shared__ float nodes_s[kNodeRows * kLanes];
-  load_nodes(nodes, nodes_s);
+  __shared__ __align__(16) uint32_t nodes_s[kPairs * kNodeStride];
+  for (int i = threadIdx.x; i < kNodeRows * kPairs; i += blockDim.x) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(nodes) + i);
+    nodes_s[(i % kPairs) * kNodeStride + i / kPairs] =
+        bits(__floats2bfloat162_rn(v.x, v.y));
+  }
+  __syncthreads();
   const int e = blockIdx.x * blockDim.x + threadIdx.x;  // element pair
   if (e >= n2) return;
-  const int lane = 2 * (e % (kLanes / 2));
+  const uint32_t* row = nodes_s + (e % kPairs) * kNodeStride;
   const __nv_bfloat162 one = __float2bfloat162_rn(one_f);
-  const __nv_bfloat162 zero = __float2bfloat162_rn(0.0f);
-  const __nv_bfloat162 ox = o[e], ix = in[e];
-  __nv_bfloat162 t_cap = __hmul2(ox, one), acc = zero;
-  for (int k = 0; k < iters; ++k) {
-    const float2 nb =
-        *reinterpret_cast<const float2*>(nodes_s + (k % kNodeRows) * kLanes + lane);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(nb.x, nb.y);
-    const __nv_bfloat162 oxo = __hmul2(ox, one);
-    const __nv_bfloat162 t0x = __hmul2(__hsub2(b, ox), ix);
-    const __nv_bfloat162 t1x = __hmul2(__hadd2(b, ox), ix);
-    const __nv_bfloat162 t0y = __hmul2(__hsub2(b, oxo), ix);
-    const __nv_bfloat162 t1y = __hmul2(__hadd2(b, oxo), ix);
-    const __nv_bfloat162 t0z = __hmul2(__hsub2(b, ix), ox);
-    const __nv_bfloat162 t1z = __hmul2(__hadd2(b, ix), ox);
-    const __nv_bfloat162 tn = __hmax2(
-        __hmax2(__hmin2(t0x, t1x), __hmin2(t0y, t1y)), __hmin2(t0z, t1z));
-    const __nv_bfloat162 tf = __hmin2(
-        __hmin2(__hmax2(t0x, t1x), __hmax2(t0y, t1y)), __hmax2(t0z, t1z));
-    // 1.0 or 0.0 per half; bf16 1.0 is 0x3F80, so bit 7 marks a hit
-    const __nv_bfloat162 hit = __hmul2(__hle2(tn, tf), __hge2(tf, zero));
-    acc = __hadd2(acc, hit);
-    const uint32_t m = ((bits(hit) >> 7) & 0x00010001u) * 0xFFFFu;
-    t_cap = from_bits((bits(__hmin2(t_cap, tf)) & m) | (bits(t_cap) & ~m));
+  SlabPair s;
+  s.zero = __float2bfloat162_rn(0.0f);
+  s.ox = o[e];
+  s.ix = in[e];
+  s.oxo = __hmul2(s.ox, one);
+  s.t_cap = __hmul2(s.ox, one);
+  s.acc = s.zero;
+  int k = 0;
+  for (; k + 16 <= iters; k += 16) {  // rows k % 64 .. + 15
+    const uint4* q =
+        reinterpret_cast<const uint4*>(row + (k & (kNodeRows - 1)));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint4 w = q[j];
+      slab_test_bf16(s, w.x);
+      slab_test_bf16(s, w.y);
+      slab_test_bf16(s, w.z);
+      slab_test_bf16(s, w.w);
+    }
   }
-  out[e] = __hadd2(acc, t_cap);
+  for (; k < iters; ++k) slab_test_bf16(s, row[k & (kNodeRows - 1)]);
+  out[e] = __hadd2(s.acc, s.t_cap);
 }
 
 // ----------------------------------------------------------------------

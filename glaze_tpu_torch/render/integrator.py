@@ -222,6 +222,15 @@ def sif_lanes(width: int, height: int, sif: int, device):
     return px, py, py + torch.repeat_interleave(copy, p1)
 
 
+def ndc(p, jitter, size):
+    """``-1 + 2 (p + jitter) / size``: a lane's normalized device
+    coordinate from its pixel coordinate ``p`` (a tensor), its sub-pixel
+    ``jitter`` and the image ``size``. The division is by a tensor on
+    ``p``'s device, so it rounds alike on every device (CUDA multiplies by
+    the reciprocal of a Python scalar divisor, the CPU divides)."""
+    return -1.0 + 2.0 * (p + jitter) / p.new_full((), float(size))
+
+
 def camera_rays(ndc_x, ndc_y, cam2world, screen2cam, is_persp: bool):
     """Primary ray origins/directions (path_trace.rgen:47-74), SoA.
     ``cam2world``/``screen2cam``: float32 NumPy 4x4."""
@@ -871,10 +880,9 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
     else:
         ju = float(np.float32(pixel_offset[0]))
         jv = float(np.float32(pixel_offset[1]))
-    ndc_x = -1.0 + 2.0 * (px + ju) / width_f
-    ndc_y = -1.0 + 2.0 * (py + jv) / height_f
-    cam_origin, cam_dir = camera_rays(ndc_x, ndc_y, cam2world, screen2cam,
-                                      is_persp)
+    cam_origin, cam_dir = camera_rays(ndc(px, ju, width_f),
+                                      ndc(py, jv, height_f), cam2world,
+                                      screen2cam, is_persp)
 
     if direct_only:
         regen = torch.ones((p,), dtype=torch.bool, device=dev)

@@ -21,9 +21,15 @@ else off, with ``GLAZE_ADAPTIVE_TAU`` and ``GLAZE_ADAPTIVE_MIN``).
 ``.npz`` layout key for key, so a checkpoint crosses between the packages
 either way.
 
-Not ported in this slice: device meshes, the display denoiser, material /
-light edits (``update_materials_and_lights`` and its opaque/alpha split
-rebuild) and scene swaps.
+``denoise`` sends ``get_image`` (and so ``save``) through the display
+denoiser (:mod:`glaze_tpu_torch.render.denoise`), whose G-buffer is cached
+until the camera, scene, resolution or alpha rounds change; the
+accumulation state, and so any checkpoint, stays raw.
+
+Not ported in this slice: device meshes, the interactive ``draw_frame``
+with the denoiser's temporal half, material / light edits
+(``update_materials_and_lights`` and its opaque/alpha split rebuild) and
+scene swaps.
 """
 
 from __future__ import annotations
@@ -172,6 +178,10 @@ class RayTraceRenderer:
 
         has_opacity = bool(self.scene.mat_tex[:, MT_OPACITY].any())
         self._alpha_rounds = alpha_rounds() if has_opacity else 0
+        # the display denoiser: display-only, it never touches the state
+        self.denoise = False
+        self._gb_key = None
+        self._gb = None
 
     def _zero_state(self):
         return integ.init_state(self.width, self.height, self.device,
@@ -256,11 +266,51 @@ class RayTraceRenderer:
             return None
         return self.get_image()
 
+    def _exposure(self):
+        return self.exposure if self.exposure is not None else self.scene.exposure
+
+    def _gbuffer_key(self):
+        c2w, s2c = integ.camera_matrices(self.camera, self.width, self.height)
+        return (id(self.scene), self.width, self.height,
+                self.camera.is_perspective, self._alpha_rounds,
+                c2w.tobytes(), s2c.tobytes())
+
+    def _gbuffer(self):
+        """The denoiser's first-hit guide buffers, cached until the camera,
+        scene, resolution or alpha rounds change (the events that restart
+        the accumulation)."""
+        from glaze_tpu_torch.render import denoise as dn
+
+        key = self._gbuffer_key()
+        if self._gb_key != key:
+            c2w, s2c = integ.camera_matrices(self.camera, self.width,
+                                             self.height)
+            self._gb = dn.gbuffer_pass(
+                self.scene, c2w, s2c, width=self.width, height=self.height,
+                is_persp=self.camera.is_perspective,
+                alpha_rounds=self._alpha_rounds)
+            self._gb_key = key
+        return self._gb
+
+    def denoised_image(self) -> np.ndarray:
+        """The current progressive result through the edge-aware display
+        filter, (H, W, 3) uint8 sRGB; the accumulation is untouched."""
+        from glaze_tpu_torch.render import denoise as dn
+
+        inv_map, pw, ph = dn.lane_to_image(self.width, self.height,
+                                           self.device)
+        img = dn.denoised_display(
+            self._state.accum, self._state.count, self._gbuffer(), inv_map,
+            self._exposure(), pw=pw, ph=ph, sif=self.samples_in_flight,
+            launches_per_spp=self.integrator.steps_per_sample)
+        return img[:self.height, :self.width].cpu().numpy()
+
     def get_image(self) -> np.ndarray:
-        """Current progressive result as (H, W, 3) uint8 sRGB."""
-        exposure = (self.exposure if self.exposure is not None
-                    else self.scene.exposure)
-        return integ.render_image(self._state, exposure, self.width,
+        """Current progressive result as (H, W, 3) uint8 sRGB (denoised
+        when ``self.denoise`` is set)."""
+        if self.denoise:
+            return self.denoised_image()
+        return integ.render_image(self._state, self._exposure(), self.width,
                                   self.height, self.samples_in_flight)
 
     def save(self, path: str):

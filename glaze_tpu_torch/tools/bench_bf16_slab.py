@@ -37,14 +37,17 @@ ITERS = 2048       # slab tests per kernel call per element
 LANES = 128
 NODE_ROWS = 64
 FILL_ROWS = 2112   # 132 SMs x 2048 threads / 128 lanes
-# operations per element and iteration: 6 add/sub, 6 mul, 10 min/max,
-# 2 compares, the count's add, the cap's min and select
-OPS_PER_TEST = 27
-# packed instructions the sm_90a bf16 loop issues for a pair of elements
-# (scripts/sass_loops.py probes slab_rate_bf16): 25, since two three-input
-# VHMNMX each do two of the min/max. Each is two results of the packed
-# rate, so the bf16 bound charges 25 results an element, not 27.
-ISSUED_PER_TEST_BF16 = 25
+# the instructions of one test by class (glaze_tpu_torch.tools.common.RATES),
+# as the sm_90a loops issue them (python scripts/sass_loops.py probes
+# slab_rate): f32, per element: 6 add/sub and the count's add, 6 mul, 10
+# min/max and the cap's min, 2 compares, the cap's select (27); bf16, per
+# pair of elements: the same adds and muls packed (the compiler issues
+# some as HFMA2), 9 packed min/max (two three-input VHMNMX do two each),
+# 2 compares into lane masks and 2 LOP3 for the count and the capped t
+# (26)
+TEST_OPS_F32 = {"FADD": 7, "FMUL": 6, "FMNMX": 11, "FSETP": 2, "FSEL": 1}
+TEST_OPS_BF16 = {"HADD2": 7, "HMUL2": 6, "HMNMX2": 7, "VHMNMX": 2,
+                 "HSET2": 2, "LOP3": 2}
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 

@@ -12,6 +12,39 @@ import torch
 from glaze_tpu_torch.device import resolve_device
 
 
+# The non-tensor rates that the bounds charge, in thread instructions per
+# SM-clock (a packed bf16x2 instruction counts once), by instruction class,
+# with the pipe each class issues to: classes of one pipe share its time.
+# Measured on the card by scripts/issue_rates.py (PERF.md, "Issue rates on
+# this card"); chip_smoke.py's [rates] phase fails if a class runs more
+# than 5% above its rate here, so that every bound stays a least time.
+ISSUE_PER_SM_CLOCK = 128  # one warp instruction per sub-partition a clock
+RATES = {
+    "FADD": ("fma", 128), "FMUL": ("fma", 128), "FFMA": ("fma", 128),
+    "FMNMX": ("alu", 64), "FSETP": ("alu", 64), "FSEL": ("alu", 64),
+    "LOP3": ("alu", 64), "MUFU": ("sfu", 16),
+    "HADD2": ("fma", 128), "HMUL2": ("fma", 128), "HFMA2": ("fma", 128),
+    "HSET2": ("alu", 64),
+    "HMNMX2": ("alu", 64), "VHMNMX": ("alu", 64), "HSETP2": ("alu", 64),
+    "F2FP": ("alu", 64), "LDS64": ("mio", 16),
+}
+
+
+def ops_clocks(counts):
+    """SM-clocks that ``counts`` (class -> thread instructions on one SM)
+    take at the least: the larger of all of them over the issue rate and,
+    for each pipe of :data:`RATES`, its classes' instructions over their
+    rates. A class without a charged rate counts towards the issue term
+    only. Returns (clocks, the term that binds: 'issue' or a pipe)."""
+    terms = {"issue": sum(counts.values()) / ISSUE_PER_SM_CLOCK}
+    for cls, n in counts.items():
+        if cls in RATES:
+            pipe, rate = RATES[cls]
+            terms[pipe] = terms.get(pipe, 0.0) + n / rate
+    term = max(terms, key=terms.get)
+    return terms[term], term
+
+
 def split_device(argv):
     """``(device, rest)`` of a tool's argv: ``--device cpu|cuda`` (default
     cuda; no card raises, see :func:`resolve_device`) and the other

@@ -1,15 +1,18 @@
-"""Bit-for-bit check of the drain kernels (T1, T3b) across two builds.
+"""Bit-for-bit check of the drain kernels (T1, T3b) and the slab-rate
+loops (T4) across two builds.
 
 Prints sha256 digests of ``drain_kernel``'s t/tri/u/v bytes on fixed
 inputs: for every leaf size and precision, T1's check drain and its timed
 leaf order (:func:`bench_mxu.run`'s inputs), rays aimed at the triangles
 (:func:`bench_mxu.aimed_rays`) and the exact ties of
-:func:`bench_mxu.tie_inputs`; T3b's chain at 16 and 4,096 steps. With
-``--against SOURCE`` it also builds ``SOURCE`` (a ``probes.cu`` with the
-same C interface, e.g. an earlier commit's) and reports the cases whose
-digests differ between the two builds; with ``--time`` it times T1 (T =
-128, both precisions, 8,192 leaves, one block) and T3b (T = 128, 4,096
-steps) on each build, in turns (this, that, that, this).
+:func:`bench_mxu.tie_inputs`; T3b's chain at 16 and 4,096 steps; T4's
+output in f32 and bf16 at the tool's 256 and 512 rows and at 2,112 rows,
+2,048 iterations. With ``--against SOURCE`` it also builds ``SOURCE`` (a
+``probes.cu`` with the same C interface, e.g. an earlier commit's) and
+reports the cases whose digests differ between the two builds; with
+``--time`` it times T1 (T = 128, both precisions, 8,192 leaves, one
+block), T3b (T = 128, 4,096 steps) and T4 (2,112 rows, both types) on
+each build, in turns (this, that, that, this).
 
 Usage: python -m glaze_tpu_torch.tools.drain_digests [--against SOURCE]
        [--time] [--device cuda|cpu]
@@ -26,7 +29,8 @@ import numpy as np
 import torch
 
 from glaze_tpu_torch import cuda_build
-from glaze_tpu_torch.tools import bench_dot, bench_mxu, common, probes_cuda
+from glaze_tpu_torch.tools import (bench_bf16_slab, bench_dot, bench_mxu,
+                                   common, probes_cuda)
 
 AGAINST_LIBRARY = "libglaze_probes_against.so"
 
@@ -38,9 +42,21 @@ def _digest(outputs) -> str:
     return h.hexdigest()
 
 
-def cases(device, ts=bench_mxu.TS, reps=8192, chain=(16, 4096)):
-    """{name: call} of the drains to digest, on ``device``."""
+SLAB_ROWS = (bench_bf16_slab.ROWS_F32, 2 * bench_bf16_slab.ROWS_F32,
+             bench_bf16_slab.FILL_ROWS)
+
+
+def cases(device, ts=bench_mxu.TS, reps=8192, chain=(16, 4096),
+          slab_rows=SLAB_ROWS, slab_iters=bench_bf16_slab.ITERS):
+    """{name: call} of the drains and slab loops to digest, on
+    ``device``."""
     out = {}
+    for dt, dtype in bench_bf16_slab.DTYPES.items():
+        for rows in slab_rows:
+            inp = bench_bf16_slab.slab_inputs(dtype, rows, device)
+            out[f"T4_{dt}_{rows}"] = (
+                lambda inp=inp: (bench_bf16_slab.slab_rate_probe(
+                    *inp, slab_iters).view(torch.int16),))
     for T in ts:
         inp, rng = bench_mxu.probe_inputs(T)
         mats, centres, rays = (torch.from_numpy(inp[k]).to(device)
@@ -76,7 +92,8 @@ def digests(device, **kw) -> dict:
 
 
 def times(device) -> dict:
-    """Milliseconds (median of 5) of the T1 and T3b headline drains."""
+    """Milliseconds (median of 5) of the T1 and T3b headline drains and
+    of T4 at 2,112 rows."""
     inp, rng = bench_mxu.probe_inputs(128)
     mats, centres, rays = (torch.from_numpy(inp[k]).to(device)
                            for k in ("mats", "centres", "rays"))
@@ -88,6 +105,11 @@ def times(device) -> dict:
         for p in bench_mxu.PRECISIONS}
     out["T3b_ms"] = common.cuda_ms(
         lambda: bench_dot.resolve_chain_probe(mat, feat, 128, 4096), runs=5)
+    for dt, dtype in bench_bf16_slab.DTYPES.items():
+        inp = bench_bf16_slab.slab_inputs(dtype, bench_bf16_slab.FILL_ROWS,
+                                          device)
+        out[f"T4_{dt}_ms"] = common.cuda_ms(
+            lambda inp=inp: bench_bf16_slab.slab_rate_probe(*inp), runs=5)
     return out
 
 

@@ -38,7 +38,8 @@ def test_port_sources_found():
     assert any(f.endswith(os.path.join("accel", "traverse_cuda.py")) for f in files)
     assert any(f.endswith(os.path.join("tools", "probes_cuda.py")) for f in files)
     for mod in (("ops", "sobol.py"), ("utils", "log.py"),
-                ("utils", "runtime.py")):
+                ("utils", "runtime.py"), ("render", "denoise.py"),
+                ("scripts", "issue_rates.py")):
         assert any(f.endswith(os.path.join(*mod)) for f in files), mod
 
 
@@ -168,8 +169,10 @@ def test_cli_default_device_raises_without_cuda(monkeypatch, tmp_path):
                   "--spp", "1"])
 
 
-@pytest.mark.parametrize("flags", [["--mesh"], ["--denoise"]])
+@pytest.mark.parametrize("flags", [["--mesh"], ["--mesh", "--denoise"]])
 def test_cli_rejects_unported_flags(flags, tmp_path, capsys):
+    """--mesh is refused, also beside --denoise (glaze_tpu's
+    ``--mesh --denoise`` render)."""
     from glaze_tpu_torch import cli
 
     code = cli.main([str(tmp_path / "s.glaze"), str(tmp_path / "o.png"),
@@ -180,7 +183,7 @@ def test_cli_rejects_unported_flags(flags, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--checkpoint", "ck.npz"], ["--sif", "2"], ["--sampler", "ld"],
-    ["--adaptive", "on"], ["--profile", "prof"],
+    ["--adaptive", "on"], ["--profile", "prof"], ["--denoise"],
 ])
 def test_cli_accepts_ported_flags(flags, tmp_path, capsys):
     """The options that this CLI refused before they were ported render a

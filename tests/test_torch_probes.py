@@ -426,12 +426,14 @@ def test_drain_digests_cover_every_case_on_cpu():
     """The digest tool's cases, through the plain drains on the CPU."""
     from glaze_tpu_torch.tools import drain_digests
 
-    got = drain_digests.digests("cpu", ts=(16,), reps=3, chain=(2,))
+    kw = dict(ts=(16,), reps=3, chain=(2,), slab_rows=(16,), slab_iters=5)
+    got = drain_digests.digests("cpu", **kw)
     want = {f"T1_T16_{p}_{c}" for p in bench_mxu.PRECISIONS
-            for c in ("check", "reps3", "aimed", "ties")} | {"T3b_T16_2"}
+            for c in ("check", "reps3", "aimed", "ties")} | {
+        "T3b_T16_2", "T4_f32_16", "T4_bf16_16"}
     assert set(got) == want
     assert all(len(v) == 64 for v in got.values())
-    assert got == drain_digests.digests("cpu", ts=(16,), reps=3, chain=(2,))
+    assert got == drain_digests.digests("cpu", **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -919,6 +921,20 @@ def test_slab_rate_kernel_matches_plain_on_cuda(dtype):
     assert torch.equal(got, want)
 
 
+@pytest.mark.cuda
+def test_slab_rate_bf16_kernel_at_tool_rows_on_cuda():
+    """The bf16 kernel at the tool's 256 rows and 2,048 iterations (a full
+    node period of 16-row steps each 64 iterations; acc past 256, where a
+    bf16 add of 1.0 rounds) and at 77 iterations (a tail of 13): every
+    element equals the plain loop's."""
+    dev = _cuda()
+    o, i, nodes = bench_bf16_slab.slab_inputs(torch.bfloat16, 256, dev)
+    for iters in (bench_bf16_slab.ITERS, 77):
+        got = bench_bf16_slab.slab_rate_probe(o, i, nodes, iters)
+        want = bench_bf16_slab.slab_rate_plain(o, i, nodes, iters)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 
 _SASS = """
 	code for sm_90a
@@ -971,3 +987,97 @@ def test_sass_loops_reads_a_listing():
                             "f32_compare": 1, "f32_minmax": 1, "f32_mul": 1,
                             "int": 1, "shared": 1}
     assert s["float_ops"] == 5
+
+
+# ---------------------------------------------------------------------------
+# the bounds' instruction classes and rates
+
+
+def _script(name):
+    """A script beside the package (scripts/<name>.py) or chip_smoke.py."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = (os.path.join(root, f"{name}.py") if name == "chip_smoke"
+            else os.path.join(root, "scripts", f"{name}.py"))
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_class_counts_sum_to_the_loop_totals():
+    """The per-class splits of the bounds' counts add up to the totals the
+    SASS counter printed: 25 a node visit, 59 a triangle test, 12 a cell
+    lookup, 51 a fat-leaf column, 27 a T4 f32 test; a T4 bf16 pair issues
+    24 packed instructions (one fewer than the 25 of the loop before its
+    redesign: the compares are masks, no product makes the hit 1.0) and 2
+    LOP3."""
+    cs = _script("chip_smoke")
+    from glaze_tpu_torch.tools import common
+
+    totals = {"NODE_OPS": 25, "TRI_OPS": 59, "MASK_OPS": 12,
+              "COLUMN_OPS": 51}
+    for name, total in totals.items():
+        ops = getattr(cs, name)
+        assert sum(ops.values()) == total, name
+        assert set(ops) <= set(common.RATES) | {"other"}, name
+    assert sum(bench_bf16_slab.TEST_OPS_F32.values()) == 27
+    bf16 = dict(bench_bf16_slab.TEST_OPS_BF16)
+    assert bf16.pop("LOP3") == 2 and sum(bf16.values()) == 24
+    for ops in (bench_bf16_slab.TEST_OPS_F32, bench_bf16_slab.TEST_OPS_BF16):
+        assert set(ops) <= set(common.RATES)
+
+
+@pytest.mark.parametrize("counts, want", [
+    # issue-bound: 256 instructions at 128 a clock; the pipes take 1 and 2
+    ({"FADD": 128, "FMNMX": 128}, (2.0, "issue")),
+    # one pipe's classes share it: 96 + 96 at 64 a clock
+    ({"FMNMX": 96, "FSETP": 96}, (3.0, "alu")),
+    # an unrated class counts towards the issue term only
+    ({"other": 512, "FMNMX": 64}, (4.5, "issue")),
+    ({"MUFU": 64, "FADD": 64}, (4.0, "sfu")),
+])
+def test_ops_clocks_is_the_largest_term(counts, want, monkeypatch):
+    from glaze_tpu_torch.tools import common
+
+    monkeypatch.setattr(common, "RATES", {
+        "FADD": ("fma", 128), "FMNMX": ("alu", 64), "FSETP": ("alu", 64),
+        "MUFU": ("sfu", 16)})
+    clocks, term = common.ops_clocks(counts)
+    assert (clocks, term) == want
+
+
+def test_ops_ms_scales_to_the_blocks(monkeypatch):
+    """chip_smoke's ops_ms: SM-clocks over the SMs the blocks occupy."""
+    cs = _script("chip_smoke")
+    monkeypatch.setattr(cs, "SM_HZ", 1e9)
+    ms, term = cs.ops_ms({"FADD": 128 * 132 * 1000})
+    assert term == "issue" and ms == pytest.approx(1e-3)
+    ms, _ = cs.ops_ms({"FADD": 128 * 1000}, blocks=1)
+    assert ms == pytest.approx(1e-3)
+
+
+def test_issue_rates_helpers():
+    """scripts/issue_rates.py on the CPU: the architectural class nearest a
+    rate, the rate the charged pipes allow a mixed loop, and the SASS check
+    on a listing in cuobjdump's format."""
+    ir = _script("issue_rates")
+    assert [ir.arch_class(r) for r in (127.0, 90.0, 60.2, 33.0, 15.1)] == [
+        128, 64, 64, 32, 16]
+    assert ir.model_rate({"FADD": 128}) == 128
+    lines = ["\tcode for sm_90a", "\t\tFunction : rate_fadd",
+             "        /*0000*/                   MOV R1, c[0x0][0x28] ;",
+             ".L_x_0:"]
+    addr = 0x10
+    for k in range(128):
+        lines.append(f"        /*{addr:04x}*/                   FADD R{k % 8}, "
+                     f"R{k % 8}, R9 ;")
+        addr += 0x10
+    lines += [f"        /*{addr:04x}*/                   IADD3 R10, R10, 0x1, RZ ;",
+              f"        /*{addr + 0x10:04x}*/              @P0 BRA `(.L_x_0) ;",
+              f"        /*{addr + 0x20:04x}*/                   EXIT ;"]
+    check = ir.sass_check("\n".join(lines))
+    assert check["rate_fadd"]["ok"]
+    assert check["rate_fadd"]["FADD"] == 128 and check["rate_fadd"]["loop"] == 130
+    assert not check["rate_fmul"]["ok"]
