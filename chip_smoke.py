@@ -31,7 +31,13 @@ resumes a checkpointed render in a second process against a straight
 one, resumes a CPU-written checkpoint on the card and writes a --profile
 trace ([resume]), and renders the full scene with --denoise against the
 same render without it, holding the display filter and its G-buffer on
-the card against the CPU ([denoise]). Any failed phase raises, so the
+the card against the CPU ([denoise]). It writes the Sponza-class scene as
+Wavefront OBJ with PNG textures and renders the .obj through the CLI,
+converter included, holding K2 and K4 against their plain walkers on its
+rays ([convert]), and edits a renderer's materials on the classic and the
+fat tree, removing the curtain's opacity map and putting it back, with a
+render after each edit and the rebuilt tables against a fresh renderer's
+([edit]). Any failed phase raises, so the
 script exits non-zero and prints no result. Without CUDA (or without the
 package beside it) it exits non-zero too.
 
@@ -54,6 +60,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1796,6 +1803,228 @@ def phase_denoise(path, workdir, report):
     return numbers
 
 
+def _count_exact(tag, renderer, launches):
+    """Every lane of the render counted each of its ``launches`` (the
+    path state's ``count``; no lane parks without adaptive stopping)."""
+    count = renderer._state.count
+    if not bool((count == float(launches)).all()):
+        raise RuntimeError(f"{tag}: count is not {launches} on every lane "
+                           f"(min {float(count.min())}, max "
+                           f"{float(count.max())})")
+
+
+def phase_convert(full_path, workdir, report):
+    """The converter on the card's machine: the Sponza-class scene written
+    as Wavefront OBJ + MTL with PNG textures (glaze_tpu_torch.scenes
+    write_obj: the curtain's lace as map_d, the ceiling panel's Ke), the
+    .obj rendered through the CLI at 1920x1080, 2 spp, the conversion
+    included. The parsed triangles and the MIXED alpha triangles equal
+    those of the scene written directly (flattened here); the K2/K4
+    counters equal the launches derived from the captured dispatches
+    (one kernel a masked dispatch; EXPECTED_FULL); count is exact and the
+    image finite and not black; K2 and K4 are held against their plain
+    walkers on launch 0's camera and shadow rays."""
+    import tempfile
+
+    from PIL import Image
+
+    import glaze_tpu_torch.scenes as ps
+    from glaze_tpu_torch import converter
+    from glaze_tpu_torch.parser import parse
+    from glaze_tpu_torch.scene.flatten import flatten_scene_np
+
+    t0 = time.perf_counter()
+    scene = ps.SponzaScene()
+    obj = ps.write_obj(scene, os.path.join(workdir, "sponza_obj"))
+    write_s = time.perf_counter() - t0
+    direct_tris = sum(len(m.indices) for m in scene.meshes()) // 3
+    fields, _, _ = flatten_scene_np(parse(full_path))
+    direct_mixed = int(fields["bvh_alpha.n_tris"])
+    del fields
+    log(f"[convert] {obj}: written in {write_s:.1f} s ({os.path.getsize(obj)}"
+        f" bytes); the scene written directly has {direct_tris} triangles, "
+        f"{direct_mixed} MIXED")
+    out = os.path.join(workdir, "sponza_convert.png")
+    conv_s = []
+    real_convert = converter.convert
+
+    def timed_convert(*a, **k):
+        t = time.perf_counter()
+        n = real_convert(*a, **k)
+        conv_s.append(time.perf_counter() - t)
+        return n
+
+    converter.convert = timed_convert
+    # the converted .glaze is cached in the temporary directory: keep it
+    # in the work directory, emptied first (the .obj written above has a
+    # new mtime, so an earlier run's cache file would never hit again)
+    saved_tmp = tempfile.tempdir
+    tempfile.tempdir = os.path.join(workdir, "tmp")
+    shutil.rmtree(tempfile.tempdir, ignore_errors=True)
+    os.makedirs(tempfile.tempdir)
+    try:
+        with Capture() as cap:
+            code, r, times, launches, probes, _ = run_cli(
+                [obj, out, "--res", f"{RES[0]}x{RES[1]}", "--spp", str(SPP),
+                 "--seed", str(SEED), "--device", "cuda"])
+    finally:
+        converter.convert = real_convert
+        tempfile.tempdir = saved_tmp
+    if code != 0:
+        raise RuntimeError(f"CLI exited {code} on the .obj")
+    if len(conv_s) != 1:
+        raise RuntimeError(f"the CLI converted {len(conv_s)} times")
+    tris = sum(r.host.inst_tri_count)
+    mixed = int(r.scene.bvh_alpha.n_tris) if r.scene.bvh_alpha else 0
+    log(f"[convert] converted scene: {tris} triangles, {mixed} MIXED, "
+        f"{len(r.host.materials)} materials, {len(r.host.lights)} lights")
+    if tris != direct_tris or mixed != direct_mixed:
+        raise RuntimeError(f"converted scene has {tris} triangles, {mixed} "
+                           f"MIXED; written directly {direct_tris}, "
+                           f"{direct_mixed}")
+    calls = {k: len(v) for k, v in cap.calls.items()}
+    derived = _expected(closest_hit_masked=calls["closest_hit_soa_masked_auto"],
+                        any_hit_masked=calls["any_hit_soa_masked_auto"])
+    log(f"[convert] dispatches {calls}; {times['launches']} launches")
+    if calls["closest_hit_soa_auto"] or calls["any_hit_soa_auto"] or \
+            derived != EXPECTED_FULL:
+        raise RuntimeError(f"converted render dispatched {calls}, expected "
+                           f"{EXPECTED_FULL}")
+    _held_to("convert", "convert", launches, probes, derived, report)
+    _count_exact("convert", r, times["launches"])
+    accum = torch.stack(r._state.accum)
+    img = np.asarray(Image.open(out))
+    lit = float((img.max(-1) > 0).mean())
+    log(f"[convert] {out}: mean {img.mean():.2f}, {lit:.1%} of pixels lit")
+    if not bool(torch.isfinite(accum).all()) or img.shape != (
+            RES[1], RES[0], 3) or img.mean() < 1.0 or lit < 0.5:
+        raise RuntimeError("the converted render is not finite or is black")
+    setup_ms = times["setup"]
+    ms_launch = times["render"] / times["launches"]
+    log(f"[convert] conversion {conv_s[0]:.2f} s (in the setup); setup "
+        f"{setup_ms:.0f} ms with it, {setup_ms - conv_s[0] * 1e3:.0f} ms "
+        f"without; render {times['render']:.0f} ms = {ms_launch:.1f} ms per "
+        f"launch")
+    numbers = {"write_s": write_s, "conversion_s": conv_s[0],
+               "setup_ms": setup_ms,
+               "setup_ms_without_conversion": setup_ms - conv_s[0] * 1e3,
+               "render_ms": times["render"], "ms_per_launch": ms_launch,
+               "triangles": tris, "mixed": mixed, "image_mean":
+               float(img.mean()), "lit_share": lit, "launches": launches}
+    del accum
+    numbers["profile"] = profile_sample(r, "convert")
+    walk0 = next(c for c in cap.calls["closest_hit_soa_masked_auto"]
+                 if c["bvh"] is r.scene.bvh and c["anyhits_before"] == 0)
+    k2, k4 = report["closest_hit_masked"], report["any_hit_masked"]
+    _check_closest(k2, "convert_camera", r.scene.bvh, walk0)
+    _check_anyhit(k4, "convert_shadow", r.scene.bvh,
+                  cap.calls["any_hit_soa_masked_auto"][0])
+    _summarize(k2, ("camera", "bounce"))
+    _summarize(k4, ("shadow_camera_hits", "shadow_bounce_hits"))
+    del r, cap, walk0
+    torch.cuda.empty_cache()
+    return numbers
+
+
+# [edit]: one sample (6 launches) after each edit of the full scene; the
+# tables each edit leaves select the kernels: with the curtain's map the
+# classic tree takes K2/K4 (EXPECTED_FULL) and the fat tree the
+# opaque/alpha split (EXPECTED_FAT_FULL); without it K1/K3 and K7c/K7a
+EXPECTED_EDIT = {
+    ("classic", True): _expected(closest_hit_masked=4 * 6, any_hit_masked=6),
+    ("classic", False): _expected(closest_hit=6, any_hit=6),
+    ("fat", True): _expected(closest_hit=6, any_hit=6,
+                             closest_hit_masked=4 * 6),
+    ("fat", False): _expected(closest_hit_fat=6, any_hit_fat=6),
+}
+
+
+def _tables(renderer):
+    from glaze_tpu_torch.scene.flatten import device_scene_to_numpy
+
+    return device_scene_to_numpy(renderer.scene)
+
+
+def phase_edit(full_path, report):
+    """Scene edits on the card, on the classic and the fat tree: a
+    1920x1080 renderer of the full scene renders one sample, then
+    update_materials_and_lights removes the curtain's opacity map (render
+    one sample) and puts it back (render one sample). After each edit the
+    counters, set to 0 just before the render, equal EXPECTED_EDIT for the
+    tables the edit left, and count is exact; after the round trip every
+    table equals, bit for bit, that of a fresh renderer of the scene. Logs
+    each rebuild's time."""
+    from glaze_tpu_torch.parser import parse
+    from glaze_tpu_torch.render.renderer import RayTraceRenderer
+
+    parsed = parse(full_path)
+    with_map = parsed.materials()
+    without = parse(full_path).materials()
+    for m in without:
+        m.opacity = 0
+    numbers = {}
+    for tree in ("classic", "fat"):
+        with tree_env(None if tree == "classic" else tree):
+            t0 = time.perf_counter()
+            r = RayTraceRenderer(parsed, width=RES[0], height=RES[1],
+                                 seed=SEED, device="cuda")
+            torch.cuda.synchronize()
+            setup_ms = (time.perf_counter() - t0) * 1e3
+            steps = {}
+            for label, mats in (("map", None), ("removed", without),
+                                ("restored", with_map)):
+                edit_ms = None
+                if mats is not None:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    r.update_materials_and_lights(mats, parsed.lights())
+                    torch.cuda.synchronize()
+                    edit_ms = (time.perf_counter() - t0) * 1e3
+                has_map = label != "removed"
+                _reset_counts()
+                t0 = time.perf_counter()
+                r.draw(1, return_image=False)
+                render_ms = (time.perf_counter() - t0) * 1e3
+                launches, probes = _launch_counts()
+                _held_to(f"edit:{tree}:{label}", f"edit_{tree}_{label}",
+                         launches, probes, EXPECTED_EDIT[(tree, has_map)],
+                         report)
+                _count_exact(f"edit:{tree}:{label}", r, 6)
+                if r._alpha_rounds != (1 if has_map else 0) or (
+                        r.scene.bvh_alpha is None) == has_map:
+                    raise RuntimeError(f"edit:{tree}:{label}: alpha rounds "
+                                       f"{r._alpha_rounds}, alpha tree "
+                                       f"{r.scene.bvh_alpha is not None}")
+                log(f"[edit] {tree} {label}: edit "
+                    + ("-" if edit_ms is None else f"{edit_ms:.0f} ms")
+                    + f", one sample {render_ms:.0f} ms "
+                    f"({render_ms / 6:.1f} ms per launch)")
+                steps[label] = {"edit_ms": edit_ms, "render_ms": render_ms,
+                                "launches": launches}
+            t0 = time.perf_counter()
+            fresh = RayTraceRenderer(parsed, width=RES[0], height=RES[1],
+                                     seed=SEED, device="cuda")
+            torch.cuda.synchronize()
+            fresh_ms = (time.perf_counter() - t0) * 1e3
+            a, b = _tables(r), _tables(fresh)
+            differ = sorted(set(a) ^ set(b)) + [
+                k for k in sorted(set(a) & set(b))
+                if np.asarray(a[k]).tobytes() != np.asarray(b[k]).tobytes()
+                or np.shape(a[k]) != np.shape(b[k])]
+            log(f"[edit] {tree}: after the round trip {len(a)} tables, "
+                f"{len(differ)} differ from a fresh renderer's (built in "
+                f"{fresh_ms:.0f} ms; the first renderer's setup "
+                f"{setup_ms:.0f} ms)")
+            if differ:
+                raise RuntimeError(f"edit:{tree}: tables differ from a fresh "
+                                   f"renderer's: {differ}")
+            numbers[tree] = {"setup_ms": setup_ms, "fresh_ms": fresh_ms,
+                             "steps": steps}
+            del r, fresh, a, b
+            torch.cuda.empty_cache()
+    return numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1833,6 +2062,8 @@ def main():
     main_numbers["sampling"] = phase_sampling(paths["full"], workdir, report)
     main_numbers["resume"] = phase_resume(paths, workdir, report)
     main_numbers["denoise"] = phase_denoise(paths["full"], workdir, report)
+    main_numbers["convert"] = phase_convert(paths["full"], workdir, report)
+    main_numbers["edit"] = phase_edit(paths["full"], report)
     for name, a in attrs.items():
         report[name].update(a)
     for label, numbers in main_numbers.items():

@@ -1,4 +1,9 @@
-"""glaze-cli on PyTorch/CUDA: renders a .glaze scene to an image.
+"""glaze-cli on PyTorch/CUDA: renders a scene to an image.
+
+The input is a ``.glaze`` scene or any file the converter imports (OBJ,
+glTF/GLB, FBX, COLLADA, X3D, VRML97, 3DS, PLY, STL), converted first to a
+cached ``.glaze`` (:func:`glaze_tpu_torch.converter.ensure_glaze`); a
+checkpoint's scene id is the sha256 of the ``.glaze`` that renders.
 
 The flags and defaults of ``glaze_tpu/cli.py`` (input scene, output image,
 ``--res WxH`` 1920x1080, ``--spp`` 256, ``--integrator {direct,pt}``,
@@ -6,7 +11,7 @@ The flags and defaults of ``glaze_tpu/cli.py`` (input scene, output image,
 ``--checkpoint`` with ``--checkpoint-every``, ``--profile`` and
 ``--denoise``), plus ``--device {cuda,cpu}`` (default cuda). ``--mesh`` is
 not ported yet and exits with an error. The JAX package's variables act as
-they do in ``glaze_tpu`` (``GLAZE_COHERENT``, ``GLAZE_SIF``,
+they do in ``glaze_tpu`` (``GLAZE_DEBUG``, ``GLAZE_COHERENT``, ``GLAZE_SIF``,
 ``GLAZE_SAMPLER``, ``GLAZE_ADAPTIVE``, ``GLAZE_ADAPTIVE_TAU``,
 ``GLAZE_ADAPTIVE_MIN``, ``GLAZE_ALPHA_ROUNDS``, ``GLAZE_TILE``,
 ``GLAZE_ALPHA_MASK``, ``GLAZE_TREE``, ``GLAZE_LOG``), a flag over its
@@ -39,9 +44,10 @@ def parse_resolution(s: str):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="glaze-cli-torch",
-        description="Renders a .glaze scene to an image (glaze on PyTorch/CUDA).",
+        description="Renders a scene to an image (glaze on PyTorch/CUDA).",
     )
-    p.add_argument("input", help="input .glaze scene")
+    p.add_argument("input", help="input scene (.glaze or a mesh format the "
+                                 "converter imports)")
     p.add_argument("output", help="output image (.png/.jpg)")
     p.add_argument("-r", "--res", "--resolution", type=parse_resolution,
                    default=(1920, 1080), dest="res",
@@ -119,15 +125,24 @@ def run(argv=None):
         print(f"error: {flag} is {NOT_PORTED}", file=sys.stderr)
         return 2, None, None
 
-    from glaze_tpu_torch.parser import converted_file, parse
+    from glaze_tpu_torch.converter import ensure_glaze
+    from glaze_tpu_torch.parser import parse
     from glaze_tpu_torch.render.renderer import (
         Integrator,
         RayTraceRenderer,
         check_sampling,
     )
-    from glaze_tpu_torch.utils import Timer, init_logging, profiler_trace
+    from glaze_tpu_torch.utils import (
+        Timer,
+        init_logging,
+        profiler_trace,
+        setup_debug_modes,
+    )
 
     init_logging()
+    if setup_debug_modes():
+        print("GLAZE_DEBUG: NaN checks + runtime validation on",
+              file=sys.stderr)
     sampling = dict(samples_in_flight=args.sif, sampler=args.sampler,
                     adaptive=(None if args.adaptive is None
                               else args.adaptive == "on"))
@@ -136,12 +151,9 @@ def run(argv=None):
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, None, None
-    if not converted_file(args.input):
-        print(f"error: {args.input!r} is not a .glaze scene (the converter "
-              f"is {NOT_PORTED})", file=sys.stderr)
-        return 2, None, None
     timer = Timer()
-    parsed = parse(args.input)
+    scene_path = ensure_glaze(args.input)
+    parsed = parse(scene_path)
     timer.mark("parse")
     width, height = args.res
     integrator = (Integrator.DIRECT if args.integrator == "direct"
@@ -155,7 +167,7 @@ def run(argv=None):
     print(f"Setup time: {setup_ms:.0f}ms", file=sys.stderr)
 
     done_spp = 0
-    sid = scene_id(args.input) if args.checkpoint else ""
+    sid = scene_id(scene_path) if args.checkpoint else ""
     if args.checkpoint and os.path.exists(args.checkpoint):
         try:
             renderer.load_checkpoint(args.checkpoint, scene_id=sid)

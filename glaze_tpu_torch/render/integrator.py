@@ -1031,11 +1031,13 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
 def render_steps(scene, state, seeds, offsets, cam2world, screen2cam, *,
                  width, height, is_persp, direct_only, steps,
                  alpha_rounds=0, sif=1, coherent=1, sampler="pcg",
-                 sampler_seed=None, lane_active=None):
+                 sampler_seed=None, lane_active=None, after_launch=None):
     """``steps`` launches as a Python loop over :func:`launch_step`;
     ``seeds`` (steps,) uint32 and ``offsets`` are NumPy: (steps, 2), or
     (steps, sif, 2) with ``sif`` > 1 samples in flight (state from
-    ``init_state(..., sif=sif)``, one jitter per copy)."""
+    ``init_state(..., sif=sif)``, one jitter per copy).
+    ``after_launch(k, state)``, where given, runs after launch k (the
+    renderer's ``GLAZE_DEBUG`` NaN check)."""
     px, py, rng_py = sif_lanes(width, height, sif, scene.device)
     size = (float(width), float(height))
     p1 = pixel_count(width, height)
@@ -1051,7 +1053,21 @@ def render_steps(scene, state, seeds, offsets, cam2world, screen2cam, *,
             alpha_rounds=alpha_rounds, rng_py=rng_py, coherent=coherent,
             sampler=sampler, sampler_seed=sampler_seed,
             lane_active=lane_active)
+        if after_launch is not None:
+            after_launch(k, state)
     return state
+
+
+def named_leaves(state: PathState):
+    """(name, tensor) pairs of every PathState leaf, the tuple leaves as
+    ``origin[0]`` ...; the names :func:`utils.check_nans` reports."""
+    out = []
+    for name, leaf in zip(PathState._fields, state):
+        if isinstance(leaf, tuple):
+            out += [(f"{name}[{i}]", t) for i, t in enumerate(leaf)]
+        else:
+            out.append((name, leaf))
+    return out
 
 
 def _fold_sif(accum, count, sif: int):

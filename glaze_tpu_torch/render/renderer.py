@@ -1,21 +1,23 @@
 """RayTraceRenderer: the offline progressive path tracer (torch).
 
-Port of the main-path surface of :mod:`glaze_tpu.render.renderer`
+Port of the offline surface of :mod:`glaze_tpu.render.renderer`
 (``RayTraceRenderer::{new, draw, set_integrator, set_exposure,
-update_camera, change_resolution}``, raytracer.rs:153-687, and the
+update_camera, update_materials_and_lights, change_resolution,
+change_scene}``, raytracer.rs:153-687, ``update_textures`` and the
 checkpoints). ``draw(spp)`` runs ``ceil(spp * steps_per_sample / sif)``
 launches as a Python loop; launch seeds come from the host
 ``np.random.default_rng(seed)`` in the same chunks as the JAX package, so
 both packages draw the same seeds for the same ``seed``.
 
 Scenes with opacity maps render with ``GLAZE_ALPHA_ROUNDS`` alpha re-test
-rounds (one by default, as in the JAX package), set at construction from
-the materials; without opacity maps it is 0. The coherent mode follows
-the JAX package's precedence: the ``coherent`` argument, else
-``GLAZE_COHERENT``, else 1 (frame). The sampling options follow it too:
-``samples_in_flight`` (else ``GLAZE_SIF``, else 1), ``sampler`` (else
-``GLAZE_SAMPLER``, else pcg) and ``adaptive`` (else ``GLAZE_ADAPTIVE``,
-else off, with ``GLAZE_ADAPTIVE_TAU`` and ``GLAZE_ADAPTIVE_MIN``).
+rounds (one by default, as in the JAX package), set from the materials at
+construction and after every edit; without opacity maps it is 0. The
+coherent mode follows the JAX package's precedence: the ``coherent``
+argument, else ``GLAZE_COHERENT``, else 1 (frame). The sampling options
+follow it too: ``samples_in_flight`` (else ``GLAZE_SIF``, else 1),
+``sampler`` (else ``GLAZE_SAMPLER``, else pcg) and ``adaptive`` (else
+``GLAZE_ADAPTIVE``, else off, with ``GLAZE_ADAPTIVE_TAU`` and
+``GLAZE_ADAPTIVE_MIN``).
 
 ``save_checkpoint`` / ``load_checkpoint`` write and read the JAX package's
 ``.npz`` layout key for key, so a checkpoint crosses between the packages
@@ -23,13 +25,24 @@ either way.
 
 ``denoise`` sends ``get_image`` (and so ``save``) through the display
 denoiser (:mod:`glaze_tpu_torch.render.denoise`), whose G-buffer is cached
-until the camera, scene, resolution or alpha rounds change; the
-accumulation state, and so any checkpoint, stays raw.
+until the camera, scene, resolution or alpha rounds change, or an edit;
+the accumulation state, and so any checkpoint, stays raw.
 
-Not ported in this slice: device meshes, the interactive ``draw_frame``
-with the denoiser's temporal half, material / light edits
-(``update_materials_and_lights`` and its opaque/alpha split rebuild) and
-scene swaps.
+Scene edits (``update_materials_and_lights``, ``update_textures``,
+``change_scene``) replace the device tables in place and restart the
+accumulation. An edit that changes what the opaque/alpha split is built
+from rebuilds it on the host and uploads it as ``flatten_scene`` does,
+re-baking the cell masks into a classic main tree: a material edit that
+adds, removes or retargets an opacity map, and a texture edit in a scene
+with opacity maps (the split classifies the opacity texels, and its
+alpha-test rows hold atlas offsets).
+
+With ``GLAZE_DEBUG`` on (:func:`glaze_tpu_torch.utils.setup_debug_modes`)
+``draw`` checks the state for NaN after every launch and raises
+``FloatingPointError`` naming the launch and the leaf.
+
+Not ported in this slice: device meshes and the interactive ``draw_frame``
+with the denoiser's temporal half.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ from glaze_tpu_torch.device import resolve_device
 from glaze_tpu_torch.render import integrator as integ
 from glaze_tpu_torch.render.scheduler import WorkScheduler
 from glaze_tpu_torch.utils.log import get_logger
+from glaze_tpu_torch.utils.runtime import check_nans, debug_nans
 
 log = get_logger("renderer")
 
@@ -173,19 +187,66 @@ class RayTraceRenderer:
         self._scheduler = WorkScheduler()
         self._state = self._zero_state()
         self._request_new_frame = True
-        # alpha_rounds() when some material has an opacity map, else 0
-        from glaze_tpu_torch.scene.flatten import MT_OPACITY
-
-        has_opacity = bool(self.scene.mat_tex[:, MT_OPACITY].any())
-        self._alpha_rounds = alpha_rounds() if has_opacity else 0
+        # launches since the accumulation restarted (GLAZE_DEBUG names them)
+        self._launch_no = 0
         # the display denoiser: display-only, it never touches the state
         self.denoise = False
         self._gb_key = None
         self._gb = None
+        # the per-triangle opacity texture ids the split was built for
+        self._alpha_tex_cache = None
+        self._refresh_alpha_rounds()
 
     def _zero_state(self):
         return integ.init_state(self.width, self.height, self.device,
                                 self.samples_in_flight)
+
+    # -- opacity maps -------------------------------------------------------
+    def _alpha_tri_tex(self):
+        """Per-ORIGINAL-triangle opacity texture id (0: no opacity map),
+        from the host instance tables (None without host data); the JAX
+        package's ``_alpha_tri_mask`` is this ``!= 0``."""
+        h = self.host
+        if h is None or not h.inst_tri_count:
+            return None
+        opac = np.asarray([m.opacity for m in h.materials], np.int64)
+        n = max(f + c for f, c in zip(h.inst_tri_first, h.inst_tri_count))
+        tex = np.zeros(n, np.int64)
+        for m, f, c in zip(h.inst_material, h.inst_tri_first,
+                           h.inst_tri_count):
+            if 0 <= m < opac.size:
+                tex[f:f + c] = opac[m]
+        return tex
+
+    def _refresh_alpha_rounds(self, textures_changed: bool = False):
+        """Sets the alpha rounds from the materials (``alpha_rounds()``
+        when some material has an opacity map, else 0), and rebuilds the
+        opaque/alpha split when its inputs changed since the flatten or
+        the last rebuild: a triangle's opacity texture id, or, with
+        ``textures_changed``, the textures of a scene with opacity maps.
+        The JAX package rebuilds only when the "has an opacity map" mask
+        changes (ROADMAP F13)."""
+        from glaze_tpu_torch.scene.flatten import MT_OPACITY
+
+        if self.host is not None:
+            has = any(m.opacity != 0 for m in self.host.materials)
+        else:
+            has = bool(self.scene.mat_tex[:, MT_OPACITY].any())
+        self._alpha_rounds = alpha_rounds() if has else 0
+        tex = self._alpha_tri_tex()
+        if tex is None or self.host.tri_order is None:
+            return
+        cached = self._alpha_tex_cache
+        self._alpha_tex_cache = tex
+        if cached is None:
+            return  # construction or change_scene: the flatten built it
+        if not (textures_changed and tex.any()) and \
+                cached.shape == tex.shape and (cached == tex).all():
+            return
+        from glaze_tpu_torch.scene import flatten as fl
+
+        self.scene = self.scene._replace(
+            **fl.rebuild_alpha_split(self.scene, self.host))
 
     # -- configuration ------------------------------------------------------
     def set_integrator(self, integrator: Integrator):
@@ -203,6 +264,70 @@ class RayTraceRenderer:
         self.camera = camera
         self._request_new_frame = True
 
+    def _scene_edited(self, textures_changed: bool = False):
+        self._refresh_alpha_rounds(textures_changed)
+        self._gb_key = None  # albedo follows the materials; ids are reused
+        self._request_new_frame = True
+
+    def update_materials_and_lights(self, materials, lights):
+        """Re-flattens the material, light and sky tables in place
+        (RayTraceScene::update_materials_and_lights, scene.rs:1578-1624)
+        and restarts accumulation. Needs a renderer built from a parsed
+        scene (so the host instance tables exist)."""
+        from glaze_tpu_torch.scene import flatten as fl
+
+        if self.host is None:
+            raise ValueError(
+                "update_materials_and_lights needs a renderer built from a "
+                "parsed scene; use change_scene for DeviceScene-built ones")
+        lights_r = fl.reorder_lights(lights)
+        tables = {
+            **fl.flatten_materials(materials),
+            **fl.flatten_lights(lights_r, self.host.inst_material,
+                                self.host.inst_tri_first,
+                                self.host.inst_tri_count),
+            **fl.build_sky_tables(lights_r, self.host.textures),
+        }
+        self.scene = self.scene._replace(
+            **{k: fl.array_to(v, self.device) for k, v in tables.items()})
+        self.host = self.host._replace(materials=list(materials),
+                                       lights=lights_r)
+        self._scene_edited()
+
+    def update_textures(self, textures):
+        """Swaps the texture set: rebuilds the atlas and, as the reference
+        rebuilds the sky distribution when its texture changes
+        (scene.rs:1598-1616), the sky tables, and in a scene with opacity
+        maps the opaque/alpha split. Restarts accumulation."""
+        from glaze_tpu_torch.ops.texture import build_atlas
+        from glaze_tpu_torch.scene import flatten as fl
+
+        if self.host is None:
+            raise ValueError(
+                "update_textures needs a renderer built from a parsed scene")
+        textures = list(textures)
+        sky = fl.build_sky_tables(self.host.lights, textures)
+        self.scene = self.scene._replace(
+            atlas=build_atlas(textures, self.device),
+            **{k: fl.array_to(v, self.device) for k, v in sky.items()})
+        self.host = self.host._replace(textures=textures)
+        self._scene_edited(textures_changed=True)
+
+    def change_scene(self, parsed, camera=None):
+        """Full scene swap (raytracer.rs change_scene), on the renderer's
+        device; the parsed scene's camera is taken unless ``camera`` is
+        given."""
+        from glaze_tpu_torch.scene import flatten_scene
+
+        self.scene, parsed_cam, self.host = flatten_scene(parsed, self.device)
+        if camera is not None:
+            self.camera = camera
+        elif parsed_cam is not None:
+            self.camera = parsed_cam
+        # the flatten built the new scene's split: nothing to rebuild
+        self._alpha_tex_cache = None
+        self._scene_edited()
+
     def change_resolution(self, width: int, height: int):
         self.width, self.height = int(width), int(height)
         self._state = self._zero_state()
@@ -214,6 +339,7 @@ class RayTraceRenderer:
             self._request_new_frame = False
             self._scheduler.rewind()
             self._state = self._zero_state()
+            self._launch_no = 0
 
     def _take_offsets(self, n: int):
         """Sub-pixel jitters for n launches: (n, 2), or (n, sif, 2), one
@@ -246,6 +372,13 @@ class RayTraceRenderer:
                 lane_active = integ.adaptive_lane_mask(
                     self._state, sif=self.samples_in_flight,
                     tau=self.adaptive_tau, min_count=self.adaptive_min)
+            after_launch = None
+            if debug_nans():
+                base = self._launch_no
+
+                def after_launch(k, state, base=base):
+                    check_nans(integ.named_leaves(state),
+                               f"launch {base + k}")
             self._state = integ.render_steps(
                 self.scene, self._state, seeds, offsets, c2w, s2c,
                 width=self.width, height=self.height,
@@ -254,8 +387,9 @@ class RayTraceRenderer:
                 steps=n, alpha_rounds=self._alpha_rounds,
                 sif=self.samples_in_flight, coherent=self.coherent,
                 sampler=self.sampler, sampler_seed=self._sampler_seed,
-                lane_active=lane_active)
+                lane_active=lane_active, after_launch=after_launch)
             done += n
+            self._launch_no += n
             if callback is not None:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)

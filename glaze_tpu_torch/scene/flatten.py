@@ -168,6 +168,19 @@ class DeviceScene:
     def device(self) -> torch.device:
         return self.tri_attr.device
 
+    def _replace(self, **updates):
+        """NamedTuple-style copy with overrides (the JAX package's
+        ``DeviceScene._replace``): the specialization sets are recomputed
+        when their source tables change (material or light edits)."""
+        mat_families = None if "mat_bsdf" in updates else self.mat_families
+        light_kinds = None if "light_type" in updates else self.light_kinds
+        tex_slots = None if "mat_tex" in updates else self.tex_slots
+        fields = {n: updates.pop(n, getattr(self, n)) for n in _SCENE_FIELDS}
+        if updates:
+            raise TypeError(f"unknown DeviceScene fields: {sorted(updates)}")
+        return DeviceScene(mat_families=mat_families, light_kinds=light_kinds,
+                           tex_slots=tex_slots, **fields)
+
 
 def compute_derivatives(v0, v1, v2, uv0, uv1, uv2):
     """Per-triangle geometric normal + dpdu/dpdv, vectorized (port of
@@ -880,7 +893,7 @@ def flatten_scene_np(parsed):
     return fields, camera, host
 
 
-def _array_to(a, device) -> torch.Tensor:
+def array_to(a, device) -> torch.Tensor:
     """One NumPy field -> tensor on ``device``. float32 arrays move as int32
     bits (bit-carrier columns cross bitwise); uint32 becomes its int32 bits."""
     a = np.asarray(a)
@@ -914,8 +927,17 @@ def device_scene_from_numpy(fields: dict, device) -> DeviceScene:
         if name in _TREE_FIELDS or name == "atlas":
             continue
         if fields.get(name) is not None:
-            plain[name] = _array_to(fields[name], device)
+            plain[name] = array_to(fields[name], device)
     return DeviceScene(atlas=atlas, **plain)
+
+
+def _tree_to_np(tree) -> dict:
+    """A device tree's host tables (the inverse of ``tree_from_np``)."""
+    out = {}
+    for k in FAT_KEYS if hasattr(tree, "leafmat") else _BVH_KEYS:
+        v = getattr(tree, k)
+        out[k] = v if isinstance(v, int) else v.cpu().numpy()
+    return out
 
 
 def device_scene_to_numpy(scene: DeviceScene) -> dict:
@@ -925,9 +947,7 @@ def device_scene_to_numpy(scene: DeviceScene) -> dict:
         tree = getattr(scene, name)
         if tree is None:
             continue
-        for k in FAT_KEYS if hasattr(tree, "leafmat") else _BVH_KEYS:
-            v = getattr(tree, k)
-            out[f"{name}.{k}"] = v if isinstance(v, int) else v.cpu().numpy()
+        out.update({f"{name}.{k}": v for k, v in _tree_to_np(tree).items()})
     for k in TextureAtlas._fields:
         out[f"atlas.{k}"] = getattr(scene.atlas, k).cpu().numpy()
     out["atlas.texels"] = out["atlas.texels"].view(np.uint32)
@@ -937,6 +957,43 @@ def device_scene_to_numpy(scene: DeviceScene) -> dict:
             continue
         out[name] = v.cpu().numpy()
     return out
+
+
+def rebuild_alpha_split(scene: DeviceScene, host: HostSceneData) -> dict:
+    """The opaque/alpha split of ``scene`` rebuilt from ``host``'s current
+    materials and textures (the JAX package's
+    ``RayTraceRenderer._refresh_alpha_rounds``), as DeviceScene updates on
+    the scene's device: the seven split fields, uploaded as
+    :func:`flatten_scene` uploads them, and, where the rebuild bakes cell
+    masks and the main tree is classic, ``bvh`` with the new masks. A
+    removed map leaves the main tree's old masks in place, as in the JAX
+    package: with no alpha rounds no walk reads them."""
+    device = scene.device
+    tri_pos = scene.tri_pos_orig.cpu().numpy().reshape(-1, 3, 3)
+    order = np.asarray(host.tri_order)
+    sentinel_rows = order == SENTINEL
+    order = np.where(sentinel_rows, 0, order).astype(np.int64)
+    tri_mat = np.zeros(tri_pos.shape[0], np.int64)
+    for m, f, c in zip(host.inst_material, host.inst_tri_first,
+                       host.inst_tri_count):
+        tri_mat[f:f + c] = m
+    split = build_alpha_split(
+        tri_pos, tri_mat, flatten_materials(host.materials)["mat_tex"],
+        order, sentinel_rows, tri_uv=host.tri_uv, textures=host.textures,
+        atlas=build_atlas_np(host.textures))
+    full_payload = split.pop("_full_payload")
+    updates = {}
+    for name, v in split.items():
+        if v is None:
+            updates[name] = None
+        elif name in _TREE_FIELDS:
+            updates[name] = tree_from_np(v, device)
+        else:
+            updates[name] = array_to(v, device)
+    if full_payload is not None and not hasattr(scene.bvh, "leafmat"):
+        updates["bvh"] = tree_from_np(
+            attach_tri_payload(_tree_to_np(scene.bvh), full_payload), device)
+    return updates
 
 
 def flatten_scene(parsed, device=None):
@@ -953,4 +1010,5 @@ def flatten_scene(parsed, device=None):
 __all__ = ["BVH", "DeviceScene", "HostSceneData", "flatten_scene",
            "flatten_scene_np", "device_scene_from_numpy",
            "device_scene_to_numpy", "flatten_materials", "flatten_lights",
-           "build_sky_tables", "compute_derivatives"]
+           "build_sky_tables", "compute_derivatives", "array_to",
+           "rebuild_alpha_split"]

@@ -11,7 +11,9 @@
   JAX package's renders of it at GOLDEN_W x GOLDEN_H.
 
 Both are duck-typed ParsedScenes (``vertices()``, ``meshes()`` ...), so
-they go straight into the renderer or through the port's Serializer.
+they go straight into the renderer or through the port's Serializer
+(:func:`write_glaze`), or out as Wavefront OBJ for the converter
+(:func:`write_obj`).
 """
 
 from __future__ import annotations
@@ -532,3 +534,101 @@ def write_glaze(scene, path):
      .with_lights(scene.lights())
      .with_metadata(scene.meta())
      .serialize())
+
+
+def _camera_frame(camera):
+    """The rotation and origin that move world space into ``camera``'s
+    frame as the converter's default camera sees it (at the origin, looking
+    down +z, +y up, so its right is -x): rows -right, up, forward."""
+    cam = camera.inner
+    c = np.asarray(cam.position, np.float64)
+    f = np.asarray(cam.target, np.float64) - c
+    f /= np.linalg.norm(f)
+    r = np.cross(f, np.asarray(cam.up, np.float64))
+    r /= np.linalg.norm(r)
+    u = np.cross(r, f)
+    return np.stack([-r, u, f]), c
+
+
+def write_obj(scene, directory):
+    """Writes a duck-typed scene as Wavefront OBJ + MTL into
+    ``directory`` (``scene.obj``, ``scene.mtl``): positions, normals and uvs (one ``v``/``vt``/``vn`` per
+    vertex), one ``usemtl`` group per mesh, each material's ``Kd``, ``Ke``
+    and ``Ni``, and its diffuse, opacity and normal textures as PNG files
+    (``map_Kd``, ``map_d``, ``map_bump``). Returns the ``.obj`` path.
+
+    An OBJ carries no camera, no light but emitters and no transform: the
+    scene's instances must be its meshes, untransformed. The converter
+    gives an OBJ its default camera (at the origin, looking down +z), so
+    positions and normals are moved rigidly into the scene's first camera's
+    frame: the converted scene is seen as the scene's camera sees it. The
+    importer flips v (``1 - v``), so ``1 - v`` is written, exactly in
+    float64: the texels land where they land in the scene itself."""
+    import os
+
+    from PIL import Image
+
+    if any(not np.array_equal(t.m, np.eye(4)) for t in scene.transforms()):
+        raise ValueError("write_obj writes untransformed meshes only")
+    meshes = scene.meshes()
+    if sorted((i.mesh_id, i.transform_id) for i in scene.instances()) != \
+            sorted((m.id, 0) for m in meshes):
+        raise ValueError("write_obj needs one instance of each mesh")
+    if hasattr(scene, "vertices_np"):
+        pos, nrm, uv = scene.vertices_np()
+    else:
+        vs = scene.vertices()
+        pos, nrm, uv = (np.stack([getattr(v, k) for v in vs])
+                        for k in ("vv", "vn", "vt"))
+    pos, nrm = np.asarray(pos, np.float64), np.asarray(nrm, np.float64)
+    uv = np.asarray(uv, np.float64)
+    cameras = scene.cameras()
+    if cameras:
+        rot, origin = _camera_frame(cameras[0])
+        pos = (pos - origin) @ rot.T
+        nrm = nrm @ rot.T
+    os.makedirs(directory, exist_ok=True)
+
+    textures = scene.textures()
+    tex_files = {}
+
+    def tex_file(tid):
+        if tid not in tex_files:
+            tex = textures[tid]
+            fname = f"tex{tid}_{tex.info.name}.png"
+            data = np.asarray(tex.data[0], np.uint8)
+            Image.fromarray(data, "L" if data.ndim == 2 else "RGBA").save(
+                os.path.join(directory, fname))
+            tex_files[tid] = fname
+        return tex_files[tid]
+
+    def colour(c):
+        # the importer keeps int(v * 255): write each byte's midpoint
+        return " ".join(repr((b + 0.5) / 255.0) for b in c)
+
+    materials = scene.materials()
+    mtl = []
+    for m in materials:
+        mtl += [f"newmtl {m.name}", f"Kd {colour(m.diffuse_mul)}",
+                f"Ni {m.ior!r}"]
+        if m.emissive_col is not None:
+            mtl.append(f"Ke {colour(m.emissive_col)}")
+        for key, tid in (("map_Kd", m.diffuse), ("map_d", m.opacity),
+                         ("map_bump", m.normal)):
+            if tid:
+                mtl.append(f"{key} {tex_file(tid)}")
+    with open(os.path.join(directory, "scene.mtl"), "w") as f:
+        f.write("\n".join(mtl) + "\n")
+
+    path = os.path.join(directory, "scene.obj")
+    with open(path, "w") as f:
+        f.write("mtllib scene.mtl\n")
+        f.write("".join(f"v {x!r} {y!r} {z!r}\n" for x, y, z in pos.tolist()))
+        f.write("".join(f"vt {a!r} {1.0 - b!r}\n" for a, b in uv.tolist()))
+        f.write("".join(f"vn {x!r} {y!r} {z!r}\n" for x, y, z in nrm.tolist()))
+        for mesh in meshes:
+            idx = np.asarray(mesh.indices, np.int64).reshape(-1, 3) + 1
+            f.write(f"usemtl {materials[mesh.material].name}\n")
+            f.write("".join(f"f {a}/{a}/{a} {b}/{b}/{b} {c}/{c}/{c}\n"
+                            for a, b, c in idx.tolist()))
+    return path

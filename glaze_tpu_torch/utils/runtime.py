@@ -1,12 +1,16 @@
-"""Runtime helpers: the CLI's phase timer and its profiler trace.
+"""Runtime helpers: the CLI's phase timer, its profiler trace and the
+``GLAZE_DEBUG`` NaN checks.
 
 Copies of ``Timer`` and ``profiler_trace`` of ``glaze_tpu/utils/runtime.py``,
-the trace on ``torch.profiler`` in place of ``jax.profiler``. The JAX
-package's persistent compilation cache (``enable_compilation_cache``) and
-its NaN-checking debug mode (``setup_debug_modes``, ``GLAZE_DEBUG``) are
-JAX configuration and have no counterpart here: PyTorch runs eagerly and
-compiles nothing at run time, and the CUDA kernels are built once into
-``build/`` (:mod:`glaze_tpu_torch.cuda_build`).
+the trace on ``torch.profiler`` in place of ``jax.profiler``.
+``setup_debug_modes`` reads ``GLAZE_DEBUG`` as the JAX package does; where
+that turns on ``jax_debug_nans``, here the renderer checks the path
+state's float leaves for NaN after every launch (:func:`check_nans`) and
+raises ``FloatingPointError`` naming the launch and the leaf. Off, no
+check runs: no sync and no extra kernel. The JAX package's persistent
+compilation cache (``enable_compilation_cache``) has no counterpart:
+PyTorch runs eagerly and compiles nothing at run time, and the CUDA
+kernels are built once into ``build/`` (:mod:`glaze_tpu_torch.cuda_build`).
 """
 
 from __future__ import annotations
@@ -15,6 +19,42 @@ import os
 import time
 
 TRACE_FILE = "trace.json"
+
+_debug_nans = False
+
+
+def setup_debug_modes(force: bool | None = None) -> bool:
+    """The reference's validation layers (debug.rs:83-165): with
+    ``GLAZE_DEBUG`` set to anything but "" or "0" (or ``force=True``) the
+    renderer checks its state for NaN after every launch. Returns whether
+    enabled. Like the JAX package's, it turns the checks on and never
+    off."""
+    global _debug_nans
+    enabled = (os.environ.get("GLAZE_DEBUG", "") not in ("", "0")
+               if force is None else force)
+    if enabled:
+        _debug_nans = True
+    return enabled
+
+
+def debug_nans() -> bool:
+    """True once :func:`setup_debug_modes` has turned the NaN checks on."""
+    return _debug_nans
+
+
+def check_nans(leaves, where: str):
+    """Raises FloatingPointError at the first named float tensor of
+    ``leaves`` ((name, tensor) pairs) that holds a NaN, naming ``where``
+    and the leaf. Infinity passes: ray caps and ``t`` hold it in a correct
+    render."""
+    import torch
+
+    for name, leaf in leaves:
+        if leaf.is_floating_point() and bool(torch.isnan(leaf).any()):
+            n = int(torch.isnan(leaf).sum())
+            raise FloatingPointError(
+                f"GLAZE_DEBUG: NaN in {where}, leaf {name!r} "
+                f"({n} of {leaf.numel()} values)")
 
 
 class profiler_trace:

@@ -39,7 +39,11 @@ def test_port_sources_found():
     assert any(f.endswith(os.path.join("tools", "probes_cuda.py")) for f in files)
     for mod in (("ops", "sobol.py"), ("utils", "log.py"),
                 ("utils", "runtime.py"), ("render", "denoise.py"),
-                ("scripts", "issue_rates.py")):
+                ("scripts", "issue_rates.py"),
+                ("glaze_tpu_torch", "converter.py"),
+                ("glaze_tpu_torch", "fbx.py"),
+                ("glaze_tpu_torch", "instance.py"),
+                ("glaze_tpu_torch", "loader.py")):
         assert any(f.endswith(os.path.join(*mod)) for f in files), mod
 
 
