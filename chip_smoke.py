@@ -37,7 +37,15 @@ converter included, holding K2 and K4 against their plain walkers on its
 rays ([convert]), and edits a renderer's materials on the classic and the
 fat tree, removing the curtain's opacity map and putting it back, with a
 render after each edit and the rebuilt tables against a fresh renderer's
-([edit]). Any failed phase raises, so the
+([edit]). It runs the interactive app (python -m glaze_tpu_torch.app) on
+the full scene at 1920x1080 with a script of still frames, camera drags,
+the temporal denoiser, the flat preview and a material edit: ms per
+frame of each kind, the launch counters of the frames drawn, each kind
+profiled, K2 and K4 against their plain walkers on a tile-coherent drag
+launch, pipelined frames against blocking ones, the preview and a
+temporal drag frame on the card against the CPU ([interactive]); and the
+browser viewer on port 0 at scale 0.5: frames, stats, a camera control,
+the render thread joined ([viewer]). Any failed phase raises, so the
 script exits non-zero and prints no result. Without CUDA (or without the
 package beside it) it exits non-zero too.
 
@@ -1212,31 +1220,12 @@ def profile_sample(renderer, label):
     the render above). Wall time is taken unprofiled; device time by
     kernel comes from torch.profiler (CUPTI). Reports, not checks: if the
     profiler records no device time the numbers read "not measured"."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     renderer.draw(1, return_image=False)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        renderer.draw(1, return_image=False)
-        torch.cuda.synchronize()
-    kernels = {}
-    walks = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        k = kernels.setdefault(e.key[:90], [0.0, 0])
-        k[0] += us / 1e3
-        k[1] += e.count
-        name = _traversal_kernel(e.key)
-        if name is not None:
-            w = walks.setdefault(name, [0.0, 0])
-            w[0] += us / 1e3
-            w[1] += e.count
+    kernels, walks = _device_kernels(
+        lambda: renderer.draw(1, return_image=False))
     busy_ms = sum(v[0] for v in kernels.values())
     if busy_ms <= 0.0:
         log(f"[profile:{label}] the profiler recorded no device time: not "
@@ -1258,6 +1247,35 @@ def profile_sample(renderer, label):
             "traversal_ms": trav, "traversal_ms_per_launch": per_launch,
             "kernel_launches": sum(v[1] for v in kernels.values()),
             "top": [[name, ms, n] for name, (ms, n) in top]}
+
+
+def _device_kernels(fn):
+    """torch.profiler (CUPTI) over one call of ``fn``, the card idle before
+    and after: {kernel name: [device ms, launches]} of every kernel, and
+    the same for the traversal kernels by wrapper name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    walks = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        k = kernels.setdefault(e.key[:90], [0.0, 0])
+        k[0] += us / 1e3
+        k[1] += e.count
+        name = _traversal_kernel(e.key)
+        if name is not None:
+            w = walks.setdefault(name, [0.0, 0])
+            w[0] += us / 1e3
+            w[1] += e.count
+    return kernels, walks
 
 
 # the traversal kernels' device-function names (csrc/traverse.cu) and the
@@ -2025,6 +2043,518 @@ def phase_edit(full_path, report):
     return numbers
 
 
+# [interactive]: the app (python -m glaze_tpu_torch.app) on the full scene
+# at 1920x1080, scale 1.0, with the script below. A command that changes
+# something presents 8 frames (app.main's present), so the frames are: 1
+# at start; frames 24; drag 8 and its present's 1; denoise on 8; frames
+# 12; drag 8 and 1; raytrace off 8 (preview); frames 8 (preview);
+# raytrace on 8; the material edit 8; frames 6. That is 85 path-traced
+# launches (26 raw still, 8 raw drag, 43 temporal still, 8 temporal drag,
+# by whether the camera moved since the last frame) and 16 preview
+# frames. A launch of the full scene runs K2 four times and K4 once
+# (EXPECTED_FULL); a preview frame traces the camera rays once with 4
+# alpha rounds on the full masked tree: K2 five times. One gbuffer_pass
+# runs (K2 twice: the walk and one alpha round), on the first frame after
+# "denoise on", which continues the paths (ROADMAP F14); a temporal frame
+# after a move or an edit takes its G-buffer from its own launch, and the
+# still frames and get_image reuse it.
+INTERACTIVE_SCRIPT = ("frames 24", "drag 0.5 0 8", "denoise on", "frames 12",
+                      "drag 0.5 0 8", "raytrace off", "frames 8",
+                      "raytrace on", "mat 1 diffuse 200 120 60", "frames 6",
+                      "shot {shot}")
+INTERACTIVE_FRAMES = {"raw still": 26, "raw drag": 8, "temporal still": 43,
+                      "temporal drag": 8, "preview": 16}
+PREVIEW_K2 = 5  # the walk and 4 alpha rounds
+GBUFFER_K2 = 2  # the walk and 1 alpha round
+INTERACTIVE_GBUFFER_PASSES = 1
+# the preview card against CPU at this size (the plain walkers on the CPU)
+PREVIEW_RES = (160, 90)
+PREVIEW_OFF = 0.001  # share of pixels more than one level apart
+VALID_FLIPS = 0.001  # share of pixels whose reprojection validity differs
+FRAMESTATS_S = 1.2  # seconds of frames a kind's steady run lasts at least
+# a drag of 0.004 rad moves the image ~8 pixels: most of the history
+# reprojects (depth within 5%, normals agreeing)
+VALID_SHARE = 0.5
+
+
+class FrameLog:
+    """Wraps RealtimeRenderer.draw_frame for a run: each frame's kind (the
+    preview, or raw/temporal and still/drag: whether the path tracer's
+    camera moved since its last frame), its host seconds and the fps
+    FrameStats reports after it; keeps the renderer."""
+
+    def __init__(self):
+        from glaze_tpu_torch.render import realtime
+
+        self.cls = realtime.RealtimeRenderer
+        self.real = self.cls.draw_frame
+        self.frames = []
+        self.rr = None
+        self._cam = None
+
+    def __enter__(self):
+        from glaze_tpu_torch.render import integrator as integ
+
+        def draw_frame(rr, pipelined=False):
+            self.rr = rr
+            if rr.use_raytracer:
+                rt = rr._rt
+                c2w, _ = integ.camera_matrices(rt.camera, rt.width, rt.height)
+                moved = self._cam is not None and not np.array_equal(
+                    c2w, self._cam)
+                self._cam = c2w
+                kind = (("temporal" if rt.denoise else "raw")
+                        + (" drag" if moved else " still"))
+            else:
+                kind = "preview"
+            t0 = time.perf_counter()
+            out = self.real(rr, pipelined)
+            self.frames.append((kind, time.perf_counter() - t0,
+                                rr.stats.fps))
+            return out
+
+        self.cls.draw_frame = draw_frame
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.draw_frame = self.real
+
+    def by_kind(self):
+        out = {}
+        for kind, dt, fps in self.frames:
+            k = out.setdefault(kind, {"frames": 0, "s": []})
+            k["frames"] += 1
+            k["s"].append(dt)
+            k["fps"] = fps
+        for k in out.values():
+            k["ms_mean"] = 1e3 * statistics.mean(k["s"])
+            k["ms_median"] = 1e3 * statistics.median(k["s"])
+            del k["s"]
+        return out
+
+
+def _frame_profile(tag, kind, rr, step, n=3):
+    """One frame kind in steady state: two frames to warm it, then frames
+    timed on the host clock (the card idle after) for FRAMESTATS_S, so
+    that FrameStats closes a window of its own, and ``n`` frames under
+    torch.profiler. Returns ms per frame, the fps FrameStats reports,
+    device busy ms and kernel launches per frame, and the traversal
+    kernels' launches per frame."""
+    from glaze_tpu_torch.render.realtime import FrameStats
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    rr.stats = FrameStats()
+    frames = 0
+    t0 = time.perf_counter()
+    while frames < n or time.perf_counter() - t0 < FRAMESTATS_S:
+        step()
+        frames += 1
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / frames
+    fps = rr.stats.fps
+    kernels, walks = _device_kernels(lambda: [step() for _ in range(n)])
+    busy = sum(v[0] for v in kernels.values()) / n
+    launches = sum(v[1] for v in kernels.values()) / n
+    trav = {name: c / n for name, (_, c) in walks.items()}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:3]
+    log(f"[{tag}] {kind}: {wall:.1f} ms per frame (host clock, {frames} "
+        f"frames, pipelined), FrameStats {fps:.2f} fps, device busy "
+        f"{busy:.1f} ms per frame "
+        f"({100 * busy / wall:.0f}% of wall), {launches:.0f} kernel "
+        f"launches per frame; traversal launches per frame {trav}; top: "
+        + "; ".join(f"{name} {ms / n:.2f} ms" for name, (ms, _) in top))
+    return {"ms_per_frame": wall, "fps": fps,
+            "device_busy_ms_per_frame": busy,
+            "kernel_launches_per_frame": launches,
+            "traversal_launches_per_frame": trav}
+
+
+def _app_session(path, workdir):
+    """The app's script on the card; returns (the frame log, the
+    renderer's counters, probe counters, seconds, the shot)."""
+    import io
+
+    from PIL import Image
+
+    from glaze_tpu_torch import app
+
+    shot = os.path.join(workdir, "interactive_shot.png")
+    script = os.path.join(workdir, "interactive_script.txt")
+    with open(script, "w") as f:
+        f.write("\n".join(INTERACTIVE_SCRIPT).format(shot=shot) + "\nquit\n")
+    err = io.StringIO()
+    with FrameLog() as frames:
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            code = app.main([path, "--res", f"{RES[0]}x{RES[1]}", "--scale",
+                             "1.0", "--script", script, "--out",
+                             os.path.join(workdir, "interactive_view.png")])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, probes = _launch_counts()
+    for line in err.getvalue().splitlines():
+        if line.startswith(">") or "fps" in line or "loaded" in line:
+            log(f"  app: {line.strip()}")
+    if code != 0:
+        raise RuntimeError(f"the app exited {code}")
+    return frames, launches, probes, seconds, np.asarray(Image.open(shot))
+
+
+def _preview_card_cpu(rr):
+    """The flat preview of the session's scene (its tables copied to the
+    CPU) at PREVIEW_RES for the session's camera, on the card and on the
+    CPU: pixels more than one level apart, at most PREVIEW_OFF of them."""
+    from glaze_tpu_torch.render.preview import FlatPreviewRenderer
+    from glaze_tpu_torch.scene.flatten import (device_scene_from_numpy,
+                                               device_scene_to_numpy)
+
+    t0 = time.perf_counter()
+    cpu_scene = device_scene_from_numpy(
+        device_scene_to_numpy(rr._rt.scene), "cpu")
+    imgs = []
+    for scene in (rr._rt.scene, cpu_scene):
+        p = FlatPreviewRenderer(scene, camera=rr.camera(),
+                                width=PREVIEW_RES[0], height=PREVIEW_RES[1])
+        imgs.append(p.get_image().astype(np.int32))
+    diff = np.abs(imgs[0] - imgs[1]).max(-1)
+    off = float((diff > 1).mean())
+    log(f"[interactive] preview at {PREVIEW_RES[0]}x{PREVIEW_RES[1]}, card "
+        f"against CPU ({time.perf_counter() - t0:.1f} s): "
+        f"{int((diff > 0).sum())} of {diff.size} pixels differ, "
+        f"{int((diff > 1).sum())} by more than one level (bound "
+        f"{PREVIEW_OFF:g} of the pixels), max {int(diff.max())}; image mean "
+        f"{imgs[0].mean():.1f}")
+    if off > PREVIEW_OFF or imgs[0].mean() < 5.0:
+        raise RuntimeError("the preview on the card disagrees with the CPU")
+    return {"pixels_differ": int((diff > 0).sum()),
+            "pixels_off_1": int((diff > 1).sum()),
+            "max_level_diff": int(diff.max())}
+
+
+def _temporal_card_cpu(rr):
+    """One temporal drag frame of the path tracer on the card, and its
+    display recomputed on the CPU from the same inputs (the launch's state
+    and G-buffer, the history and camera before it), by [denoise]'s rule:
+    at most one level apart, but where the reprojection's validity test
+    (a threshold on a bilinear mix of depths) falls the other way, counted
+    and bounded by VALID_FLIPS."""
+    from glaze_tpu_torch.render import denoise as dn
+    from glaze_tpu_torch.render import integrator as integ
+
+    rt = rr._rt
+    rt.denoise = True
+    for _ in range(2):
+        rt.draw_frame(return_image=True)
+    rr.look_around(0.004, 0.001)
+    hist, prev = rt._dn_hist, rt._dn_prev
+    card = rt.draw_frame(return_image=True)
+    st, gb = rt._state, rt._gb
+    w, h = rt.width, rt.height
+    inv, pw, ph = dn.lane_to_image(w, h, "cpu")
+
+    def cpu(x):
+        if isinstance(x, dict):
+            return {k: cpu(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(cpu(v) for v in x)
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    t0 = time.perf_counter()
+    kw = dict(width=w, height=h, pw=pw, ph=ph,
+              is_persp=rt.camera.is_perspective,
+              launches_per_spp=rt.integrator.steps_per_sample)
+    host, _ = dn.denoised_display_temporal(
+        cpu(st.accum), cpu(st.count), cpu(gb), cpu(hist), prev, inv,
+        cpu(rt._exposure()), **kw)
+    host_s = time.perf_counter() - t0
+
+    def valid(gbuf, hst, lane_map):
+        planes = {k: tuple(c[lane_map].reshape(ph, pw) for c in gbuf[k])
+                  for k in ("wpos", "normal")}
+        return dn._reproject(hst, planes, prev, width=w, height=h, pw=pw,
+                             ph=ph, is_persp=rt.camera.is_perspective)[2]
+
+    card_valid = valid(gb, hist, inv.to(rt.device)).cpu()
+    share = float(card_valid[:h, :w].float().mean())
+    flips = (card_valid != valid(cpu(gb), cpu(hist), inv))[:h, :w]
+    diff = (card.cpu().int() - host.int()).abs()[:h, :w].amax(-1)
+    beyond = (diff > 1) & ~flips
+    log(f"[interactive] temporal drag frame at {w}x{h}, card against CPU "
+        f"on the same inputs (CPU {host_s:.1f} s): {int((diff > 0).sum())} "
+        f"of {diff.numel()} pixels differ, {int((diff > 1).sum())} by more "
+        f"than one level; {int(flips.sum())} pixels' reprojection validity "
+        f"differs (bound {VALID_FLIPS:g} of the pixels); {int(beyond.sum())}"
+        f" pixels more than one level apart elsewhere; the history is valid "
+        f"on {share:.3f} of the pixels (at least {VALID_SHARE})")
+    if int(beyond.sum()) or float(flips.float().mean()) > VALID_FLIPS:
+        raise RuntimeError("the temporal display on the card disagrees with "
+                           "the CPU")
+    if share < VALID_SHARE:
+        raise RuntimeError("a small drag left the history mostly invalid")
+    return {"pixels_differ": int((diff > 0).sum()),
+            "pixels_off_1": int((diff > 1).sum()),
+            "validity_flips": int(flips.sum()), "valid_share": share}
+
+
+def _pipelined_blocking(path):
+    """Two RealtimeRenderers of the scene at 1920x1080 with one seed, one
+    pipelined and one blocking: get_image equal bit for bit after the same
+    launches, and the pipelined present FRAMES_IN_FLIGHT launches late."""
+    from glaze_tpu_torch.parser import parse
+    from glaze_tpu_torch.render.realtime import (FRAMES_IN_FLIGHT,
+                                                 RealtimeRenderer)
+
+    a = RealtimeRenderer(parse(path), width=RES[0], height=RES[1], seed=SEED,
+                         device="cuda")
+    b = RealtimeRenderer(parse(path), width=RES[0], height=RES[1], seed=SEED,
+                         device="cuda")
+    n = 3 + FRAMES_IN_FLIGHT
+    shown = []
+    for _ in range(n):
+        last = a.draw_frame(pipelined=True)
+        shown.append(b.draw_frame())
+    same = np.array_equal(a.get_image(), b.get_image())
+    lag = np.array_equal(last, shown[n - FRAMES_IN_FLIGHT - 1])
+    log(f"[interactive] pipelined against blocking after {n} launches at "
+        f"{RES[0]}x{RES[1]}: get_image {'equal' if same else 'DIFFERENT'} bit "
+        f"for bit; the pipelined present is "
+        f"{'launch ' + str(n - FRAMES_IN_FLIGHT) if lag else 'NOT the launch'}"
+        f" {FRAMES_IN_FLIGHT} behind")
+    if not (same and lag):
+        raise RuntimeError("pipelined frames differ from blocking ones")
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def phase_interactive(path, workdir, report):
+    """The interactive path on the card: the app's script on the full scene
+    at 1920x1080 (INTERACTIVE_SCRIPT), ms per frame of each kind and the
+    fps FrameStats reports; the launch counters, set to 0 just before the
+    app and read just after, exactly those of the frames drawn (and no
+    gbuffer_pass); each kind profiled in steady state; K2 and K4 against
+    their plain walkers on one tile-coherent drag launch; pipelined
+    against blocking; the preview and a temporal drag frame card against
+    CPU."""
+    from glaze_tpu_torch.render import denoise as dn
+    from glaze_tpu_torch.render import integrator as integ
+    from glaze_tpu_torch.tools.common import cuda_ms
+
+    gb_passes = []
+    real_gb = dn.gbuffer_pass
+
+    def counted_gb(*a, **k):
+        gb_passes.append(1)
+        return real_gb(*a, **k)
+
+    dn.gbuffer_pass = counted_gb
+    try:
+        frames, launches, probes, seconds, shot = _app_session(path, workdir)
+    finally:
+        dn.gbuffer_pass = real_gb
+    kinds = frames.by_kind()
+    counts = {k: v["frames"] for k, v in kinds.items()}
+    log(f"[interactive] app script: {len(frames.frames)} frames in "
+        f"{seconds:.1f} s (setup and PNG writes included): {counts}; "
+        f"gbuffer_pass calls {len(gb_passes)}")
+    if counts != INTERACTIVE_FRAMES or \
+            len(gb_passes) != INTERACTIVE_GBUFFER_PASSES:
+        raise RuntimeError(f"the script drew {counts}, expected "
+                           f"{INTERACTIVE_FRAMES}, and {len(gb_passes)} "
+                           "G-buffer passes")
+    pt = sum(n for k, n in counts.items() if k != "preview")
+    expected = _expected(
+        closest_hit_masked=(4 * pt + PREVIEW_K2 * counts["preview"]
+                            + GBUFFER_K2 * len(gb_passes)),
+        any_hit_masked=pt)
+    _held_to("interactive", "interactive", launches, probes, expected,
+             report)
+    for kind, v in kinds.items():
+        log(f"[interactive] {kind}: {v['frames']} frames, "
+            f"{v['ms_mean']:.1f} ms per frame mean, {v['ms_median']:.1f} "
+            f"median (host clock of draw_frame, pipelined); FrameStats fps "
+            f"{v['fps']:.2f} after the last")
+    if shot.shape != (RES[1], RES[0], 3) or shot.mean() < 5.0:
+        raise RuntimeError(f"the shot has shape {shot.shape}, mean "
+                           f"{shot.mean():.1f}")
+    rr = frames.rr
+    rt = rr._rt
+    if rr.coherent != 2:
+        raise RuntimeError(f"interactive coherent mode {rr.coherent}")
+    numbers = {"frames": kinds, "seconds": seconds, "launches": launches}
+    zero_ms = cuda_ms(rt._zero_state, runs=5)
+    # what a present-time unswizzle on the host would cost this thread per
+    # frame (RealtimeRenderer unswizzles on the device behind the launch)
+    rt.denoise = False
+    lanes = rt.draw_frame(return_image=True).cpu().numpy()
+    px, py = integ.pixel_coords_np(*RES)
+    pw, _ = integ.padded_dims(*RES)
+    inv = np.empty(px.shape[0], np.int64)
+    inv[py.astype(np.int64) * pw + px] = np.arange(px.shape[0])
+    t0 = time.perf_counter()
+    for _ in range(5):
+        lanes[inv]
+    host_ms = (time.perf_counter() - t0) * 1e3 / 5
+    log(f"[interactive] a restart's zero state at {RES[0]}x{RES[1]}: "
+        f"{zero_ms:.3f} ms on the card; a host unswizzle of the frame's "
+        f"{lanes.shape[0]} lanes (NumPy gather): {host_ms:.1f} ms")
+    numbers.update(zero_state_ms=zero_ms, host_unswizzle_ms=host_ms)
+
+    def moved():
+        rr.look_around(0.002, 0.0)
+        rr.draw_frame(pipelined=True)
+
+    profiles = {}
+    for kind, denoise, ray, step in (
+            ("raw still", False, True, None), ("raw drag", False, True, moved),
+            ("temporal still", True, True, None),
+            ("temporal drag", True, True, moved),
+            ("preview", False, False, None)):
+        rr.denoise, rr.use_raytracer = denoise, ray
+        profiles[kind] = _frame_profile(
+            "interactive", kind, rr,
+            step or (lambda: rr.draw_frame(pipelined=True)))
+    numbers["profile"] = profiles
+    # K2 and K4 on the rays of one tile-coherent drag launch
+    rr.denoise, rr.use_raytracer = False, True
+    rr.look_around(0.003, 0.0)
+    with Capture() as cap:
+        rt.draw_frame()
+    torch.cuda.synchronize()
+    walk = next(c for c in cap.calls["closest_hit_soa_masked_auto"]
+                if c["bvh"] is rt.scene.bvh)
+    k2, k4 = report["closest_hit_masked"], report["any_hit_masked"]
+    _check_closest(k2, "interactive_drag", rt.scene.bvh, walk)
+    _check_anyhit(k4, "interactive_drag_shadow", rt.scene.bvh,
+                  cap.calls["any_hit_soa_masked_auto"][0])
+    _summarize(k2, ("camera", "bounce"))
+    _summarize(k4, ("shadow_camera_hits", "shadow_bounce_hits"))
+    del cap, walk
+    numbers["temporal_card_cpu"] = _temporal_card_cpu(rr)
+    numbers["preview_card_cpu"] = _preview_card_cpu(rr)
+    del frames, rr, rt
+    torch.cuda.empty_cache()
+    _pipelined_blocking(path)
+    return numbers
+
+
+def phase_viewer(path, report):
+    """The browser viewer on the card: viewer.serve on port 0 around a
+    RealtimeRenderer of the full scene at 1920x1080, scale 0.5 (the
+    viewer's default); the frame endpoint fetched several times, the stats
+    endpoint until spp advances, a camera control posted and the frame
+    sequence seen to advance with the camera moved; then shut down and the
+    render thread joined. The counters, set to 0 just before the server
+    starts and read after the join, equal those of the frames the render
+    loop drew."""
+    import io
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from glaze_tpu_torch import viewer
+    from glaze_tpu_torch.parser import parse
+    from glaze_tpu_torch.render.realtime import FrameStats, RealtimeRenderer
+
+    scale = 0.5
+    t0 = time.perf_counter()
+    rr = RealtimeRenderer(parse(path), width=RES[0], height=RES[1],
+                          render_scale=scale, device="cuda")
+    setup_s = time.perf_counter() - t0
+    w, h = rr._rt.width, rr._rt.height
+    died = []
+    hook = threading.excepthook
+    threading.excepthook = lambda a: died.append(repr(a.exc_value))
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.headers.get("Content-Type", ""), r.read()
+
+    with FrameLog() as frames:
+        _reset_counts()
+        srv, state, t = viewer.serve(rr, host="127.0.0.1", port=0)
+        st = threading.Thread(target=srv.serve_forever, daemon=True)
+        st.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            for _ in range(3):
+                ctype, body = get(url + "/frame")
+                img = np.asarray(Image.open(io.BytesIO(body)))
+                if ctype != "image/jpeg" or img.shape != (h, w, 3):
+                    raise RuntimeError(f"/frame gave {ctype} {img.shape}")
+            s0 = json.loads(get(url + "/stats")[1])
+            deadline = time.time() + 120
+            while True:
+                s1 = json.loads(get(url + "/stats")[1])
+                if s1["spp"] > s0["spp"] or time.time() > deadline:
+                    break
+                time.sleep(0.05)
+            if s1["spp"] <= s0["spp"] or s1["mode"] != "pt":
+                raise RuntimeError(f"/stats did not advance: {s0} -> {s1}")
+            cam0 = np.asarray(rr.camera().inner.position, float).copy()
+            seq0 = state.seq
+            req = urllib.request.Request(
+                url + "/control", method="POST",
+                data=json.dumps({"action": "advance", "value": 1}).encode())
+            with urllib.request.urlopen(req, timeout=60) as r:
+                if r.status != 204:
+                    raise RuntimeError(f"/control answered {r.status}")
+            seq = seq0
+            for _ in range(3):
+                _, seq = state.wait_frame(seq, timeout=120)
+            cam1 = np.asarray(rr.camera().inner.position, float)
+            if seq < seq0 + 3 or np.allclose(cam0, cam1):
+                raise RuntimeError("the control did not move the camera or "
+                                   "the frames stopped")
+            # follow the frames as a stream client does (one fetch per
+            # published frame) until FrameStats closed a window; fetching
+            # as fast as possible would starve the render thread of the
+            # interpreter lock
+            rr.stats = FrameStats()
+            t1 = time.perf_counter()
+            fetched = 0
+            while time.perf_counter() - t1 < 2 * FRAMESTATS_S:
+                _, seq = state.wait_frame(seq, timeout=120)
+                get(url + "/frame")
+                fetched += 1
+            fps = rr.stats.fps
+        finally:
+            with state.cond:
+                state.running = False
+                state.cond.notify_all()
+            srv.shutdown()
+            srv.server_close()
+            t.join(timeout=120)
+            st.join(timeout=60)
+            threading.excepthook = hook
+        torch.cuda.synchronize()
+        launches, probes = _launch_counts()
+    if t.is_alive() or st.is_alive() or died:
+        raise RuntimeError(f"viewer threads: render alive {t.is_alive()}, "
+                           f"server alive {st.is_alive()}, died {died}")
+    kinds = frames.by_kind()
+    n = len(frames.frames)
+    if set(kinds) - {"raw still", "raw drag"}:
+        raise RuntimeError(f"the viewer drew {kinds}")
+    _held_to("viewer", "viewer", launches, probes,
+             _expected(closest_hit_masked=4 * n, any_hit_masked=n), report)
+    ms = statistics.median(dt for _, dt, _ in frames.frames) * 1e3
+    log(f"[viewer] {w}x{h} (scale {scale}), setup {setup_s:.1f} s: {n} "
+        f"frames, {ms:.1f} ms per draw_frame median (render thread; the "
+        f"JPEG publish not included), FrameStats {fps:.2f} fps while "
+        f"{fetched} frames were fetched; stats spp {s0['spp']} -> "
+        f"{s1['spp']}; frame sequence {seq0} -> {seq} after the control; "
+        f"render thread joined")
+    numbers = {"frames": n, "ms_per_frame_median": ms, "fps": fps,
+               "setup_s": setup_s, "launches": launches}
+    del rr, frames, srv, state
+    torch.cuda.empty_cache()
+    return numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2041,14 +2571,24 @@ def main():
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     workdir = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
-    attrs = phase_build()
-    rates = phase_rates()
-    phase_walk_cases()
-    probes = phase_probes()
-    paths = phase_scene(workdir)
-    report = phase_kernels(paths["opaque"])
-    report.update(phase_masked_kernels(paths["full"]))
-    report.update(phase_fat_kernels(paths["opaque"]))
+    seconds = {}
+
+    def run(name, fn, *args):
+        """A phase, its host seconds logged and kept."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f"[time] {name}: {seconds[name]:.1f} s")
+        return out
+
+    attrs = run("build", phase_build)
+    rates = run("rates", phase_rates)
+    run("walk_cases", phase_walk_cases)
+    probes = run("probes", phase_probes)
+    paths = run("scene", phase_scene, workdir)
+    report = run("kernels", phase_kernels, paths["opaque"])
+    report.update(run("masked_kernels", phase_masked_kernels, paths["full"]))
+    report.update(run("fat_kernels", phase_fat_kernels, paths["opaque"]))
     main_numbers = {}
     for label, scene, expected, tree in (
             ("full", "full", EXPECTED_FULL, None),
@@ -2056,14 +2596,22 @@ def main():
             ("fat", "opaque", EXPECTED_FAT, "fat"),
             ("hybrid", "opaque", EXPECTED_HYBRID, "hybrid"),
             ("fat_full", "full", EXPECTED_FAT_FULL, "fat")):
-        main_numbers[label] = phase_main_path(label, paths[scene], workdir,
-                                              report, expected, tree)
-    phase_golden()
-    main_numbers["sampling"] = phase_sampling(paths["full"], workdir, report)
-    main_numbers["resume"] = phase_resume(paths, workdir, report)
-    main_numbers["denoise"] = phase_denoise(paths["full"], workdir, report)
-    main_numbers["convert"] = phase_convert(paths["full"], workdir, report)
-    main_numbers["edit"] = phase_edit(paths["full"], report)
+        main_numbers[label] = run(label, phase_main_path, label, paths[scene],
+                                  workdir, report, expected, tree)
+    run("golden", phase_golden)
+    main_numbers["sampling"] = run("sampling", phase_sampling, paths["full"],
+                                   workdir, report)
+    main_numbers["resume"] = run("resume", phase_resume, paths, workdir,
+                                 report)
+    main_numbers["denoise"] = run("denoise", phase_denoise, paths["full"],
+                                  workdir, report)
+    main_numbers["convert"] = run("convert", phase_convert, paths["full"],
+                                  workdir, report)
+    main_numbers["edit"] = run("edit", phase_edit, paths["full"], report)
+    main_numbers["interactive"] = run("interactive", phase_interactive,
+                                      paths["full"], workdir, report)
+    main_numbers["viewer"] = run("viewer", phase_viewer, paths["full"],
+                                 report)
     for name, a in attrs.items():
         report[name].update(a)
     for label, numbers in main_numbers.items():
@@ -2084,7 +2632,8 @@ def main():
                 if key in k)})
     log(f"[done] {time.perf_counter() - t_start:.0f} s in all")
     print(json.dumps({"main_path": main_numbers, "card": card,
-                      "max_sm_clock_mhz": clock, "rates": rates}))
+                      "max_sm_clock_mhz": clock, "rates": rates,
+                      "phase_seconds": seconds}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,9 @@ torch, never JAX, and nothing of ``glaze_tpu``: the host code it needs
 its own copy. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.
 
-The public surface is ``glaze_tpu``'s (lib/src/lib.rs:10-24) but for
-``RealtimeRenderer``, which is not ported yet. ``RayTraceRenderer`` and
-``Integrator`` load on first use; importing the package does not
-initialise CUDA.
+The public surface is ``glaze_tpu``'s (lib/src/lib.rs:10-24).
+``RayTraceRenderer``, ``Integrator`` and ``RealtimeRenderer`` load on
+first use; importing the package does not initialise CUDA.
 """
 
 from glaze_tpu_torch.core import (
@@ -53,20 +52,20 @@ __all__ = [
     "MaterialType", "Mesh", "MeshInstance", "Metal", "Spectrum", "Texture",
     "TextureFormat", "TextureInfo", "Transform", "Vertex",
     "Meta", "NoScene", "ParserVersion", "Serializer", "converted_file", "parse",
-    "RayTraceRenderer", "Integrator",
+    "RayTraceRenderer", "Integrator", "RealtimeRenderer",
     "DeviceInfo", "PresentInstance", "RayTraceInstance",
 ]
 
 
 def __getattr__(name):
-    # the renderer pulls in the integrator and the kernels' wrappers: load
-    # it on first use
+    # the renderers pull in the integrator and the kernels' wrappers: load
+    # them on first use
     if name in ("RayTraceRenderer", "Integrator"):
         from glaze_tpu_torch.render.renderer import Integrator, RayTraceRenderer
 
         return {"RayTraceRenderer": RayTraceRenderer, "Integrator": Integrator}[name]
     if name == "RealtimeRenderer":
-        raise AttributeError(
-            "RealtimeRenderer is not ported to glaze_tpu_torch yet "
-            "(ROADMAP Queue 1 item 5, the interactive renderer)")
+        from glaze_tpu_torch.render.realtime import RealtimeRenderer
+
+        return RealtimeRenderer
     raise AttributeError(name)

@@ -805,7 +805,8 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
                 screen2cam, px, py, launch_size, *, is_persp: bool,
                 direct_only: bool = False, alpha_rounds: int = 0,
                 rng_py=None, coherent=1, sampler: str = "pcg",
-                sampler_seed=None, lane_active=None) -> PathState:
+                sampler_seed=None, lane_active=None,
+                want_first_hit: bool = False):
     """One bounce for all pixels (path_trace.rgen main, :135-239).
 
     ``seed``: uint32 frame seed (a Python int); ``pixel_offset``: (2,)
@@ -826,7 +827,13 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
 
     ``lane_active``: optional (P,) bool, the adaptive tile mask. Lanes
     of converged tiles park at their next path boundary: no camera ray,
-    no count, no contribution, and their closest trace is culled."""
+    no count, no contribution, and their closest trace is culled.
+
+    ``want_first_hit``: return ``(state, fh)``, where ``fh`` holds this
+    launch's traced rays and their hit attributes (``missed``, ``t``,
+    ``origin``, ``direction``, ``shading_normal``, ``material_id``,
+    ``uv``). After a restart every lane traces a camera ray, so ``fh`` is
+    the frame's G-buffer input without a second primary trace."""
     dev = px.device
     p = px.shape[0]
     coh = resolve_coherent(coherent)
@@ -977,8 +984,15 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
                   + 0.0722 * (miss_contrib[2] + nee_contrib[2]))
     sq = state.sq + c_lum * c_lum
 
+    fh = None
+    if want_first_hit:
+        fh = {"missed": missed, "t": hit["t"], "origin": origin,
+              "direction": direction,
+              "shading_normal": surf["shading_normal"],
+              "material_id": surf["material_id"], "uv": surf["uv"]}
+
     if direct_only:
-        return PathState(
+        st = PathState(
             importance=state.importance,
             origin=state.origin,
             direction=state.direction,
@@ -986,6 +1000,7 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
             last_specular=torch.where(enabled, new_specular,
                                       state.last_specular),
             accum=accum, count=count, path_no=new_path_no, sq=sq)
+        return (st, fh) if want_first_hit else st
 
     # ---- Russian roulette (path_trace.rgen:196-211)
     rng, rr_roll = rng_mod.next_f32(rng)
@@ -1019,28 +1034,33 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
                              state.bounce + 1.0)
 
     upd = enabled & ~path_dead
-    return PathState(
+    st = PathState(
         importance=torch.where(upd, next_importance, state.importance),
         origin=vec.where(upd, surf["point"], state.origin),
         direction=vec.where(upd, wi_w, state.direction),
         bounce=torch.where(enabled, new_bounce, state.bounce),
         last_specular=torch.where(enabled, new_specular, state.last_specular),
         accum=accum, count=count, path_no=new_path_no, sq=sq)
+    return (st, fh) if want_first_hit else st
 
 
 def render_steps(scene, state, seeds, offsets, cam2world, screen2cam, *,
                  width, height, is_persp, direct_only, steps,
                  alpha_rounds=0, sif=1, coherent=1, sampler="pcg",
-                 sampler_seed=None, lane_active=None, after_launch=None):
+                 sampler_seed=None, lane_active=None, after_launch=None,
+                 want_first_hit=False):
     """``steps`` launches as a Python loop over :func:`launch_step`;
     ``seeds`` (steps,) uint32 and ``offsets`` are NumPy: (steps, 2), or
     (steps, sif, 2) with ``sif`` > 1 samples in flight (state from
     ``init_state(..., sif=sif)``, one jitter per copy).
     ``after_launch(k, state)``, where given, runs after launch k (the
-    renderer's ``GLAZE_DEBUG`` NaN check)."""
+    renderer's ``GLAZE_DEBUG`` NaN check). ``want_first_hit``: return
+    ``(state, fh)`` with launch 0's first-hit attributes
+    (:func:`launch_step`)."""
     px, py, rng_py = sif_lanes(width, height, sif, scene.device)
     size = (float(width), float(height))
     p1 = pixel_count(width, height)
+    fh = None
     for k in range(steps):
         offset = offsets[k]
         if sif > 1:  # (sif, 2) -> per-lane jitter
@@ -1052,10 +1072,12 @@ def render_steps(scene, state, seeds, offsets, cam2world, screen2cam, *,
             px, py, size, is_persp=is_persp, direct_only=direct_only,
             alpha_rounds=alpha_rounds, rng_py=rng_py, coherent=coherent,
             sampler=sampler, sampler_seed=sampler_seed,
-            lane_active=lane_active)
+            lane_active=lane_active, want_first_hit=want_first_hit and k == 0)
+        if want_first_hit and k == 0:
+            state, fh = state
         if after_launch is not None:
             after_launch(k, state)
-    return state
+    return (state, fh) if want_first_hit else state
 
 
 def named_leaves(state: PathState):
@@ -1090,17 +1112,47 @@ def _fold_display(accum, count, exposure):
     return torch.stack(chans, dim=-1)
 
 
+def render_steps_with_image(scene, state, seeds, offsets, cam2world,
+                            screen2cam, exposure, *, width, height, is_persp,
+                            direct_only, steps, alpha_rounds=0, sif=1,
+                            coherent=1, sampler="pcg", sampler_seed=None,
+                            after_launch=None):
+    """:func:`render_steps` and the display conversion: returns (state,
+    (P', 3) uint8 on the state's device, in the swizzled lane order)."""
+    state = render_steps(
+        scene, state, seeds, offsets, cam2world, screen2cam, width=width,
+        height=height, is_persp=is_persp, direct_only=direct_only,
+        steps=steps, alpha_rounds=alpha_rounds, sif=sif, coherent=coherent,
+        sampler=sampler, sampler_seed=sampler_seed, after_launch=after_launch)
+    return state, _fold_display(*_fold_sif(state.accum, state.count, sif),
+                                exposure)
+
+
 def render_image(state: PathState, exposure, width: int, height: int,
                  sif: int = 1):
     """Accumulated sum -> display image (H, W, 3) uint8 NumPy, folded over
     the ``sif`` in-flight copies, unswizzled and cropped on the state's
     device; only the cropped image crosses to the host."""
-    img = _fold_display(*_fold_sif(state.accum, state.count, sif), exposure)
+    return lanes_to_image(
+        _fold_display(*_fold_sif(state.accum, state.count, sif), exposure),
+        width, height)
+
+
+def unswizzle(img, width: int, height: int):
+    """(P', 3) display lanes -> the (H, W, 3) image, unswizzled and
+    cropped on the lanes' device."""
     px, py = _pixel_coords_t(width, height, img.device)
     pw, ph = padded_dims(width, height)
-    full = torch.zeros((ph * pw, 3), dtype=torch.uint8, device=img.device)
+    full = torch.zeros((ph * pw, 3), dtype=img.dtype, device=img.device)
     full[py * pw + px] = img
-    return full.view(ph, pw, 3)[:height, :width].cpu().numpy()
+    return full.view(ph, pw, 3)[:height, :width]
+
+
+def lanes_to_image(img, width: int, height: int):
+    """(P', 3) uint8 display lanes -> (H, W, 3) uint8 NumPy: unswizzled
+    and cropped on the lanes' device; only the cropped image crosses to
+    the host."""
+    return unswizzle(img, width, height).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,11 @@
-"""RayTraceRenderer: the offline progressive path tracer (torch).
+"""RayTraceRenderer: the progressive path tracer (torch).
 
-Port of the offline surface of :mod:`glaze_tpu.render.renderer`
-(``RayTraceRenderer::{new, draw, set_integrator, set_exposure,
-update_camera, update_materials_and_lights, change_resolution,
-change_scene}``, raytracer.rs:153-687, ``update_textures`` and the
-checkpoints). ``draw(spp)`` runs ``ceil(spp * steps_per_sample / sif)``
-launches as a Python loop; launch seeds come from the host
+Port of :mod:`glaze_tpu.render.renderer` (``RayTraceRenderer::{new,
+draw, draw_frame, set_integrator, set_exposure, update_camera,
+update_materials_and_lights, change_resolution, change_scene}``,
+raytracer.rs:153-687, ``update_textures`` and the checkpoints).
+``draw(spp)`` runs ``ceil(spp * steps_per_sample / sif)`` launches as a
+Python loop; launch seeds come from the host
 ``np.random.default_rng(seed)`` in the same chunks as the JAX package, so
 both packages draw the same seeds for the same ``seed``.
 
@@ -13,7 +13,8 @@ Scenes with opacity maps render with ``GLAZE_ALPHA_ROUNDS`` alpha re-test
 rounds (one by default, as in the JAX package), set from the materials at
 construction and after every edit; without opacity maps it is 0. The
 coherent mode follows the JAX package's precedence: the ``coherent``
-argument, else ``GLAZE_COHERENT``, else 1 (frame). The sampling options
+argument, else ``GLAZE_COHERENT``, else 2 (tile) for an ``interactive``
+renderer and 1 (frame) otherwise. The sampling options
 follow it too: ``samples_in_flight`` (else ``GLAZE_SIF``, else 1),
 ``sampler`` (else ``GLAZE_SAMPLER``, else pcg) and ``adaptive`` (else
 ``GLAZE_ADAPTIVE``, else off, with ``GLAZE_ADAPTIVE_TAU`` and
@@ -41,8 +42,13 @@ With ``GLAZE_DEBUG`` on (:func:`glaze_tpu_torch.utils.setup_debug_modes`)
 ``draw`` checks the state for NaN after every launch and raises
 ``FloatingPointError`` naming the launch and the leaf.
 
-Not ported in this slice: device meshes and the interactive ``draw_frame``
-with the denoiser's temporal half.
+``draw_frame`` is the interactive path: one launch a call, and with
+``return_image`` the frame's display on the device (the raw sRGB lanes,
+or with ``denoise`` the spatial or, with ``temporal``, the temporal
+denoised image, whose history every edit, resolution change and scene
+change drops).
+
+Not ported in this slice: device meshes.
 """
 
 from __future__ import annotations
@@ -93,14 +99,15 @@ def alpha_rounds() -> int:
     return int(os.environ.get("GLAZE_ALPHA_ROUNDS", "1"))
 
 
-def default_coherent() -> int:
-    """The offline coherent mode: ``GLAZE_COHERENT`` (0/1/2 or
-    off/frame/tile) where it is set, else 1 (frame), as the JAX package's
-    ``default_coherent``."""
+def default_coherent(interactive: bool = False) -> int:
+    """The coherent mode when no argument names one: ``GLAZE_COHERENT``
+    (0/1/2 or off/frame/tile) where it is set, else 2 (tile, a noise
+    realization per 2048-lane tile) for interactive renders and 1 (frame)
+    offline, as the JAX package's ``default_coherent``."""
     env = os.environ.get("GLAZE_COHERENT")
     if env not in (None, ""):
         return integ.resolve_coherent(int(env) if env.isdigit() else env)
-    return 1
+    return 2 if interactive else 1
 
 
 def check_sampling(samples_in_flight=None, sampler=None, adaptive=None):
@@ -143,13 +150,14 @@ class RayTraceRenderer:
     def __init__(self, scene, camera=None, width: int = 1920, height: int = 1080,
                  integrator: Integrator = Integrator.PATH_TRACE, seed=None,
                  coherent=None, device=None, samples_in_flight=None,
-                 sampler=None, adaptive=None):
+                 sampler=None, adaptive=None, interactive: bool = False):
         """``scene``: a DeviceScene (used on its own device) or a
         ParsedScene (flattened onto ``device``: ``cuda`` unless the caller
         passes ``"cpu"``; CUDA without a card raises). ``coherent``:
         0/'off', 1/'frame' or 2/'tile' shared-RNG sampling (default:
-        :func:`default_coherent`). ``samples_in_flight``: independent path
-        states per pixel advanced per launch; ``sampler``: 'pcg' or 'ld'
+        :func:`default_coherent` of ``interactive``).
+        ``samples_in_flight``: independent path states per pixel advanced
+        per launch; ``sampler``: 'pcg' or 'ld'
         (per-pixel Owen-scrambled Sobol); ``adaptive``: per-tile adaptive
         stopping in ``draw()`` (tiles park once their relative standard
         error is at most ``GLAZE_ADAPTIVE_TAU``, default 0.01, after
@@ -178,7 +186,7 @@ class RayTraceRenderer:
         self.height = int(height)
         self.integrator = integrator
         self.exposure: Optional[float] = None  # None = scene meta exposure
-        self.coherent = (default_coherent() if coherent is None
+        self.coherent = (default_coherent(interactive) if coherent is None
                          else integ.resolve_coherent(coherent))
         self._rng = np.random.default_rng(seed)
         # the ld streams' key, from a generator of its own so the launch
@@ -189,10 +197,16 @@ class RayTraceRenderer:
         self._request_new_frame = True
         # launches since the accumulation restarted (GLAZE_DEBUG names them)
         self._launch_no = 0
-        # the display denoiser: display-only, it never touches the state
+        # the display denoiser: display-only, it never touches the state.
+        # ``temporal`` adds the history reprojection to draw_frame's
+        # denoised display (it rides the denoise switch)
         self.denoise = False
+        self.temporal = True
         self._gb_key = None
         self._gb = None
+        self._dn_hist = None
+        self._dn_hist_key = None
+        self._dn_prev = None
         # the per-triangle opacity texture ids the split was built for
         self._alpha_tex_cache = None
         self._refresh_alpha_rounds()
@@ -267,6 +281,7 @@ class RayTraceRenderer:
     def _scene_edited(self, textures_changed: bool = False):
         self._refresh_alpha_rounds(textures_changed)
         self._gb_key = None  # albedo follows the materials; ids are reused
+        self._dn_hist = None  # the old display history would ghost
         self._request_new_frame = True
 
     def update_materials_and_lights(self, materials, lights):
@@ -331,6 +346,7 @@ class RayTraceRenderer:
     def change_resolution(self, width: int, height: int):
         self.width, self.height = int(width), int(height)
         self._state = self._zero_state()
+        self._dn_hist = None
         self._request_new_frame = True
 
     # -- rendering ------------------------------------------------------------
@@ -372,13 +388,6 @@ class RayTraceRenderer:
                 lane_active = integ.adaptive_lane_mask(
                     self._state, sif=self.samples_in_flight,
                     tau=self.adaptive_tau, min_count=self.adaptive_min)
-            after_launch = None
-            if debug_nans():
-                base = self._launch_no
-
-                def after_launch(k, state, base=base):
-                    check_nans(integ.named_leaves(state),
-                               f"launch {base + k}")
             self._state = integ.render_steps(
                 self.scene, self._state, seeds, offsets, c2w, s2c,
                 width=self.width, height=self.height,
@@ -387,7 +396,7 @@ class RayTraceRenderer:
                 steps=n, alpha_rounds=self._alpha_rounds,
                 sif=self.samples_in_flight, coherent=self.coherent,
                 sampler=self.sampler, sampler_seed=self._sampler_seed,
-                lane_active=lane_active, after_launch=after_launch)
+                lane_active=lane_active, after_launch=self._nan_check())
             done += n
             self._launch_no += n
             if callback is not None:
@@ -399,6 +408,100 @@ class RayTraceRenderer:
                 torch.cuda.synchronize(self.device)
             return None
         return self.get_image()
+
+    def _nan_check(self):
+        """With ``GLAZE_DEBUG``, the ``after_launch`` hook that checks the
+        state for NaN after each launch, naming it by its number since the
+        restart; else None."""
+        if not debug_nans():
+            return None
+        base = self._launch_no
+
+        def after_launch(k, state):
+            check_nans(integ.named_leaves(state), f"launch {base + k}")
+        return after_launch
+
+    def draw_frame(self, return_image: bool = False):
+        """One launch: every pixel advances one bounce (raytracer.rs
+        draw_frame, :369-603).
+
+        ``return_image=True`` also returns the frame's display on the
+        renderer's device: the (P', 3) uint8 sRGB lanes in the swizzled
+        lane order, or with ``denoise`` the denoised (ph, pw, 3) uint8
+        image, spatial, or with ``temporal`` blended with the reprojected
+        previous frame. A temporal frame that restarts the accumulation
+        (after a camera move or an edit) takes its G-buffer from its own
+        launch's camera rays; one that continues the paths with a stale
+        G-buffer (``denoise`` just turned on) traces it."""
+        from glaze_tpu_torch.render import denoise as dn
+
+        restarted = self._request_new_frame
+        self._maybe_restart()
+        c2w, s2c = integ.camera_matrices(self.camera, self.width, self.height)
+        seeds = self._rng.integers(0, 2**32, size=1, dtype=np.uint32)
+        offsets = self._take_offsets(1)
+        kw = dict(width=self.width, height=self.height,
+                  is_persp=self.camera.is_perspective,
+                  direct_only=self.integrator is Integrator.DIRECT,
+                  steps=1, alpha_rounds=self._alpha_rounds,
+                  sif=self.samples_in_flight, coherent=self.coherent,
+                  sampler=self.sampler, sampler_seed=self._sampler_seed,
+                  after_launch=self._nan_check())
+        launch = (seeds, offsets, c2w, s2c)
+        lps = self.integrator.steps_per_sample
+        img = None
+        if not return_image:
+            self._state = integ.render_steps(self.scene, self._state, *launch,
+                                             **kw)
+        elif not self.denoise:
+            self._state, img = integ.render_steps_with_image(
+                self.scene, self._state, *launch, self._exposure(), **kw)
+        elif not self.temporal:
+            self._state, img = dn.render_steps_denoised(
+                self.scene, self._state, *launch, self._exposure(),
+                self._gbuffer(), self._lane_map(), launches_per_spp=lps, **kw)
+        else:
+            key = (self.width, self.height)
+            if self._dn_hist is None or self._dn_hist_key != key:
+                self._dn_hist = dn.init_history(*key, self.device)
+                self._dn_hist_key = key
+                self._dn_prev = dn.world_to_screen(self.camera, *key)
+            gb_key = self._gbuffer_key()
+            if self._gb_key != gb_key and not restarted:
+                # the launch continues the paths, so its first hits are
+                # bounces, not the camera's: trace the G-buffer (ROADMAP
+                # F14; glaze_tpu takes the launch's hits here too)
+                self._gbuffer()
+            if self._gb_key == gb_key:
+                # the camera is still: the cached G-buffer
+                self._state, self._dn_hist, img = (
+                    dn.render_steps_denoised_temporal(
+                        self.scene, self._state, self._dn_hist, *launch,
+                        self._exposure(), self._gb, self._dn_prev,
+                        self._lane_map(), launches_per_spp=lps, **kw))
+            else:
+                # the camera moved: the launch's own trace is the G-buffer
+                self._state, self._dn_hist, img, self._gb = (
+                    dn.render_steps_denoised_temporal_gb(
+                        self.scene, self._state, self._dn_hist, *launch,
+                        self._exposure(), self._dn_prev, self._lane_map(),
+                        launches_per_spp=lps, **kw))
+                self._gb_key = gb_key
+            # this frame's camera is the next frame's reprojection source
+            self._dn_prev = dn.world_to_screen(self.camera, *key)
+        self._launch_no += 1
+        return img
+
+    def _lane_map(self):
+        """The lane-to-image permutation of the current resolution
+        (``denoise.lane_to_image``), built once per resolution."""
+        from glaze_tpu_torch.render import denoise as dn
+
+        key = (self.width, self.height)
+        if getattr(self, "_lane_map_key", None) != key:
+            self._lane_map_inv = dn.lane_to_image(*key, self.device)[0]
+            self._lane_map_key = key
+        return self._lane_map_inv
 
     def _exposure(self):
         return self.exposure if self.exposure is not None else self.scene.exposure
@@ -431,10 +534,10 @@ class RayTraceRenderer:
         filter, (H, W, 3) uint8 sRGB; the accumulation is untouched."""
         from glaze_tpu_torch.render import denoise as dn
 
-        inv_map, pw, ph = dn.lane_to_image(self.width, self.height,
-                                           self.device)
+        pw, ph = integ.padded_dims(self.width, self.height)
         img = dn.denoised_display(
-            self._state.accum, self._state.count, self._gbuffer(), inv_map,
+            self._state.accum, self._state.count, self._gbuffer(),
+            self._lane_map(),
             self._exposure(), pw=pw, ph=ph, sif=self.samples_in_flight,
             launches_per_spp=self.integrator.steps_per_sample)
         return img[:self.height, :self.width].cpu().numpy()

@@ -43,7 +43,11 @@ def test_port_sources_found():
                 ("glaze_tpu_torch", "converter.py"),
                 ("glaze_tpu_torch", "fbx.py"),
                 ("glaze_tpu_torch", "instance.py"),
-                ("glaze_tpu_torch", "loader.py")):
+                ("glaze_tpu_torch", "loader.py"),
+                ("glaze_tpu_torch", "app.py"),
+                ("glaze_tpu_torch", "viewer.py"),
+                ("glaze_tpu_torch", "ui.py"),
+                ("render", "realtime.py"), ("render", "preview.py")):
         assert any(f.endswith(os.path.join(*mod)) for f in files), mod
 
 
@@ -171,6 +175,30 @@ def test_cli_default_device_raises_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main([str(scene), str(tmp_path / "o.png"), "--res", "32x16",
                   "--spp", "1"])
+
+
+@pytest.mark.parametrize("front", ["app", "viewer"])
+def test_app_and_viewer_default_device_raises_without_cuda(front, monkeypatch,
+                                                           tmp_path):
+    """python -m glaze_tpu_torch.app / .viewer render on cuda unless given
+    --device cpu: without a card their main raises before anything
+    renders (the viewer binds no port)."""
+    import importlib
+
+    import glaze_tpu_torch.scenes as ps
+
+    mod = importlib.import_module(f"glaze_tpu_torch.{front}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = tmp_path / "s.glaze"
+    ps.write_glaze(ps.MatRowScene(), str(scene))
+    args = [str(scene), "--res", "16x8"]
+    args += (["--out", str(tmp_path / "v.png")] if front == "app"
+             else ["--port", "0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(args + ["--device", "cuda"])
+    assert not (tmp_path / "v.png").exists()
 
 
 @pytest.mark.parametrize("flags", [["--mesh"], ["--mesh", "--denoise"]])
