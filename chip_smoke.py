@@ -45,7 +45,20 @@ profiled, K2 and K4 against their plain walkers on a tile-coherent drag
 launch, pipelined frames against blocking ones, the preview and a
 temporal drag frame on the card against the CPU ([interactive]); and the
 browser viewer on port 0 at scale 0.5: frames, stats, a camera control,
-the render thread joined ([viewer]). Any failed phase raises, so the
+the render thread joined ([viewer]). It renders a 1,049,760-triangle
+grid of four Sponza-class atria through the CLI on a 2-chunk forest,
+holds K2 and K4 against their plain walkers chunk by chunk on that
+render's rays and on those of a view from outside the grid, where the
+chunks' hits merge, and the forest against one tree of the same scene;
+and the 262k scene with a 100,000-triangle chunk limit on the classic and
+hybrid trees against the unchunked renders ([chunked]). It builds the 1M
+scene's trees in two processes, cold and from the BVH disk cache
+([cache]); renders with --mesh, and in the pixel, spp and 2d modes over
+2 and 4 slots of the one card, against the unsharded renders bit for bit,
+with checkpoints across the mesh ([mesh]); and runs pod_launch under
+torch's launcher as two ranks on the card, straight and interrupted and
+resumed, against the one-process CLI's checkpoint bit for bit
+([distributed]). Any failed phase raises, so the
 script exits non-zero and prints no result. Without CUDA (or without the
 package beside it) it exits non-zero too.
 
@@ -706,35 +719,52 @@ class Capture:
     NAMES = ("closest_hit_soa_auto", "any_hit_soa_auto",
              "closest_hit_soa_masked_auto", "any_hit_soa_masked_auto")
 
-    def __init__(self):
+    def __init__(self, limit=None):
         import glaze_tpu_torch.accel as accel
 
         self.accel = accel
+        self.limit = limit  # calls recorded per dispatcher, None: all
         self.calls = {name: [] for name in self.NAMES}
         self._orig = {name: getattr(accel, name) for name in self.NAMES}
+        # a forest's dispatch calls the dispatcher again for each chunk:
+        # only the outermost call is recorded
+        self._depth = 0
 
     def _anyhits(self):
         return (len(self.calls["any_hit_soa_auto"])
                 + len(self.calls["any_hit_soa_masked_auto"]))
+
+    def _record(self, name, rec):
+        if self._depth == 0 and (self.limit is None
+                                 or len(self.calls[name]) < self.limit):
+            self.calls[name].append(rec())
+
+    def _call(self, fn, *a, **k):
+        self._depth += 1
+        try:
+            return fn(*a, **k)
+        finally:
+            self._depth -= 1
 
     def __enter__(self):
         def wrap(name):
             orig = self._orig[name]
 
             def closest(bvh, o3, d3, t_max=None):
-                self.calls[name].append(dict(
+                self._record(name, lambda: dict(
                     bvh=bvh, anyhits_before=self._anyhits(),
                     o3=tuple(x.clone() for x in o3),
                     d3=tuple(x.clone() for x in d3),
                     t_max=None if t_max is None else t_max.clone()))
-                return orig(bvh, o3, d3, t_max)
+                return self._call(orig, bvh, o3, d3, t_max)
 
             def anyhit(bvh, o3, d3, t_max, t_min=1e-3, active=None):
-                self.calls[name].append(dict(
+                self._record(name, lambda: dict(
                     bvh=bvh, o3=tuple(x.clone() for x in o3),
                     d3=tuple(x.clone() for x in d3), t_max=t_max.clone(),
                     t_min=t_min, active=active.clone()))
-                return orig(bvh, o3, d3, t_max, t_min=t_min, active=active)
+                return self._call(orig, bvh, o3, d3, t_max, t_min=t_min,
+                                  active=active)
 
             return closest if name.startswith("closest") else anyhit
 
@@ -1209,10 +1239,17 @@ def phase_main_path(label, path, workdir, report, expected, tree=None):
                "mrays_per_s": rays / times["render"] / 1e3,
                "setup_ms": times["setup"], "render_ms": times["render"],
                "image_mean": float(img.mean()), "launches": launches}
+    if label == "full":
+        # [mesh] holds the --mesh render of the same command to these bits
+        MAIN_STATES[label] = _state_np(st)
     numbers["profile"] = profile_sample(renderer, label)
     del renderer
     torch.cuda.empty_cache()
     return numbers
+
+
+# host copies of main-path renders that a later phase compares with
+MAIN_STATES = {}
 
 
 def profile_sample(renderer, label):
@@ -2555,6 +2592,682 @@ def phase_viewer(path, report):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# The chunked forest ([chunked]), the BVH disk cache ([cache]), rendering
+# over a device mesh ([mesh]) and over two processes ([distributed]).
+
+GRID_TRIS = 1_049_760  # glaze_tpu_torch.scenes.SponzaGridScene
+SMALL_CHUNKS = 100_000  # the chunk limit [chunked] sets for the 262k scene
+
+
+def _n_chunks(tree):
+    """Chunks of a forest, 1 for a single tree."""
+    return len(getattr(tree, "chunks", ())) or 1
+
+
+def _expected_full(scene, launches):
+    """The launches of the full masked path (EXPECTED_FULL's rule) on
+    ``scene``, where every walk of a forest launches once per chunk: per
+    launch the closest trace runs K2 twice on the main tree, the occlusion
+    K4 once on it and K2 twice on the alpha tree."""
+    c, ca = _n_chunks(scene.bvh), _n_chunks(scene.bvh_alpha)
+    return _expected(closest_hit_masked=(2 * c + 2 * ca) * launches,
+                     any_hit_masked=c * launches)
+
+
+def _expected_split(scene, launches):
+    """The opaque/alpha split path (EXPECTED_FAT_FULL's rule), per chunk:
+    K1 on the opaque tree and K2 twice on the alpha tree for the closest
+    trace, K3 on the opaque tree and K2 twice on the alpha tree for the
+    occlusion."""
+    co, ca = _n_chunks(scene.bvh_opaque), _n_chunks(scene.bvh_alpha)
+    return _expected(closest_hit=co * launches, any_hit=co * launches,
+                     closest_hit_masked=4 * ca * launches)
+
+
+def _image_ok(tag, out, state):
+    """The render's radiance finite, its PNG 1920x1080 and not flat."""
+    from PIL import Image
+
+    if not bool(torch.isfinite(torch.stack(state.accum)).all()):
+        raise RuntimeError(f"{tag}: non-finite radiance")
+    img = np.asarray(Image.open(out))
+    if img.shape != (RES[1], RES[0], 3):
+        raise RuntimeError(f"{tag}: PNG has shape {img.shape}")
+    if img.mean() < 5.0 or img.std() < 2.0:
+        raise RuntimeError(f"{tag}: PNG looks black or flat: mean "
+                           f"{img.mean():.1f}")
+    return float(img.mean())
+
+
+def _grid_render(label, path, workdir, report, capture=None):
+    """The CLI on the 1M-triangle scene at 1920x1080, 2 spp, its counters
+    held to the full masked path's per chunk; returns (renderer, numbers)."""
+    out = os.path.join(workdir, f"sponza_{label}.png")
+    with capture or contextlib.nullcontext():
+        code, r, times, launches, probes, _ = run_cli([
+            path, out, "--res", f"{RES[0]}x{RES[1]}", "--spp", str(SPP),
+            "--seed", str(SEED)])
+    if code != 0:
+        raise RuntimeError(f"{label}: CLI exited {code}")
+    scene = r.scene
+    if scene.bvh.n_tris != GRID_TRIS or scene.bvh_alpha is None:
+        raise RuntimeError(f"{label}: {scene.bvh.n_tris} triangles")
+    _held_to(f"chunked:{label}", label, launches, probes,
+             _expected_full(scene, LAUNCHES), report)
+    mean = _image_ok(label, out, r._state)
+    ms = times["render"] / times["launches"]
+    log(f"[chunked:{label}] {_n_chunks(scene.bvh)} chunk(s) of "
+        f"{[c.n_tris for c in getattr(scene.bvh, 'chunks', [scene.bvh])]} "
+        f"triangles; image mean {mean:.1f}; setup {times['setup']:.0f} ms, "
+        f"{ms:.1f} ms per launch")
+    return r, {"chunks": _n_chunks(scene.bvh), "setup_ms": times["setup"],
+               "render_ms": times["render"], "ms_per_launch": ms,
+               "image_mean": mean, "launches": launches}
+
+
+def _chunks_closest(entry, label, forest, s):
+    """K2 against its plain walker on each chunk of ``forest`` in turn, each
+    chunk under the cap the earlier ones left (the best t so far), as the
+    chunked dispatch walks them. Returns the hits of each chunk and the
+    merges: hits of a later chunk that replaced an earlier chunk's."""
+    from glaze_tpu_torch.accel import traverse_cuda as tc
+
+    cap = best = s["t_max"]
+    hits, merges, found = [], 0, None
+    for i, chunk in enumerate(forest.chunks):
+        _check_closest(entry, f"{label}_chunk{i}", chunk, dict(s, t_max=cap))
+        h = tc.closest_hit_soa_masked(chunk, s["o3"], s["d3"], cap)
+        hit = h["tri"] >= 0
+        hits.append(int(hit.sum()))
+        if found is not None:
+            merges += int((hit & found).sum())
+        found = hit if found is None else found | hit
+        best = h["t"] if best is None else torch.where(hit, h["t"], best)
+        cap = best
+    log(f"[chunked] {label}: hits by chunk {hits}, {merges} merges (a later "
+        "chunk's hit replaced an earlier one's)")
+    return hits, merges
+
+
+def _chunks_any(entry, label, forest, s):
+    """K4 against its plain walker on each chunk in turn, each chunk for
+    the rays the earlier ones left unblocked."""
+    from glaze_tpu_torch.accel import traverse_cuda as tc
+
+    act = s["active"]
+    walked, blocked = [], []
+    for i, chunk in enumerate(forest.chunks):
+        walked.append(int(act.sum()))
+        if not walked[-1]:
+            log(f"[kernels] {entry['name']} {label}_chunk{i}: every ray "
+                "blocked in the earlier chunks, nothing to compare")
+            blocked.append(0)
+            continue
+        _check_anyhit(entry, f"{label}_chunk{i}", chunk, dict(s, active=act))
+        b, _ = tc.any_hit_soa_masked(chunk, s["o3"], s["d3"], s["t_max"],
+                                     t_min=s["t_min"], active=act)
+        blocked.append(int((b & act).sum()))
+        act = act & ~b
+    log(f"[chunked] {label}: rays walked by chunk {walked}, blocked by "
+        f"chunk {blocked}")
+    return walked, blocked
+
+
+def _forest_against_tree(label, forest, f_order, tree, t_order, closest,
+                         anyhit):
+    """The chunked dispatch against one tree of the same triangles (both
+    carrying the same cell masks) on the captured rays: the SOURCE triangle
+    of every hit the same (each tree's leaf order maps it back) except
+    exact-t ties, which are counted; t, u, v the same bits and mixed the
+    same where the source triangle is; blocked and pending exact."""
+    import glaze_tpu_torch.accel as accel
+
+    fo = torch.from_numpy(f_order.astype(np.int64)).cuda()
+    to = torch.from_numpy(t_order.astype(np.int64)).cuda()
+
+    def source(tri, order):
+        return torch.where(tri >= 0, order[tri.clamp(min=0).long()], -1)
+
+    ties = 0
+    for name, s in closest:
+        a = accel.closest_hit_soa_masked_auto(forest, s["o3"], s["d3"],
+                                              s["t_max"])
+        b = accel.closest_hit_soa_masked_auto(tree, s["o3"], s["d3"],
+                                              s["t_max"])
+        same = source(a["tri"], fo) == source(b["tri"], to)
+        tie = ~same & (a["t"] == b["t"])
+        bits = all(bool((a[k][same].view(torch.int32)
+                         == b[k][same].view(torch.int32)).all())
+                   for k in ("t", "u", "v"))
+        n_bad = int((~same & ~tie).sum() + (same & (a["mixed"] != b["mixed"]))
+                    .sum())
+        ties += int(tie.sum())
+        log(f"[chunked:{label}] {name}: {int((b['tri'] >= 0).sum())} hits, "
+            f"{n_bad} rays apart, {int(tie.sum())} exact-t ties (counted), "
+            f"t/u/v bits equal where the source triangle is: {bits}")
+        if n_bad or not bits:
+            raise RuntimeError(f"{label}: the forest disagrees with one tree "
+                               f"on {name} rays")
+    for name, s in anyhit:
+        kw = dict(t_min=s["t_min"], active=s["active"])
+        a = accel.any_hit_soa_masked_auto(forest, s["o3"], s["d3"],
+                                          s["t_max"], **kw)
+        b = accel.any_hit_soa_masked_auto(tree, s["o3"], s["d3"], s["t_max"],
+                                          **kw)
+        n_bad = int((a[0] != b[0]).sum() + (a[1] != b[1]).sum())
+        log(f"[chunked:{label}] {name}: {int(b[0].sum())} blocked, "
+            f"{int(b[1].sum())} pending, {n_bad} rays apart")
+        if n_bad:
+            raise RuntimeError(f"{label}: the forest disagrees with one tree "
+                               f"on {name} rays")
+    return ties
+
+
+def _chunk_limit(n):
+    """CHUNK_MAX_TRIS set to ``n`` inside the block (None: unchanged)."""
+    from glaze_tpu_torch.accel import bvh as B
+
+    @contextlib.contextmanager
+    def block():
+        saved = B.CHUNK_MAX_TRIS
+        B.CHUNK_MAX_TRIS = saved if n is None else n
+        try:
+            yield
+        finally:
+            B.CHUNK_MAX_TRIS = saved
+    return block()
+
+
+def _render_small(path, tree, limit, spp=1, capture=None):
+    """A 1920x1080 renderer of ``path`` under GLAZE_TREE=``tree`` and chunk
+    limit ``limit``, ``spp`` samples drawn with the counters set to 0 just
+    before (inside ``capture`` where given); returns (renderer, launches,
+    probe launches, setup ms)."""
+    from glaze_tpu_torch.parser import parse
+    from glaze_tpu_torch.render.renderer import RayTraceRenderer
+
+    with tree_env(tree), _chunk_limit(limit):
+        t0 = time.perf_counter()
+        r = RayTraceRenderer(parse(path), width=RES[0], height=RES[1],
+                             seed=SEED, device=torch.device("cuda"))
+        setup = (time.perf_counter() - t0) * 1e3
+    _reset_counts()
+    with capture or contextlib.nullcontext():
+        r.draw(spp, return_image=False)
+    torch.cuda.synchronize()
+    launches, probes = _launch_counts()
+    return r, launches, probes, setup
+
+
+# A view of the 1M scene from outside the grid, down the -z facades of the
+# z = 0 row: the near atrium (x > 13) is chunk 1 and the far one chunk 0,
+# and a ray that meets the near facade runs on into the far atrium, so the
+# chunk-0 walk finds a hit that the chunk-1 walk then replaces. The CLI's
+# camera sits inside the first atrium, where no ray reaches chunk 1.
+GRID_OUTSIDE = dict(position=[50.0, 8.0, -20.0], target=[0.0, 3.0, -5.0],
+                    up=[0.0, 1.0, 0.0])
+
+
+def _outside_view(r):
+    """``r`` pointed at GRID_OUTSIDE and one sample drawn; returns the
+    closest and any-hit calls on its main tree of the sample's first
+    launches."""
+    from glaze_tpu_torch.core import Camera, PerspectiveCam
+
+    r.update_camera(Camera.Perspective(PerspectiveCam(**GRID_OUTSIDE)))
+    with Capture(limit=5) as cap:
+        r.draw(1, return_image=False)
+    torch.cuda.synchronize()
+    return _tree_calls(cap, r.scene.bvh)
+
+
+def _tree_calls(cap, tree):
+    """(closest, any-hit) captured calls on ``tree``: the closest ones of
+    the camera and bounce traces (no cap), and the shadow rays'."""
+    closest = [c for c in cap.calls["closest_hit_soa_masked_auto"]
+               if c["bvh"] is tree and c["t_max"] is None]
+    anyhit = [c for c in cap.calls["any_hit_soa_masked_auto"]
+              if c["bvh"] is tree]
+    if len(closest) < 2 or len(anyhit) < 2:
+        raise RuntimeError(f"captured {len(closest)} closest and "
+                           f"{len(anyhit)} any-hit calls on the tree")
+    return closest, anyhit
+
+
+def phase_chunked(paths, workdir, report):
+    """The chunked forest on the card.
+
+    The Sponza-class scene four times over in a 2x2 grid of instances
+    (1,049,760 triangles, lace maps on) builds a 2-chunk main tree carrying
+    the cell masks. Its CLI render at 1920x1080, 2 spp: counters exact with
+    K2 and K4 launched once per chunk; K2 and K4 against their plain
+    walkers chunk by chunk on the render's camera, bounce and shadow rays;
+    the same render with the chunk limit raised in-process (one tree); the
+    forest's dispatch against that tree on the same rays. Then the 262k
+    scene with a chunk limit of 100,000: the full scene on the classic tree
+    (a 4-chunk main tree) and under GLAZE_TREE=hybrid (chunked opaque
+    subset), and the opaque scene under hybrid (a chunked any-hit tree), one
+    sample each, against the same render unchunked: count exact, accum
+    within the MC bound (ROADMAP F4)."""
+    import glaze_tpu_torch.scenes as ps
+    from glaze_tpu_torch.accel import ChunkedBVH
+
+    numbers = {}
+    t0 = time.perf_counter()
+    grid = os.path.join(workdir, "sponza_grid.glaze")
+    ps.write_glaze(ps.SponzaGridScene(), grid)
+    paths["grid"] = grid
+    log(f"[chunked] wrote {grid} ({os.path.getsize(grid)} bytes) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # launch 0's four masked closest calls and launch 1's first
+    cap = Capture(limit=5)
+    r, numbers["grid_chunked"] = _grid_render("grid_chunked", grid, workdir,
+                                              report, cap)
+    forest = r.scene.bvh
+    if not isinstance(forest, ChunkedBVH) or len(forest.chunks) != 2:
+        raise RuntimeError(f"the 1M scene built {_n_chunks(forest)} chunks")
+    closest, anyhit = _tree_calls(cap, forest)
+    sets_c = (("grid_camera", closest[0]), ("grid_bounce", closest[1]))
+    sets_a = (("grid_shadow_camera_hits", anyhit[0]),
+              ("grid_shadow_bounce_hits", anyhit[1]))
+    for label, s in sets_c:
+        _chunks_closest(report["closest_hit_masked"], label, forest, s)
+    for label, s in sets_a:
+        _chunks_any(report["any_hit_masked"], label, forest, s)
+    numbers["grid_chunked"]["profile"] = profile_sample(r, "grid_chunked")
+    # the view from outside, where the chunks merge
+    closest, anyhit = _outside_view(r)
+    out_c = (("grid_outside_camera", closest[0]),
+             ("grid_outside_bounce", closest[1]))
+    out_a = (("grid_outside_shadow_camera_hits", anyhit[0]),
+             ("grid_outside_shadow_bounce_hits", anyhit[1]))
+    hits, merges = _chunks_closest(report["closest_hit_masked"],
+                                   out_c[0][0], forest, out_c[0][1])
+    _chunks_closest(report["closest_hit_masked"], out_c[1][0], forest,
+                    out_c[1][1])
+    if min(hits) == 0 or merges == 0:
+        raise RuntimeError(f"the outside view's camera rays hit the chunks "
+                           f"{hits} times with {merges} merges: it does not "
+                           "reach both chunks")
+    blocked_late = 0
+    for label, s in out_a:
+        walked, blocked = _chunks_any(report["any_hit_masked"], label,
+                                      forest, s)
+        blocked_late += blocked[1]
+    if blocked_late == 0:
+        raise RuntimeError("no shadow ray of the outside view was blocked "
+                           "in chunk 1")
+    for name in ("closest_hit_masked", "any_hit_masked"):
+        e = report[name]
+        e["max_abs_err"] = max(v["max_abs_err"] for v in e["sets"].values())
+    numbers["grid_outside"] = {"hits_by_chunk": hits, "merges": merges,
+                               "shadow_blocked_in_chunk1": blocked_late}
+    numbers["grid_outside"]["profile_chunked"] = profile_sample(
+        r, "grid_outside_chunked")
+    with _chunk_limit(2 * GRID_TRIS):
+        r1, numbers["grid_single"] = _grid_render("grid_single", grid,
+                                                  workdir, report)
+    if _n_chunks(r1.scene.bvh) != 1:
+        raise RuntimeError("the raised chunk limit still chunked the scene")
+    numbers["grid_single"]["profile"] = profile_sample(r1, "grid_single")
+    ties = _forest_against_tree(
+        "grid", forest, r.host.tri_order, r1.scene.bvh, r1.host.tri_order,
+        sets_c + out_c, sets_a + out_a)
+    r1.update_camera(r.camera)
+    numbers["grid_outside"]["profile_single"] = profile_sample(
+        r1, "grid_outside_single")
+    numbers["grid_ties"] = ties
+    del r, r1, cap, closest, anyhit, sets_c, sets_a, out_c, out_a, forest
+    torch.cuda.empty_cache()
+
+    for label, scene, tree, walked in (
+            ("full", "full", None, "bvh"),
+            ("full_hybrid", "full", "hybrid", "bvh_opaque"),
+            ("opaque_hybrid", "opaque", "hybrid", "bvh_any")):
+        cap = Capture(limit=5) if label == "full" else None
+        rc, launches, probes, setup_c = _render_small(paths[scene], tree,
+                                                      SMALL_CHUNKS,
+                                                      capture=cap)
+        sc = rc.scene
+        n = _n_chunks(getattr(sc, walked))
+        if n < 2:
+            raise RuntimeError(f"{label}: {walked} has {n} chunk(s)")
+        if walked == "bvh":
+            expected = _expected_full(sc, 6)
+        elif walked == "bvh_opaque":
+            expected = _expected_split(sc, 6)
+        else:
+            expected = _expected(closest_hit_fat=6, any_hit=n * 6)
+        _held_to(f"chunked:{label}", f"chunked_{label}", launches, probes,
+                 expected, report)
+        rp, _, _, setup_p = _render_small(paths[scene], tree, None)
+        mad = _mc_agree(f"chunked:{label}", *_state_np(rc._state),
+                        *_state_np(rp._state))
+        if cap is not None:
+            # the rays of this render, where 4 chunks merge, against the
+            # single tree of the unchunked one
+            closest, anyhit = _tree_calls(cap, sc.bvh)
+            numbers["full_ties"] = _forest_against_tree(
+                "full", sc.bvh, rc.host.tri_order, rp.scene.bvh,
+                rp.host.tri_order,
+                (("full_camera", closest[0]), ("full_bounce", closest[1])),
+                (("full_shadow_camera_hits", anyhit[0]),
+                 ("full_shadow_bounce_hits", anyhit[1])))
+            del closest, anyhit
+        log(f"[chunked:{label}] {walked} in {n} chunks; setup {setup_c:.0f} ms "
+            f"chunked, {setup_p:.0f} ms unchunked")
+        numbers[label] = {"chunks": n, "walked": walked, "mad": mad,
+                          "setup_ms": setup_c, "setup_ms_unchunked": setup_p,
+                          "launches": launches}
+        del rc, rp, cap
+        torch.cuda.empty_cache()
+    return numbers
+
+
+CACHE_CHILD = """
+import hashlib, json, sys
+import numpy as np
+from glaze_tpu_torch import cli
+from glaze_tpu_torch.scene.flatten import device_scene_to_numpy
+code, r, t = cli.run(sys.argv[1:])
+h = hashlib.sha256()
+tables = device_scene_to_numpy(r.scene)
+for k in sorted(tables):
+    if k.startswith("bvh"):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(np.asarray(tables[k])).tobytes())
+print(json.dumps({"code": code, "setup_ms": t["setup"],
+                  "digest": h.hexdigest()}))
+"""
+
+
+def phase_cache(paths, workdir):
+    """The BVH disk cache: two CLI processes on the 1M-triangle scene with
+    GLAZE_CACHE_DIR under build/, the first with the directory empty
+    (cold), the second reading what it wrote (warm). Each reports its
+    setup; the warm process's tree tables must equal the cold one's bit
+    for bit (a digest of every table)."""
+    cache = os.path.join(workdir, "bvh_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    env = dict(os.environ, GLAZE_CACHE_DIR=cache)
+    runs = []
+    for label in ("cold", "warm"):
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", CACHE_CHILD, paths["grid"],
+             os.path.join(workdir, f"cache_{label}.png"), "--res", "480x270",
+             "--spp", "1", "--seed", str(SEED)],
+            env=env, cwd=HERE, capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            raise RuntimeError(f"[cache] {label} process exited "
+                               f"{child.returncode}: {child.stderr[-2000:]}")
+        out = json.loads(child.stdout.strip().splitlines()[-1])
+        files = os.listdir(os.path.join(cache, "bvh"))
+        size = sum(os.path.getsize(os.path.join(cache, "bvh", f))
+                   for f in files)
+        out.update(wall_s=time.perf_counter() - t0, files=len(files),
+                   bytes_on_disk=size)
+        log(f"[cache] {label}: setup {out['setup_ms']:.0f} ms, process "
+            f"{out['wall_s']:.1f} s, {len(files)} files, {size} bytes on disk, "
+            f"tables {out['digest'][:16]}")
+        runs.append(out)
+    if runs[0]["digest"] != runs[1]["digest"]:
+        raise RuntimeError("[cache] warm tables differ from the cold build's")
+    # a file for each chunk of the forest and each subset tree, written by
+    # the cold process only
+    if runs[0]["files"] < 2 or (runs[1]["files"], runs[1]["bytes_on_disk"]) \
+            != (runs[0]["files"], runs[0]["bytes_on_disk"]):
+        raise RuntimeError("[cache] the warm process wrote to the cache")
+    return {"cold": runs[0], "warm": runs[1]}
+
+
+def _leaves_equal(tag, a, b):
+    """Every leaf of two PathStates the same bits."""
+    from glaze_tpu_torch.render import integrator as integ
+
+    differ = [n for (n, x), (_, y) in zip(integ.named_leaves(a),
+                                          integ.named_leaves(b))
+              if not torch.equal(x.cpu(), y.cpu())]
+    if differ:
+        raise RuntimeError(f"{tag}: leaves {differ} differ")
+    log(f"[{tag}] every leaf equal bit for bit")
+
+
+def phase_mesh(paths, workdir, report):
+    """Rendering over a device mesh on the one card. CLI --mesh on the full
+    scene at 1920x1080, 2 spp (one slot here): the [main:full] render's
+    accum and count bit for bit, with the same counters. In process, on
+    make_mesh(["cuda:0"] * 2) at 1920x1080 (1,044,480 lanes a slot, 510
+    whole tiles): a renderer's pixel mode (one sample) against the
+    unsharded renderer, and the spp mode (2 launches, 2 slots) against the
+    per-seed renders summed in slot order; make_mesh_2d(2, ["cuda:0"] * 4)
+    against the same sums. Each bit for bit, K2 and K4 counted per slot.
+    Then checkpoints at 960x540: a mesh render checkpointed after one
+    sample (6 launches) and resumed on the mesh, and an unsharded
+    checkpoint resumed on the mesh, against the straight mesh render."""
+    from glaze_tpu_torch.parallel import mesh as pm
+    from glaze_tpu_torch.render import integrator as integ
+    from glaze_tpu_torch.render.renderer import RayTraceRenderer
+
+    numbers = {}
+    out = os.path.join(workdir, "sponza_mesh.png")
+    code, r, times, launches, probes, _ = run_cli([
+        paths["full"], out, "--res", f"{RES[0]}x{RES[1]}", "--spp", str(SPP),
+        "--seed", str(SEED), "--mesh"])
+    if code != 0 or r._mesh is None or r._mesh.size != 1:
+        raise RuntimeError(f"CLI --mesh exited {code}")
+    _held_to("mesh:cli", "mesh_cli", launches, probes, EXPECTED_FULL, report)
+    accum, count = _state_np(r._state)
+    want = MAIN_STATES["full"]
+    same = bool(np.array_equal(accum.view(np.int32), want[0].view(np.int32))
+                and np.array_equal(count, want[1]))
+    log(f"[mesh:cli] --mesh (1 slot) against [main:full]: accum and count "
+        f"bit for bit: {same}; {times['render'] / times['launches']:.1f} ms "
+        f"per launch")
+    if not same:
+        raise RuntimeError("--mesh render differs from the unsharded one")
+    numbers["cli_ms_per_launch"] = times["render"] / times["launches"]
+    scene, camera = r.scene, r.camera
+    del r
+    torch.cuda.empty_cache()
+
+    mesh2 = pm.make_mesh(["cuda:0"] * 2)
+    kw = dict(width=RES[0], height=RES[1], seed=SEED, camera=camera)
+    ref = RayTraceRenderer(scene, **kw)
+    t0 = time.perf_counter()
+    ref.draw(1, return_image=False)
+    torch.cuda.synchronize()
+    numbers["unsharded_ms_per_launch"] = (time.perf_counter() - t0) * 1e3 / 6
+    rm = RayTraceRenderer(scene, mesh=mesh2, **kw)
+    _reset_counts()
+    t0 = time.perf_counter()
+    rm.draw(1, return_image=False)
+    torch.cuda.synchronize()
+    numbers["pixel2_ms_per_launch"] = (time.perf_counter() - t0) * 1e3 / 6
+    launches, probes = _launch_counts()
+    log(f"[mesh:pixel2] one sample: {numbers['pixel2_ms_per_launch']:.1f} ms "
+        f"per launch on 2 slots of cuda:0, unsharded "
+        f"{numbers['unsharded_ms_per_launch']:.1f}")
+    _held_to("mesh:pixel2", "mesh_pixel2", launches, probes,
+             _expected_full(scene, 6 * 2), report)
+    _leaves_equal("mesh:pixel2", rm._state, ref._state)
+    del rm, ref
+
+    c2w, s2c = integ.camera_matrices(camera, RES[0], RES[1])
+    seeds = np.asarray([[11, 12], [13, 14]], np.uint32)  # (steps, slots)
+    offsets = np.asarray([[0.25, 0.75], [0.625, 0.125]], np.float32)
+    args = dict(width=RES[0], height=RES[1], is_persp=camera.is_perspective,
+                direct_only=False, steps=2, alpha_rounds=1, coherent=1,
+                sampler="pcg", sampler_seed=0)
+    group = pm._group_sampler_seeds(0, 2)
+    per_seed = [integ.render_steps(
+        scene, integ.init_state(RES[0], RES[1], "cuda"), seeds[:, i], offsets,
+        c2w, s2c, **dict(args, sampler_seed=group[i])) for i in range(2)]
+    want = per_seed[0]._replace(
+        accum=tuple(a + b for a, b in zip(per_seed[0].accum,
+                                          per_seed[1].accum)),
+        count=per_seed[0].count + per_seed[1].count)
+    for label, mesh, fn in (
+            ("spp2", mesh2, pm.render_steps_spp_sharded),
+            ("2d_2x2", pm.make_mesh_2d(2, ["cuda:0"] * 4),
+             pm.render_steps_2d_sharded)):
+        _reset_counts()
+        states = fn(scene, pm.init_state_spp(RES[0], RES[1], 2, "cuda"),
+                    seeds, offsets, c2w, s2c, mesh, **args)
+        got = pm.reduce_spp(states)
+        torch.cuda.synchronize()
+        launches, probes = _launch_counts()
+        _held_to(f"mesh:{label}", f"mesh_{label}", launches, probes,
+                 _expected_full(scene, 2 * mesh.size), report)
+        _leaves_equal(f"mesh:{label}", got, want)
+    del per_seed, want, states, got
+
+    w2, h2 = RES[0] // 2, RES[1] // 2
+    kw = dict(width=w2, height=h2, seed=SEED, camera=camera)
+    straight = RayTraceRenderer(scene, mesh=mesh2, **kw)
+    straight.draw(2, return_image=False)
+    for label, first_mesh in (("mesh_checkpoint", mesh2),
+                              ("unsharded_checkpoint", None)):
+        ck = os.path.join(workdir, f"{label}.npz")
+        r1 = RayTraceRenderer(scene, mesh=first_mesh, **kw)
+        r1.draw(1, return_image=False)  # 6 launches: even (ROADMAP F12)
+        t0 = time.perf_counter()
+        r1.save_checkpoint(ck)
+        save_s = time.perf_counter() - t0
+        r2 = RayTraceRenderer(scene, mesh=mesh2, **kw)
+        r2.load_checkpoint(ck)
+        r2.draw(1, return_image=False)
+        log(f"[mesh:{label}] saved in {save_s:.2f} s at {w2}x{h2}")
+        _leaves_equal(f"mesh:{label}", r2._state, straight._state)
+        del r1, r2
+    torch.cuda.empty_cache()
+    return numbers
+
+
+# pod_launch.main under torch's launcher, each rank's kernel launches
+# written to DIR/rank<RANK>.json: python POD_CHILD DIR <pod_launch args>
+POD_CHILD = """
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+from glaze_tpu_torch.accel import traverse_cuda as tc
+from glaze_tpu_torch.tools import pod_launch
+tc.reset_launch_counts()
+code = pod_launch.main(sys.argv[2:])
+torch.cuda.synchronize()
+launches = [tc.closest_hit_soa.launches, tc.any_hit_soa.launches,
+            tc.closest_hit_soa_masked.launches, tc.any_hit_soa_masked.launches,
+            tc.closest_hit_fat_soa.launches, tc.any_hit_fat_soa.launches]
+with open(os.path.join(sys.argv[1], "rank%s.json" % os.environ["RANK"]),
+          "w") as f:
+    json.dump({"code": code, "launches": launches}, f)
+sys.exit(code)
+"""
+
+DIST_RES = (RES[0] // 2, RES[1] // 2)
+
+
+def _torchrun(label, target, args):
+    """``python -m torch.distributed.run --standalone --nproc-per-node 2``
+    on ``target`` (``["-m", module]`` or a script) with ``args``; raises
+    unless every rank exits 0. Returns the wall seconds."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                        "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    env.setdefault("OMP_NUM_THREADS", "2")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", *target, *args], env=env, cwd=HERE,
+        capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    for line in (child.stdout + child.stderr).splitlines():
+        if line.startswith(("pod_launch", "setup", "resumed", "saved")) or \
+                " spp (" in line:
+            log(f"  [{label}] {line.strip()}")
+    if child.returncode != 0:
+        raise RuntimeError(f"[distributed] {label}: torchrun exited "
+                           f"{child.returncode}: {child.stderr[-3000:]}")
+    return wall
+
+
+def _checkpoints_equal(tag, got, want):
+    """Every array of two checkpoints the same bits: the 15 leaves, the
+    host generator, the scheduler and the scene id."""
+    a, b = np.load(got), np.load(want)
+    differ = sorted(k for k in set(a.files) | set(b.files)
+                    if k not in a.files or k not in b.files
+                    or not np.array_equal(a[k], b[k]))
+    log(f"[distributed] {tag}: checkpoint arrays apart from the "
+        f"one-process CLI's: {differ}")
+    if differ:
+        raise RuntimeError(f"[distributed] {tag}: {differ} differ")
+
+
+def phase_distributed(paths, workdir, report):
+    """pod_launch under torch's launcher, two ranks on the one card over
+    gloo (NCCL refuses two ranks on one card), on the full scene at
+    960x540 with --checkpoint: straight to 2 spp (the command the README
+    gives, ``-m glaze_tpu_torch.tools.pod_launch``), and interrupted at 1
+    spp and resumed to 2 by a second launch (pod_launch.main with each
+    rank's kernel launches counted). Each final checkpoint, and its image,
+    must equal the one-process CLI's of the same seed bit for bit."""
+    res = f"{DIST_RES[0]}x{DIST_RES[1]}"
+    files = {k: os.path.join(workdir, f"pod_{k}") for k in (
+        "cli.npz", "cli.png", "straight.npz", "straight.png", "resumed.npz",
+        "resumed.png")}
+    for f in files.values():
+        if os.path.exists(f):
+            os.unlink(f)
+    counts = os.path.join(workdir, "pod_counts")
+    shutil.rmtree(counts, ignore_errors=True)
+    os.makedirs(counts)
+    child = os.path.join(workdir, "pod_child.py")
+    with open(child, "w") as f:
+        f.write(POD_CHILD)
+
+    def pod(tag, spp):
+        return ["--res", res, "--spp", str(spp), "--seed", str(SEED),
+                "--checkpoint", files[f"{tag}.npz"]]
+
+    code, _, times, _, _, _ = run_cli([
+        paths["full"], files["cli.png"], "--res", res, "--spp", "2", "--seed",
+        str(SEED), "--checkpoint", files["cli.npz"]])
+    if code != 0:
+        raise RuntimeError(f"[distributed] the CLI exited {code}")
+    walls = {"straight": _torchrun(
+        "straight", ["-m", "glaze_tpu_torch.tools.pod_launch"],
+        [paths["full"], files["straight.png"], *pod("straight", 2)])}
+    launches = dict.fromkeys(KERNELS, 0)
+    for part, spp in (("interrupted", 1), ("resumed", 2)):
+        walls[part] = _torchrun(part, [child, counts],
+                                [paths["full"], files["resumed.png"],
+                                 *pod("resumed", spp)])
+        for rank in range(2):
+            with open(os.path.join(counts, f"rank{rank}.json")) as f:
+                got = json.load(f)
+            for i, name in enumerate(KERNELS):
+                launches[name] += got["launches"][i]
+    log(f"[distributed] torchrun, 2 ranks on cuda:0 over gloo: straight "
+        f"{walls['straight']:.1f} s, interrupted {walls['interrupted']:.1f} "
+        f"s, resumed {walls['resumed']:.1f} s")
+    # 6 launches a sample and rank, each K2 four times and K4 once
+    _held_to("distributed", "distributed", launches, {},
+             _expected(closest_hit_masked=4 * 6 * 2 * 2,
+                       any_hit_masked=6 * 2 * 2), report)
+    for tag in ("straight", "resumed"):
+        _checkpoints_equal(tag, files[f"{tag}.npz"], files["cli.npz"])
+        with open(files[f"{tag}.png"], "rb") as a, \
+                open(files["cli.png"], "rb") as b:
+            if a.read() != b.read():
+                raise RuntimeError(f"[distributed] {tag}: the image differs "
+                                   "from the CLI's")
+    log("[distributed] both images equal the CLI's byte for byte")
+    return {"wall_s": walls, "cli_setup_ms": times["setup"],
+            "cli_render_ms": times["render"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2563,6 +3276,10 @@ def main():
     from glaze_tpu_torch.tools.common import card_line, max_sm_clock_mhz
 
     t_start = time.perf_counter()
+    # the BVH disk cache stays off, so every path's setup is a cold build
+    # and the script writes nothing outside the checkout; [cache] points
+    # its own processes at a directory under build/
+    os.environ["GLAZE_CACHE_DIR"] = "0"
     global SM_HZ
     card = card_line()
     clock = max_sm_clock_mhz()
@@ -2612,6 +3329,12 @@ def main():
                                       paths["full"], workdir, report)
     main_numbers["viewer"] = run("viewer", phase_viewer, paths["full"],
                                  report)
+    main_numbers["chunked"] = run("chunked", phase_chunked, paths, workdir,
+                                  report)
+    main_numbers["cache"] = run("cache", phase_cache, paths, workdir)
+    main_numbers["mesh"] = run("mesh", phase_mesh, paths, workdir, report)
+    main_numbers["distributed"] = run("distributed", phase_distributed,
+                                      paths, workdir, report)
     for name, a in attrs.items():
         report[name].update(a)
     for label, numbers in main_numbers.items():

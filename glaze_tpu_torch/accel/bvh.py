@@ -18,6 +18,11 @@ Tables (same layout and bits as the JAX package):
   tri8    (N_pad/8, 128) f32: triangle k at flat float offset k*16; floats
           9..12 of the 16 hold the payload words (zeros without one)
 
+Scenes beyond CHUNK_MAX_TRIS triangles build a :class:`ChunkedBVH`: a
+forest of such trees over a spatial partition, walked chunk by chunk
+(:func:`build_bvh_chunked_np`). Large builds are cached on disk
+(``GLAZE_CACHE_DIR``, see :func:`build_bvh_np`).
+
 The payload is the baked 8x8 barycentric opacity mask of each triangle
 (:func:`pack_alpha_masks`, attached by :func:`attach_tri_payload`): int32
 words carried as float32 bits. They move only as int32 views and take no
@@ -38,6 +43,13 @@ against them on the card.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import os
+import tempfile
+import zipfile
+import zlib
+
 import numpy as np
 import torch
 
@@ -47,8 +59,10 @@ LEAF_SIZE = 8
 T_MIN = 1e-4
 SENTINEL = np.uint32(0xFFFFFFFF)
 
-# Single trees only in this slice: the JAX package splits scenes beyond
-# this into a ChunkedBVH, which the port does not build yet.
+# Scenes beyond this many triangles build a ChunkedBVH forest
+# (:func:`build_bvh_chunked_np`). The JAX package chose it for the TPU's
+# VMEM; the port keeps it for parity, so one scene builds the same forest
+# in both packages. Read at call time (tests lower it).
 CHUNK_MAX_TRIS = 1_000_000
 
 
@@ -134,12 +148,90 @@ def sorted_tri_rows(tri_verts: np.ndarray, order: np.ndarray) -> np.ndarray:
     return np.concatenate([v0, e1, e2], axis=1).astype(np.float32)
 
 
+# --- the build's disk cache ------------------------------------------------
+# The octant node slab and the leaf permutation are a deterministic function
+# of the triangle soup, and a large scene's build takes seconds of host time
+# on every start; they are cached under GLAZE_CACHE_DIR (default
+# ~/.cache/glaze_tpu_torch; "0" turns the cache off), keyed by a hash of the
+# triangle bytes. The port's files are named apart from the JAX package's
+# (which are "<hash>_<n>_<leaf>_v<k>.npz" under ~/.cache/glaze_tpu/bvh), so
+# neither package reads the other's. Bump _CACHE_VERSION whenever the node
+# packing or the native BVH build's output changes.
+_CACHE_VERSION = 1
+CACHE_MIN_TRIS = 4096  # below this a direct build beats the file IO
+_CACHE_PREFIX = "glaze_torch_bvh_"
+
+
+def _cache_dir():
+    d = os.environ.get("GLAZE_CACHE_DIR")
+    if d == "0":
+        return None
+    if not d:
+        d = os.path.join(os.path.expanduser("~"), ".cache", "glaze_tpu_torch")
+    p = os.path.join(d, "bvh")
+    try:
+        os.makedirs(p, exist_ok=True)
+    except OSError:
+        return None
+    return p
+
+
+def _cache_path(tri_verts: np.ndarray, leaf_size: int):
+    """The cache file of ``tri_verts`` (None with the cache off): the key is
+    the port's xxh64 of the triangle bytes (native), else blake2b (the pure
+    Python xxh64 is too slow for megabytes)."""
+    d = _cache_dir()
+    if d is None:
+        return None
+    from glaze_tpu_torch.core.xxh64 import _get_native
+
+    data = tri_verts.tobytes()
+    native = _get_native()
+    if native is not None:
+        h = f"{native.xxh64(data, _CACHE_VERSION):016x}"
+    else:
+        h = hashlib.blake2b(data + bytes([_CACHE_VERSION]),
+                            digest_size=8).hexdigest()
+    return os.path.join(d, f"{_CACHE_PREFIX}{h}_{tri_verts.shape[0]}_"
+                           f"{leaf_size}_v{_CACHE_VERSION}.npz")
+
+
+def _cache_load(path):
+    """(nodes16, m, order) from ``path``, or None: a missing or unreadable
+    file means no cache, never an error."""
+    try:
+        with np.load(path) as z:
+            return z["nodes16"], int(z["m"]), z["order"]
+    except (OSError, KeyError, ValueError, EOFError, zipfile.BadZipFile,
+            zlib.error):
+        return None
+
+
+def _cache_store(path, nodes16, m, order):
+    """Writes the build's node slab and permutation to ``path`` atomically
+    (a temporary file in the same directory, then ``os.replace``), so
+    concurrent processes race safely; a failed write leaves no file."""
+    try:
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".npz")
+    except OSError:
+        return
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez_compressed(f, nodes16=nodes16, m=np.int64(m), order=order)
+        os.replace(tmp, path)
+    except OSError:
+        with contextlib.suppress(OSError):
+            os.unlink(tmp)
+
+
 def build_bvh_np(tri_verts: np.ndarray, leaf_size: int = LEAF_SIZE):
     """Host build over (N, 3, 3) world-space triangles. Returns
     ``(fields, tri_order)``: ``fields`` holds the NumPy tables
     (``nodes``, ``tri``, ``nodes16``, ``tri8``, ``n_nodes``, ``n_tris``)
     and ``tri_order`` is the PADDED leaf-aligned permutation (uint32,
-    SENTINEL entries are leaf padding)."""
+    SENTINEL entries are leaf padding). From CACHE_MIN_TRIS triangles on,
+    the octant slab and the permutation come from the disk cache when it
+    holds them, and ``nodes``, ``tri`` and ``tri8`` are derived from them."""
     tri_verts = np.ascontiguousarray(tri_verts, np.float32)
     n = tri_verts.shape[0]
     if n == 0:
@@ -152,12 +244,22 @@ def build_bvh_np(tri_verts: np.ndarray, leaf_size: int = LEAF_SIZE):
         fields = dict(nodes=nodes, tri=tri0, nodes16=np.tile(n16, (8, 1)),
                       tri8=_pack_lane_dense(tri0, 8, 16), n_nodes=1, n_tris=0)
         return fields, np.zeros(0, np.uint32)
-    from glaze_tpu_torch import native
+    path = _cache_path(tri_verts, leaf_size) if n >= CACHE_MIN_TRIS else None
+    cached = _cache_load(path) if path is not None else None
+    if cached is not None:
+        nodes16, m, order = cached
+        # octant 0 fills the slab's first ceil(m/16) rows, node k at
+        # flat float offset k*8
+        nodes0 = nodes16[:-(-m // 16)].reshape(-1, 8)[:m]
+    else:
+        from glaze_tpu_torch import native
 
-    oct_tables = native.get_lib().bvh_build_octants(tri_verts, leaf_size)
-    m = oct_tables["bmin"].shape[1]
-    order = oct_tables["tri_order"]
-    nodes16, nodes0 = _pack_octant_nodes(oct_tables, m)
+        oct_tables = native.get_lib().bvh_build_octants(tri_verts, leaf_size)
+        m = oct_tables["bmin"].shape[1]
+        order = oct_tables["tri_order"]
+        nodes16, nodes0 = _pack_octant_nodes(oct_tables, m)
+        if path is not None:
+            _cache_store(path, nodes16, m, order)
     tri = sorted_tri_rows(tri_verts, order)
     fields = dict(nodes=nodes0, tri=tri, nodes16=nodes16,
                   tri8=_pack_lane_dense(tri, 8, 16), n_nodes=int(m),
@@ -172,7 +274,33 @@ def float_table_to(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int32)).to(device).view(torch.float32)
 
 
-def bvh_from_np(fields: dict, device) -> BVH:
+class ChunkedBVH:
+    """A forest of :class:`BVH` chunks over a spatial partition of the
+    triangles, for scenes beyond CHUNK_MAX_TRIS (the JAX package's
+    ``ChunkedBVH``). The dispatchers of :mod:`glaze_tpu_torch.accel` walk
+    the chunks in turn through the same kernels: a closest walk caps each
+    chunk at the best t so far, an any-hit walk passes only the rays not
+    yet blocked on. ``offsets[i]`` is chunk i's first row in the forest's
+    concatenated leaf order, so a hit's triangle id is chunk-local plus
+    the offset. ``n_tris``: the real triangle count."""
+
+    def __init__(self, chunks, offsets, n_tris: int):
+        self.chunks = tuple(chunks)
+        self.offsets = tuple(int(o) for o in offsets)
+        self.n_tris = int(n_tris)
+
+    def to(self, device) -> "ChunkedBVH":
+        return ChunkedBVH([c.to(device) for c in self.chunks], self.offsets,
+                          self.n_tris)
+
+
+def bvh_from_np(fields: dict, device):
+    """The device tree of host tables: a :class:`BVH`, or a
+    :class:`ChunkedBVH` for the chunked form of
+    :func:`build_bvh_chunked_np` (``chunks``, ``offsets``, ``n_tris``)."""
+    if "chunks" in fields:
+        return ChunkedBVH([bvh_from_np(c, device) for c in fields["chunks"]],
+                          fields["offsets"], fields["n_tris"])
     return BVH(float_table_to(fields["nodes"], device),
                float_table_to(fields["tri"], device),
                float_table_to(fields["nodes16"], device),
@@ -184,6 +312,60 @@ def build_bvh(tri_verts: np.ndarray, device, leaf_size: int = LEAF_SIZE):
     """Builds a BVH on ``device``; returns ``(bvh, tri_order)`` (see
     :func:`build_bvh_np`)."""
     fields, order = build_bvh_np(tri_verts, leaf_size)
+    return bvh_from_np(fields, device), order
+
+
+def build_bvh_chunked_np(tri_verts: np.ndarray, leaf_size: int = LEAF_SIZE,
+                         max_tris: int | None = None):
+    """The host tables of one tree when the scene has at most ``max_tris``
+    triangles (default CHUNK_MAX_TRIS, read at call time), else of a
+    forest: ``({"chunks": [tables, ...], "offsets": [...], "n_tris": N},
+    tri_order)``. The triangles are split recursively at the median of
+    their centroids along the centroids' longest axis (a stable sort)
+    until each part fits; each part gets its own tree (cached as
+    :func:`build_bvh_np` caches). ``tri_order`` is the global padded leaf
+    order over all chunks (SENTINEL for padding), chunk after chunk."""
+    if max_tris is None:
+        max_tris = CHUNK_MAX_TRIS
+    tri_verts = np.ascontiguousarray(tri_verts, np.float32)
+    n = tri_verts.shape[0]
+    if n <= max_tris:
+        return build_bvh_np(tri_verts, leaf_size)
+    centroid = tri_verts.mean(axis=1)
+    parts = []
+
+    def split(idx):
+        if idx.shape[0] <= max_tris:
+            parts.append(idx)
+            return
+        c = centroid[idx]
+        axis = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+        order = np.argsort(c[:, axis], kind="stable")
+        mid = idx.shape[0] // 2
+        split(idx[order[:mid]])
+        split(idx[order[mid:]])
+
+    split(np.arange(n, dtype=np.int64))
+    chunks, offsets, orders = [], [], []
+    base = 0
+    for idx in parts:
+        fields_c, order_c = build_bvh_np(tri_verts[idx], leaf_size)
+        sent = order_c == SENTINEL
+        orders.append(np.where(
+            sent, SENTINEL,
+            idx[np.where(sent, 0, order_c.astype(np.int64))]).astype(np.uint32))
+        chunks.append(fields_c)
+        offsets.append(base)
+        base += fields_c["tri"].shape[0]
+    return ({"chunks": chunks, "offsets": offsets, "n_tris": n},
+            np.concatenate(orders))
+
+
+def build_bvh_chunked(tri_verts: np.ndarray, device,
+                      leaf_size: int = LEAF_SIZE, max_tris: int | None = None):
+    """:func:`build_bvh_chunked_np` on ``device``: ``(tree, tri_order)``,
+    the tree a :class:`BVH` or a :class:`ChunkedBVH`."""
+    fields, order = build_bvh_chunked_np(tri_verts, leaf_size, max_tris)
     return bvh_from_np(fields, device), order
 
 
@@ -211,8 +393,19 @@ def attach_tri_payload(fields: dict, payload: np.ndarray) -> dict:
     """Host tables of :func:`build_bvh_np` with ``payload`` ((N_pad, K<=7)
     int32 words, in the tree's padded leaf order) packed into slots
     9..9+K of every triangle row: ``tri`` becomes (N_pad, 9+K) and
-    ``tri8`` carries the words at floats 9.. of each 16-float row."""
+    ``tri8`` carries the words at floats 9.. of each 16-float row. A
+    forest's tables take each chunk's rows of ``payload`` in turn."""
     payload = np.ascontiguousarray(payload, np.int32)
+    if "chunks" in fields:
+        out, base = [], 0
+        for c in fields["chunks"]:
+            rows = c["tri"].shape[0]
+            out.append(attach_tri_payload(c, payload[base:base + rows]))
+            base += rows
+        if base != payload.shape[0]:
+            raise ValueError(f"payload rows {payload.shape[0]} != forest "
+                             f"rows {base}")
+        return dict(fields, chunks=out)
     k = payload.shape[1]
     if k > TRI_PAYLOAD_MAX:
         raise ValueError(f"payload of {k} words exceeds {TRI_PAYLOAD_MAX}")
@@ -225,7 +418,10 @@ def attach_tri_payload(fields: dict, payload: np.ndarray) -> dict:
 
 
 def has_payload(bvh) -> bool:
-    """True when the tree carries the opacity-mask payload words."""
+    """True when the tree carries the opacity-mask payload words (a forest
+    when every chunk does)."""
+    if isinstance(bvh, ChunkedBVH):
+        return all(has_payload(c) for c in bvh.chunks)
     tri = bvh.tri
     return tri.dim() == 2 and tri.shape[1] >= TRI_PAYLOAD_BASE + ALPHA_MASK_WORDS
 
@@ -257,21 +453,6 @@ def _mask_bits(words, u, v, hit):
     cell = _mask_cell(u, v, hit)
     w = torch.gather(words, -1, (cell >> 4).long().unsqueeze(-1)).squeeze(-1)
     return (w >> ((cell & 15) * 2)) & 3
-
-
-def check_tri_count(n: int):
-    """Raises for scenes that would need the chunked forest."""
-    if n > CHUNK_MAX_TRIS:
-        raise NotImplementedError(
-            f"{n} triangles exceed CHUNK_MAX_TRIS={CHUNK_MAX_TRIS}: the "
-            "chunked BVH is not ported yet")
-
-
-def build_bvh_chunked(tri_verts: np.ndarray, device, leaf_size: int = LEAF_SIZE):
-    """A single BVH up to CHUNK_MAX_TRIS triangles. Larger scenes need the
-    chunked forest, which is not ported yet."""
-    check_tri_count(int(np.shape(tri_verts)[0]))
-    return build_bvh(tri_verts, device, leaf_size)
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,10 @@ The flags and defaults of ``glaze_tpu/cli.py`` (input scene, output image,
 ``--res WxH`` 1920x1080, ``--spp`` 256, ``--integrator {direct,pt}``,
 ``--seed``, ``--coherent``, ``--sif``, ``--sampler``, ``--adaptive``,
 ``--checkpoint`` with ``--checkpoint-every``, ``--profile`` and
-``--denoise``), plus ``--device {cuda,cpu}`` (default cuda). ``--mesh`` is
-not ported yet and exits with an error. The JAX package's variables act as
+``--denoise`` and ``--mesh``), plus ``--device {cuda,cpu}`` (default
+cuda). ``--mesh`` splits the pixel axis over every visible CUDA device
+(with ``--device cpu``, a one-slot mesh on the CPU). The JAX package's
+variables act as
 they do in ``glaze_tpu`` (``GLAZE_DEBUG``, ``GLAZE_COHERENT``, ``GLAZE_SIF``,
 ``GLAZE_SAMPLER``, ``GLAZE_ADAPTIVE``, ``GLAZE_ADAPTIVE_TAU``,
 ``GLAZE_ADAPTIVE_MIN``, ``GLAZE_ALPHA_ROUNDS``, ``GLAZE_TILE``,
@@ -29,9 +31,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-
-NOT_PORTED = "not yet ported to glaze_tpu_torch"
-
 
 def parse_resolution(s: str):
     try:
@@ -90,16 +89,12 @@ def build_parser():
              "the SAVED image (render/denoise.py; display-time only — "
              "the accumulation itself stays unbiased, and the filter "
              "fades to identity as spp grows)")
-    # accepted for compatibility with glaze_tpu's CLI; rejected below until
-    # its feature is ported
-    p.add_argument("--mesh", action="store_true", help=NOT_PORTED)
+    p.add_argument(
+        "--mesh", action="store_true",
+        help="split the render's pixel axis over every visible CUDA device "
+             "(no traffic between devices while it renders; the same image "
+             "as without it)")
     return p
-
-
-def _unported_flag(args):
-    if args.mesh:
-        return "--mesh"
-    return None
 
 
 def scene_id(path: str) -> str:
@@ -120,10 +115,6 @@ def run(argv=None):
     ms as a dict with ``setup``, ``render``, ``launches``, the launches
     this run made)."""
     args = build_parser().parse_args(argv)
-    flag = _unported_flag(args)
-    if flag is not None:
-        print(f"error: {flag} is {NOT_PORTED}", file=sys.stderr)
-        return 2, None, None
 
     from glaze_tpu_torch.converter import ensure_glaze
     from glaze_tpu_torch.parser import parse
@@ -161,6 +152,7 @@ def run(argv=None):
     renderer = RayTraceRenderer(parsed, width=width, height=height,
                                 integrator=integrator, seed=args.seed,
                                 coherent=args.coherent, device=args.device,
+                                mesh="auto" if args.mesh else None,
                                 **sampling)
     timer.mark("upload+bvh")
     setup_ms = (timer.marks["parse"] + timer.marks["upload+bvh"]) * 1000.0

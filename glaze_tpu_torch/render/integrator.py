@@ -549,11 +549,14 @@ def _full_masked_closest(scene, origin, direction, cap, alpha_rounds: int,
 
 
 def _full_tree_masked(scene, alpha_rounds: int) -> bool:
-    """True when the main tree carries baked opacity cells and the scene
-    has the full-order alpha rows: the single-walk closest leg."""
+    """True when the main tree carries baked opacity cells (a forest's
+    first chunk, as the JAX package probes it) and the scene has the
+    full-order alpha rows: the single-walk closest leg."""
     if alpha_rounds <= 0:
         return False
-    tri = scene.bvh.tri
+    tree = scene.bvh
+    chunks = getattr(tree, "chunks", None)
+    tri = (chunks[0] if chunks else tree).tri
     return (tri.dim() == 2 and tri.shape[1] > 9
             and scene.alpha_attr_full is not None)
 

@@ -48,7 +48,26 @@ or with ``denoise`` the spatial or, with ``temporal``, the temporal
 denoised image, whose history every edit, resolution change and scene
 change drops).
 
-Not ported in this slice: device meshes.
+``mesh`` (a :class:`glaze_tpu_torch.parallel.mesh.Mesh`, or ``"auto"``
+for every visible CUDA device, the renderer's device on the CPU) makes
+``draw`` render with the pixel axis split over the mesh's slots
+(:func:`glaze_tpu_torch.parallel.mesh.render_steps_sharded`); the state
+is split at the start of each ``draw`` and joined on the renderer's
+device after each chunk of launches, so everything else (the adaptive
+mask, images, checkpoints, which a mesh render and an unsharded one read
+and resume alike) sees the unsharded layout. It needs one sample in
+flight and a lane count that divides by the slot count; ``draw_frame``
+ignores the mesh, as in the JAX package.
+
+When several processes render one image
+(:mod:`glaze_tpu_torch.parallel.distributed`), a renderer over a mesh
+holds and renders only its process's lanes
+(:func:`~glaze_tpu_torch.parallel.distributed.local_pixel_slice`), and
+``"auto"`` is the renderer's own device. ``load_checkpoint`` reads the
+whole image and keeps those lanes; the whole state, for an image or a
+checkpoint, is :func:`~glaze_tpu_torch.parallel.distributed.gather_state`
+of ``_state`` on every rank. Adaptive stopping then needs each process's
+lanes to be whole tiles.
 """
 
 from __future__ import annotations
@@ -133,6 +152,17 @@ def check_sampling(samples_in_flight=None, sampler=None, adaptive=None):
 _CHUNK = 32
 
 
+def _process_lanes(width: int, height: int):
+    """This process's share of the lane axis when several processes render
+    one image (:func:`~glaze_tpu_torch.parallel.distributed.local_pixel_slice`),
+    else None."""
+    from glaze_tpu_torch.parallel import distributed
+
+    if distributed.process_count() == 1:
+        return None
+    return distributed.local_pixel_slice(width, height)
+
+
 def _chunk_sizes(total: int):
     """Equal power-of-two chunks: the largest c <= _CHUNK dividing
     ``total``, repeated."""
@@ -150,7 +180,8 @@ class RayTraceRenderer:
     def __init__(self, scene, camera=None, width: int = 1920, height: int = 1080,
                  integrator: Integrator = Integrator.PATH_TRACE, seed=None,
                  coherent=None, device=None, samples_in_flight=None,
-                 sampler=None, adaptive=None, interactive: bool = False):
+                 sampler=None, adaptive=None, interactive: bool = False,
+                 mesh=None):
         """``scene``: a DeviceScene (used on its own device) or a
         ParsedScene (flattened onto ``device``: ``cuda`` unless the caller
         passes ``"cpu"``; CUDA without a card raises). ``coherent``:
@@ -162,7 +193,10 @@ class RayTraceRenderer:
         stopping in ``draw()`` (tiles park once their relative standard
         error is at most ``GLAZE_ADAPTIVE_TAU``, default 0.01, after
         ``GLAZE_ADAPTIVE_MIN`` launches, default 64). Defaults as
-        :func:`check_sampling`."""
+        :func:`check_sampling`. ``mesh``: None, ``"auto"`` or a
+        :class:`~glaze_tpu_torch.parallel.mesh.Mesh` (see the module
+        docstring); with a mesh, samples in flight other than 1 and a
+        lane count that does not divide by its size raise."""
         from glaze_tpu_torch.scene import DeviceScene, flatten_scene
 
         sif, self.sampler, self.adaptive = check_sampling(
@@ -188,6 +222,7 @@ class RayTraceRenderer:
         self.exposure: Optional[float] = None  # None = scene meta exposure
         self.coherent = (default_coherent(interactive) if coherent is None
                          else integ.resolve_coherent(coherent))
+        self._mesh = self._check_mesh(mesh)
         self._rng = np.random.default_rng(seed)
         # the ld streams' key, from a generator of its own so the launch
         # seeds stay those of a pcg render
@@ -211,9 +246,51 @@ class RayTraceRenderer:
         self._alpha_tex_cache = None
         self._refresh_alpha_rounds()
 
+    def _check_mesh(self, mesh):
+        """The renderer's mesh from its ``mesh`` argument (None, "auto" or
+        a Mesh), held to one sample in flight and to the lane count."""
+        if mesh is None:
+            return None
+        from glaze_tpu_torch.parallel import mesh as pmesh
+
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh {mesh!r}: expected None, 'auto' or "
+                                 "a Mesh")
+            mesh = (pmesh.make_mesh() if self.device.type == "cuda"
+                    and _process_lanes(self.width, self.height) is None
+                    else pmesh.make_mesh([self.device]))
+        if self.samples_in_flight != 1:
+            raise ValueError("mesh rendering requires samples_in_flight == 1")
+        lanes = _process_lanes(self.width, self.height)
+        n = (integ.pixel_count(self.width, self.height) if lanes is None
+             else lanes.stop - lanes.start)
+        if n % mesh.size:
+            raise ValueError(f"pixel count not divisible by mesh size "
+                             f"{mesh.size}")
+        return mesh
+
+    def _lanes(self):
+        """The lanes this renderer holds: None (all of them), or under a
+        mesh with several processes its process's share."""
+        if self._mesh is None:
+            return None
+        return _process_lanes(self.width, self.height)
+
     def _zero_state(self):
-        return integ.init_state(self.width, self.height, self.device,
-                                self.samples_in_flight)
+        state = integ.init_state(self.width, self.height, self.device,
+                                 self.samples_in_flight)
+        return self._own_lanes(state)
+
+    def _own_lanes(self, state):
+        """``state`` (the whole image) cut to the lanes this renderer
+        holds."""
+        lanes = self._lanes()
+        if lanes is None:
+            return state
+        from glaze_tpu_torch.parallel import mesh as pmesh
+
+        return pmesh.state_lanes(state, lanes)
 
     # -- opacity maps -------------------------------------------------------
     def _alpha_tri_tex(self):
@@ -376,49 +453,89 @@ class RayTraceRenderer:
         """Blocking render of ``spp`` samples/pixel; returns (H, W, 3) uint8
         (or None with ``return_image=False``). ``callback(launches_done)``
         fires after each chunk of launches. With adaptive stopping the tile
-        mask is taken once per chunk, from the state before it."""
+        mask is taken once per chunk, from the whole state before it."""
         self._maybe_restart()
         c2w, s2c = integ.camera_matrices(self.camera, self.width, self.height)
+        kw = dict(width=self.width, height=self.height,
+                  is_persp=self.camera.is_perspective,
+                  direct_only=self.integrator is Integrator.DIRECT,
+                  alpha_rounds=self._alpha_rounds, coherent=self.coherent,
+                  sampler=self.sampler, sampler_seed=self._sampler_seed)
+        if self._mesh is not None:
+            from glaze_tpu_torch.parallel import mesh as pmesh
+
+            # a loaded checkpoint may have changed sif or the resolution
+            self._check_mesh(self._mesh)
+            shards = pmesh.shard_state(self._state, self._mesh)
         done = 0
         for n in _chunk_sizes(self.launches(spp)):
             seeds = self._rng.integers(0, 2**32, size=n, dtype=np.uint32)
             offsets = self._take_offsets(n)
-            lane_active = None
-            if self.adaptive:
-                lane_active = integ.adaptive_lane_mask(
-                    self._state, sif=self.samples_in_flight,
-                    tau=self.adaptive_tau, min_count=self.adaptive_min)
-            self._state = integ.render_steps(
-                self.scene, self._state, seeds, offsets, c2w, s2c,
-                width=self.width, height=self.height,
-                is_persp=self.camera.is_perspective,
-                direct_only=self.integrator is Integrator.DIRECT,
-                steps=n, alpha_rounds=self._alpha_rounds,
-                sif=self.samples_in_flight, coherent=self.coherent,
-                sampler=self.sampler, sampler_seed=self._sampler_seed,
-                lane_active=lane_active, after_launch=self._nan_check())
+            lane_active = self._lane_active(self._state)
+            if self._mesh is None:
+                self._state = integ.render_steps(
+                    self.scene, self._state, seeds, offsets, c2w, s2c,
+                    steps=n, sif=self.samples_in_flight,
+                    lane_active=lane_active, after_launch=self._nan_check(),
+                    **kw)
+            else:
+                shards = pmesh.render_steps_sharded(
+                    self.scene, shards, seeds, offsets, c2w, s2c, self._mesh,
+                    steps=n, lane_active=lane_active, lanes=self._lanes(),
+                    after_launch=self._nan_check(sharded=True), **kw)
+                # the whole state after every chunk, as unsharded: the
+                # adaptive mask and a Ctrl-C checkpoint read it
+                self._state = pmesh.unshard_state(shards, self.device)
             done += n
             self._launch_no += n
             if callback is not None:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                self._sync()
                 callback(done)
         if not return_image:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
             return None
         return self.get_image()
 
-    def _nan_check(self):
+    def _lane_active(self, state):
+        """The adaptive tile mask of the whole ``state``, or None with
+        adaptive stopping off."""
+        if not self.adaptive:
+            return None
+        lanes = self._lanes()
+        blk = integ.TILE_W * integ.TILE_H
+        if lanes is not None and (lanes.start % blk or lanes.stop % blk):
+            raise ValueError(
+                f"adaptive stopping over several processes needs each "
+                f"process's lanes to be whole tiles; lanes {lanes.start}:"
+                f"{lanes.stop} are not")
+        return integ.adaptive_lane_mask(
+            state, sif=self.samples_in_flight, tau=self.adaptive_tau,
+            min_count=self.adaptive_min)
+
+    def _sync(self):
+        """Waits for the renderer's CUDA devices (the mesh's too)."""
+        devices = {self.device}
+        if self._mesh is not None:
+            devices.update(self._mesh.devices.ravel())
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def _nan_check(self, sharded: bool = False):
         """With ``GLAZE_DEBUG``, the ``after_launch`` hook that checks the
         state for NaN after each launch, naming it by its number since the
-        restart; else None."""
+        restart (and, ``sharded``, the mesh slot); else None."""
         if not debug_nans():
             return None
         base = self._launch_no
 
-        def after_launch(k, state):
-            check_nans(integ.named_leaves(state), f"launch {base + k}")
+        if sharded:
+            def after_launch(k, slot, state):
+                check_nans(integ.named_leaves(state),
+                           f"launch {base + k} (mesh slot {slot})")
+        else:
+            def after_launch(k, state):
+                check_nans(integ.named_leaves(state), f"launch {base + k}")
         return after_launch
 
     def draw_frame(self, return_image: bool = False):
@@ -435,6 +552,9 @@ class RayTraceRenderer:
         G-buffer (``denoise`` just turned on) traces it."""
         from glaze_tpu_torch.render import denoise as dn
 
+        if self._lanes() is not None:
+            raise ValueError("draw_frame renders the whole image, not one "
+                             "process's lanes")
         restarted = self._request_new_frame
         self._maybe_restart()
         c2w, s2c = integ.camera_matrices(self.camera, self.width, self.height)
@@ -637,13 +757,14 @@ class RayTraceRenderer:
             else:
                 # the trailing leaves (path_no, sq) are newer additions:
                 # resume with zeros (the ld stratification restarts)
-                leaves.append(torch.zeros_like(like))
+                leaves.append(torch.zeros(leaves[12].shape, dtype=like.dtype,
+                                          device=self.device))
         shimmed = int(data["n_leaves"]) < len(cur)
-        self._state = integ.PathState(
+        self._state = self._own_lanes(integ.PathState(
             importance=leaves[0], origin=tuple(leaves[1:4]),
             direction=tuple(leaves[4:7]), bounce=leaves[7],
             last_specular=leaves[8], accum=tuple(leaves[9:12]),
-            count=leaves[12], path_no=leaves[13], sq=leaves[14])
+            count=leaves[12], path_no=leaves[13], sq=leaves[14]))
         if shimmed and self.adaptive:
             # a zero sq beside a large count reads as var = 0, which would
             # park every tile for good

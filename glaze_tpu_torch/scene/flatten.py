@@ -30,9 +30,9 @@ from glaze_tpu_torch.accel import build_bvh_auto_np, tree_from_np
 from glaze_tpu_torch.accel.bvh import (
     BVH,
     SENTINEL,
+    ChunkedBVH,
     attach_tri_payload,
-    build_bvh_np,
-    check_tri_count,
+    build_bvh_chunked_np,
     float_table_to,
     pack_alpha_masks,
 )
@@ -131,8 +131,36 @@ _SCENE_FIELDS = (
 
 _BVH_KEYS = ("nodes", "tri", "nodes16", "tri8", "n_nodes", "n_tris")
 # DeviceScene fields holding a tree; they cross as "<name>.nodes" ...
-# (a fat tree as "<name>.leafmat" ... "<name>.leaf_size", see FAT_KEYS)
+# (a fat tree as "<name>.leafmat" ... "<name>.leaf_size", see FAT_KEYS; a
+# forest as "<name>.chunks" (the chunk count), "<name>.offsets",
+# "<name>.n_tris" and chunk i's tables as "<name>.<i>.nodes" ...)
 _TREE_FIELDS = ("bvh", "bvh_any", "bvh_opaque", "bvh_alpha")
+
+
+def _flat_tree(name: str, tree: dict) -> dict:
+    """A tree's host tables (a forest's nested) under flat field names."""
+    if "chunks" not in tree:
+        return {f"{name}.{k}": v for k, v in tree.items()}
+    out = {f"{name}.chunks": len(tree["chunks"]),
+           f"{name}.offsets": np.asarray(tree["offsets"], np.int64),
+           f"{name}.n_tris": int(tree["n_tris"])}
+    for i, c in enumerate(tree["chunks"]):
+        out.update(_flat_tree(f"{name}.{i}", c))
+    return out
+
+
+def _nested_tree(fields: dict, name: str):
+    """The host tables of tree ``name`` from flat field names (the inverse
+    of :func:`_flat_tree`), or None when ``fields`` hold no such tree."""
+    if f"{name}.chunks" in fields:
+        return {"chunks": [_nested_tree(fields, f"{name}.{i}")
+                           for i in range(int(fields[f"{name}.chunks"]))],
+                "offsets": [int(o) for o in fields[f"{name}.offsets"]],
+                "n_tris": int(fields[f"{name}.n_tris"])}
+    if f"{name}.nodes" not in fields:
+        return None
+    keys = FAT_KEYS if f"{name}.leafmat" in fields else _BVH_KEYS
+    return {k: fields[f"{name}.{k}"] for k in keys}
 
 
 class DeviceScene:
@@ -145,7 +173,8 @@ class DeviceScene:
     shading evaluates only those branches, as the JAX package's jitted
     shading specialises on them."""
 
-    __slots__ = _SCENE_FIELDS + ("mat_families", "light_kinds", "tex_slots")
+    __slots__ = _SCENE_FIELDS + ("mat_families", "light_kinds", "tex_slots",
+                                 "__weakref__")
 
     def __init__(self, *, mat_families=None, light_kinds=None,
                  tex_slots=None, **fields):
@@ -167,6 +196,24 @@ class DeviceScene:
     @property
     def device(self) -> torch.device:
         return self.tri_attr.device
+
+    def to(self, device) -> "DeviceScene":
+        """The scene's tables on ``device`` (they move bitwise), or the
+        scene itself where it lives already."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        fields = {}
+        for name in _SCENE_FIELDS:
+            v = getattr(self, name)
+            if name == "atlas":
+                v = TextureAtlas(*(t.to(device) for t in v))
+            elif v is not None:
+                v = v.to(device)
+            fields[name] = v
+        return DeviceScene(mat_families=self.mat_families,
+                           light_kinds=self.light_kinds,
+                           tex_slots=self.tex_slots, **fields)
 
     def _replace(self, **updates):
         """NamedTuple-style copy with overrides (the JAX package's
@@ -572,12 +619,12 @@ def _classify_alpha_cells(tri_uv, tri_idx, tex, grid=8):
 
 
 def _subset_tree(tri_pos, sel, inv_full):
-    """Tree over the ORIGINAL-order triangles ``sel``: (host BVH fields,
-    int32 slot -> full-tree row map, slot -> original id), or Nones."""
+    """Tree over the ORIGINAL-order triangles ``sel`` (a forest beyond
+    CHUNK_MAX_TRIS): (host tree fields, int32 slot -> full-tree row map,
+    slot -> original id), or Nones."""
     if sel.size == 0:
         return None, None, None
-    check_tri_count(sel.size)
-    fields, order_s = build_bvh_np(np.ascontiguousarray(tri_pos[sel]))
+    fields, order_s = build_bvh_chunked_np(np.ascontiguousarray(tri_pos[sel]))
     sent = order_s == SENTINEL
     local = np.where(sent, 0, order_s).astype(np.int64)
     m = inv_full[sel[local]].astype(np.int32)
@@ -860,13 +907,13 @@ def flatten_scene_np(parsed):
     tri_mat_bvh = bvh_rows(tri_mat).astype(np.int32)
     attr[:, ATTR_MAT] = tri_mat_bvh.astype(np.float32)
 
-    fields = {f"bvh.{k}": v for k, v in bvh_fields.items()}
+    fields = _flat_tree("bvh", bvh_fields)
     if any_fields is not None:
-        fields.update({f"bvh_any.{k}": v for k, v in any_fields.items()})
+        fields.update(_flat_tree("bvh_any", any_fields))
     for name in ("bvh_opaque", "bvh_alpha"):
         tree = split.pop(name)
         if tree is not None:
-            fields.update({f"{name}.{k}": v for k, v in tree.items()})
+            fields.update(_flat_tree(name, tree))
     fields.update({k: v for k, v in split.items() if v is not None})
     fields.update({f"atlas.{k}": v for k, v in atlas.items()})
     fields.update(
@@ -911,18 +958,18 @@ def device_scene_from_numpy(fields: dict, device) -> DeviceScene:
     package's flattened scene pulled to NumPy under the same names (each
     tree as ``<name>.nodes`` ... ``<name>.n_tris`` for ``bvh``,
     ``bvh_any``, ``bvh_opaque`` and ``bvh_alpha``, a fat tree with
-    ``<name>.leafmat`` and ``<name>.leaf_size`` in place of ``tri8``; the
-    atlas as ``atlas.texels`` ...). Fields absent from ``fields`` are
-    None."""
+    ``<name>.leafmat`` and ``<name>.leaf_size`` in place of ``tri8``, a
+    forest as ``<name>.chunks``, ``<name>.offsets``, ``<name>.n_tris`` and
+    ``<name>.<i>.nodes`` ...; the atlas as ``atlas.texels`` ...). Fields
+    absent from ``fields`` are None."""
     device = torch.device(device)
     atlas = atlas_from_np({k: fields[f"atlas.{k}"] for k in TextureAtlas._fields},
                           device)
     plain = {}
     for name in _TREE_FIELDS:
-        if f"{name}.nodes" in fields:
-            keys = FAT_KEYS if f"{name}.leafmat" in fields else _BVH_KEYS
-            plain[name] = tree_from_np(
-                {k: fields[f"{name}.{k}"] for k in keys}, device)
+        tree = _nested_tree(fields, name)
+        if tree is not None:
+            plain[name] = tree_from_np(tree, device)
     for name in _SCENE_FIELDS:
         if name in _TREE_FIELDS or name == "atlas":
             continue
@@ -933,6 +980,9 @@ def device_scene_from_numpy(fields: dict, device) -> DeviceScene:
 
 def _tree_to_np(tree) -> dict:
     """A device tree's host tables (the inverse of ``tree_from_np``)."""
+    if isinstance(tree, ChunkedBVH):
+        return {"chunks": [_tree_to_np(c) for c in tree.chunks],
+                "offsets": list(tree.offsets), "n_tris": tree.n_tris}
     out = {}
     for k in FAT_KEYS if hasattr(tree, "leafmat") else _BVH_KEYS:
         v = getattr(tree, k)
@@ -947,7 +997,7 @@ def device_scene_to_numpy(scene: DeviceScene) -> dict:
         tree = getattr(scene, name)
         if tree is None:
             continue
-        out.update({f"{name}.{k}": v for k, v in _tree_to_np(tree).items()})
+        out.update(_flat_tree(name, _tree_to_np(tree)))
     for k in TextureAtlas._fields:
         out[f"atlas.{k}"] = getattr(scene.atlas, k).cpu().numpy()
     out["atlas.texels"] = out["atlas.texels"].view(np.uint32)

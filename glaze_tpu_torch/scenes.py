@@ -5,6 +5,9 @@
   hanging curtains and reflective props, all six material families and
   all four light types. Its curtain material carries an opacity map.
   A copy of ``tools/make_sponza.py``'s scene.
+* :class:`SponzaGridScene` -- four copies of :class:`SponzaScene` in a 2x2
+  grid of instance transforms (1,049,760 triangles): a scene beyond the
+  1,000,000-triangle chunk limit, so its tree is a forest.
 * :class:`MatRowScene` -- the golden scene: six spheres, one per BSDF
   family, on a checkered floor under OMNI + AREA + SKY lights. A copy of
   ``tests/golden_scenes.py``'s scene; ``tests/goldens/*.npz`` hold the
@@ -380,6 +383,36 @@ class SponzaScene:
     def meta(self):
         return Meta(scene_centre=[0.0, HEI / 2, 0.0],
                     scene_radius=float(np.linalg.norm([LEN, HEI, WID]) / 2),
+                    exposure=1.0)
+
+
+class SponzaGridScene(SponzaScene):
+    """Four copies of the Sponza-class atrium side by side, 2 along x and
+    2 along z with a 2-unit gap, as instances of the same meshes under
+    four translations; the camera, lights and materials of
+    :class:`SponzaScene` (the camera looks down the first copy)."""
+
+    GAP = 2.0
+
+    def transforms(self):
+        out = []
+        for iz in range(2):
+            for ix in range(2):
+                m = np.eye(4, dtype=np.float32)
+                m[0, 3] = ix * (LEN + self.GAP)
+                m[2, 3] = iz * (WID + self.GAP)
+                out.append(Transform(m))
+        return out
+
+    def instances(self):
+        return [MeshInstance(i, t) for t in range(4)
+                for i in range(len(self._idx))]
+
+    def meta(self):
+        return Meta(scene_centre=[(LEN + self.GAP) / 2, HEI / 2,
+                                  (WID + self.GAP) / 2],
+                    scene_radius=float(np.linalg.norm(
+                        [2 * LEN + self.GAP, HEI, 2 * WID + self.GAP]) / 2),
                     exposure=1.0)
 
 

@@ -11,6 +11,10 @@ runs on ``cuda`` unless ``--device cpu`` is given (no card: it raises):
   A-D, at packets of 2048 rays and of one warp;
 - ``bench_bf16_slab`` (T4): the slab test's rate in f32 and packed bf16.
 
+Beside them, ``pod_launch`` renders one image across processes (the
+CLI's semantics on torch.distributed, one process per card) and
+``multihost_demo`` rehearses it with CPU processes.
+
 Their kernels are in ``csrc/probes.cu`` (wrappers:
 :mod:`glaze_tpu_torch.tools.probes_cuda`); each tool module holds its
 kernel's plain torch version, which the CPU takes.

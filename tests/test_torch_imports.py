@@ -3,6 +3,8 @@ glaze_tpu, and entry points that run on CUDA unless told otherwise."""
 
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 
@@ -47,7 +49,8 @@ def test_port_sources_found():
                 ("glaze_tpu_torch", "app.py"),
                 ("glaze_tpu_torch", "viewer.py"),
                 ("glaze_tpu_torch", "ui.py"),
-                ("render", "realtime.py"), ("render", "preview.py")):
+                ("render", "realtime.py"), ("render", "preview.py"),
+                ("parallel", "mesh.py"), ("parallel", "distributed.py")):
         assert any(f.endswith(os.path.join(*mod)) for f in files), mod
 
 
@@ -203,14 +206,38 @@ def test_app_and_viewer_default_device_raises_without_cuda(front, monkeypatch,
 
 @pytest.mark.parametrize("flags", [["--mesh"], ["--mesh", "--denoise"]])
 def test_cli_rejects_unported_flags(flags, tmp_path, capsys):
-    """--mesh is refused, also beside --denoise (glaze_tpu's
-    ``--mesh --denoise`` render)."""
+    """--mesh, refused before it was ported, renders (also beside
+    --denoise, glaze_tpu's ``--mesh --denoise`` render): with --device cpu
+    on a one-slot mesh of the CPU; without --device it needs a card."""
+    import glaze_tpu_torch.scenes as ps
     from glaze_tpu_torch import cli
 
-    code = cli.main([str(tmp_path / "s.glaze"), str(tmp_path / "o.png"),
-                     "--device", "cpu"] + flags)
-    assert code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    scene = tmp_path / "s.glaze"
+    ps.write_glaze(ps.MatRowScene(), str(scene))
+    code, r, _ = cli.run([str(scene), str(tmp_path / "o.png"), "--device",
+                          "cpu", "--res", "16x8", "--spp", "1", "-i",
+                          "direct"] + flags)
+    assert code == 0 and (tmp_path / "o.png").exists()
+    assert r._mesh is not None and r._mesh.size == 1
+    assert "not yet ported" not in capsys.readouterr().err
+
+
+def test_parallel_imports_without_cuda_or_jax():
+    """glaze_tpu_torch.parallel imports no JAX and initialises no CUDA;
+    make_mesh() without a card raises (no CPU fallback)."""
+    code = ("import sys, torch\n"
+            "import glaze_tpu_torch.parallel as p\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "print(torch.cuda.is_initialized())\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "try:\n"
+            "    p.make_mesh()\n"
+            "except RuntimeError as e:\n"
+            "    print('raised', 'CUDA' in str(e))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "raised", "True"]
 
 
 @pytest.mark.parametrize("flags", [

@@ -191,10 +191,18 @@ def test_opacity_maps_raise(tmp_path):
     assert scene.bvh.tri.shape[1] == 13 and scene.alpha_attr_full is not None
 
 
-def test_chunk_limit_raises():
+def test_chunk_limit_raises(monkeypatch):
+    """The chunk limit no longer raises: beyond CHUNK_MAX_TRIS (read at
+    call time) the build makes a forest whose chunks each fit it."""
     from glaze_tpu_torch.accel import bvh
 
-    big = np.broadcast_to(np.zeros((1, 3, 3), np.float32),
-                          (bvh.CHUNK_MAX_TRIS + 1, 3, 3))  # a view, no memory
-    with pytest.raises(NotImplementedError, match="chunked"):
-        bvh.build_bvh_chunked(big, "cpu")
+    rng = np.random.default_rng(5)
+    soup = rng.uniform(-1, 1, (300, 3, 3)).astype(np.float32)
+    monkeypatch.setattr(bvh, "CHUNK_MAX_TRIS", 100)
+    tree, order = bvh.build_bvh_chunked(soup, "cpu")
+    assert isinstance(tree, bvh.ChunkedBVH) and len(tree.chunks) == 4
+    assert all(c.n_tris <= 100 for c in tree.chunks)
+    assert tree.n_tris == 300 and order.shape[0] == sum(
+        c.tri.shape[0] for c in tree.chunks)
+    real = np.sort(order[order != bvh.SENTINEL])
+    assert np.array_equal(real, np.arange(300))

@@ -9,8 +9,26 @@ _BVH_KEYS = ("nodes", "tri", "nodes16", "tri8", "n_nodes", "n_tris")
 # a glaze_tpu FatBVH (GLAZE_TREE=fat|hybrid) crosses with its slabs
 _FAT_KEYS = ("nodes", "tri", "nodes16", "leafmat", "n_nodes", "n_tris",
              "leaf_size")
-# the scene fields that hold a (single, unchunked) tree
+# the scene fields that hold a tree
 _TREE_FIELDS = ("bvh", "bvh_any", "bvh_opaque", "bvh_alpha")
+
+
+def jax_tree_to_numpy(name: str, tree) -> dict:
+    """A glaze_tpu tree's tables under the port's flat field names: a
+    ChunkedBVH as <name>.chunks, <name>.offsets, <name>.n_tris and chunk
+    i's tables as <name>.<i>.nodes ..."""
+    if hasattr(tree, "chunks"):
+        out = {f"{name}.chunks": len(tree.chunks),
+               f"{name}.offsets": np.asarray(tree.offsets, np.int64),
+               f"{name}.n_tris": int(tree.n_tris)}
+        for i, c in enumerate(tree.chunks):
+            out.update(jax_tree_to_numpy(f"{name}.{i}", c))
+        return out
+    out = {}
+    for k in _FAT_KEYS if hasattr(tree, "leafmat") else _BVH_KEYS:
+        v = getattr(tree, k)
+        out[f"{name}.{k}"] = v if isinstance(v, int) else np.asarray(v)
+    return out
 
 
 def jax_scene_to_numpy(scene) -> dict:
@@ -23,9 +41,7 @@ def jax_scene_to_numpy(scene) -> dict:
         tree = getattr(scene, name)
         if tree is None:
             continue
-        for k in _FAT_KEYS if hasattr(tree, "leafmat") else _BVH_KEYS:
-            v = getattr(tree, k)
-            out[f"{name}.{k}"] = v if isinstance(v, int) else np.asarray(v)
+        out.update(jax_tree_to_numpy(name, tree))
     for k in scene.atlas._fields:
         out[f"atlas.{k}"] = np.asarray(getattr(scene.atlas, k))
     for name in _SCENE_FIELDS:
