@@ -75,6 +75,7 @@ from glaze_tpu_torch.accel.fat import (
     closest_hit_fat,
     fat_from_np,
 )
+from glaze_tpu_torch.utils.runtime import traced
 
 # The fat tree is built only while its node slab (one octant of nodes16)
 # fits this budget, else the classic tree. 12 MB is the JAX package's
@@ -92,6 +93,7 @@ def tree_mode() -> str:
     return "fat" if os.environ.get("GLAZE_FATLEAF", "") == "1" else "classic"
 
 
+@traced("setup.bvh")
 def build_bvh_auto_np(tri_verts, leaf_size=None):
     """Host tables of the tree(s) :func:`tree_mode` asks for. Returns
     ``(fields, tri_order, any_fields)``: ``fields`` serves closest hits

@@ -53,6 +53,8 @@ import zlib
 import numpy as np
 import torch
 
+from glaze_tpu_torch.utils.runtime import count, traced
+
 LEAF_SIZE = 8
 
 # Matches the reference's ray t bounds (path_trace.rgen:169, raytracer.rs)
@@ -224,6 +226,7 @@ def _cache_store(path, nodes16, m, order):
             os.unlink(tmp)
 
 
+@traced("setup.bvh")
 def build_bvh_np(tri_verts: np.ndarray, leaf_size: int = LEAF_SIZE):
     """Host build over (N, 3, 3) world-space triangles. Returns
     ``(fields, tri_order)``: ``fields`` holds the NumPy tables
@@ -231,7 +234,8 @@ def build_bvh_np(tri_verts: np.ndarray, leaf_size: int = LEAF_SIZE):
     and ``tri_order`` is the PADDED leaf-aligned permutation (uint32,
     SENTINEL entries are leaf padding). From CACHE_MIN_TRIS triangles on,
     the octant slab and the permutation come from the disk cache when it
-    holds them, and ``nodes``, ``tri`` and ``tri8`` are derived from them."""
+    holds them, and ``nodes``, ``tri`` and ``tri8`` are derived from them
+    (the counters ``bvh.cache_hit`` and ``bvh.cache_miss``)."""
     tri_verts = np.ascontiguousarray(tri_verts, np.float32)
     n = tri_verts.shape[0]
     if n == 0:
@@ -246,6 +250,8 @@ def build_bvh_np(tri_verts: np.ndarray, leaf_size: int = LEAF_SIZE):
         return fields, np.zeros(0, np.uint32)
     path = _cache_path(tri_verts, leaf_size) if n >= CACHE_MIN_TRIS else None
     cached = _cache_load(path) if path is not None else None
+    if path is not None:
+        count("bvh.cache_miss" if cached is None else "bvh.cache_hit")
     if cached is not None:
         nodes16, m, order = cached
         # octant 0 fills the slab's first ceil(m/16) rows, node k at
@@ -315,6 +321,7 @@ def build_bvh(tri_verts: np.ndarray, device, leaf_size: int = LEAF_SIZE):
     return bvh_from_np(fields, device), order
 
 
+@traced("setup.bvh")
 def build_bvh_chunked_np(tri_verts: np.ndarray, leaf_size: int = LEAF_SIZE,
                          max_tris: int | None = None):
     """The host tables of one tree when the scene has at most ``max_tris``

@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from glaze_tpu_torch import cuda_build
+from glaze_tpu_torch.utils.runtime import span
 
 SOURCE = "traverse.cu"
 LIBRARY = "libglaze_traverse.so"
@@ -49,7 +50,10 @@ def build() -> str:
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
+        # the span ``setup.kernels``: the build (or the check that the
+        # library is current) and the load, once a process
+        with span("setup.kernels"):
+            lib = ctypes.CDLL(build())
         p = ctypes.c_void_p
         i = ctypes.c_int
         lib.glaze_closest_hit.argtypes = [p] * 9 + [i, i, ctypes.c_longlong] + [p] * 5

@@ -383,8 +383,7 @@ def main(argv=None):
                 rr._preview.set_exposure(float(parts[1]))
                 present()
             elif cmd == "stats":
-                print(f"  fps={rr.stats.fps:.2f} "
-                      f"draws/s={rr.stats.draw_calls_per_sec:.2f}")
+                print(f"  fps={rr.stats.fps:.2f}")
             elif cmd == "info":
                 # device info window (ui.rs info_window; device.rs:403-448)
                 from glaze_tpu_torch.instance import RayTraceInstance

@@ -8,7 +8,8 @@ checkpoint's scene id is the sha256 of the ``.glaze`` that renders.
 The flags and defaults of ``glaze_tpu/cli.py`` (input scene, output image,
 ``--res WxH`` 1920x1080, ``--spp`` 256, ``--integrator {direct,pt}``,
 ``--seed``, ``--coherent``, ``--sif``, ``--sampler``, ``--adaptive``,
-``--checkpoint`` with ``--checkpoint-every``, ``--profile`` and
+``--checkpoint`` with ``--checkpoint-every``, ``--profile`` (the
+profiler's trace, with the program's spans, and the recorder's) and
 ``--denoise`` and ``--mesh``), plus ``--device {cuda,cpu}`` (default
 cuda). ``--mesh`` splits the pixel axis over every visible CUDA device
 (with ``--device cpu``, a one-slot mesh on the CPU). The JAX package's
@@ -31,6 +32,13 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+# the recorder's file beside the profiler's trace under --profile
+SPANS_FILE = "spans.json"
+# the CLI's phases: the spans that time them and the names they print under
+PHASES = (("cli.parse", "parse"), ("cli.setup", "upload+bvh"),
+          ("cli.render", "render"), ("cli.save", "save"))
+
 
 def parse_resolution(s: str):
     try:
@@ -81,8 +89,10 @@ def build_parser():
                         "sampling (default off; env GLAZE_ADAPTIVE)")
     p.add_argument("--profile", nargs="?", const="glaze_profile", default=None,
                    metavar="DIR",
-                   help="write a torch.profiler Chrome trace of the render to "
-                        "DIR and print per-phase wall-clock")
+                   help="write a torch.profiler Chrome trace of the render, "
+                        "with the program's spans, to DIR/trace.json, the "
+                        "spans and counters of the whole run to "
+                        "DIR/spans.json, and print per-phase wall-clock")
     p.add_argument(
         "--denoise", action="store_true",
         help="apply the edge-aware SVGF-style reconstruction filter to "
@@ -111,11 +121,18 @@ def main(argv=None):
 
 
 def run(argv=None):
-    """The CLI's work: returns (exit code, renderer or None, timings in
-    ms as a dict with ``setup``, ``render``, ``launches``, the launches
-    this run made)."""
-    args = build_parser().parse_args(argv)
+    """The CLI's work, recorded (:func:`glaze_tpu_torch.utils.recording`,
+    the spans' rows kept only under ``--profile``): returns (exit code,
+    renderer or None, timings in ms as a dict with ``setup``, ``render``,
+    ``launches``, the launches this run made)."""
+    from glaze_tpu_torch.utils import recording
 
+    args = build_parser().parse_args(argv)
+    with recording(rows=args.profile is not None) as rec:
+        return _run(args, rec)
+
+
+def _run(args, rec):
     from glaze_tpu_torch.converter import ensure_glaze
     from glaze_tpu_torch.parser import parse
     from glaze_tpu_torch.render.renderer import (
@@ -124,10 +141,10 @@ def run(argv=None):
         check_sampling,
     )
     from glaze_tpu_torch.utils import (
-        Timer,
         init_logging,
         profiler_trace,
         setup_debug_modes,
+        span,
     )
 
     init_logging()
@@ -142,82 +159,88 @@ def run(argv=None):
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, None, None
-    timer = Timer()
-    scene_path = ensure_glaze(args.input)
-    parsed = parse(scene_path)
-    timer.mark("parse")
+    with span("cli.parse"):
+        scene_path = ensure_glaze(args.input)
+        parsed = parse(scene_path)
     width, height = args.res
     integrator = (Integrator.DIRECT if args.integrator == "direct"
                   else Integrator.PATH_TRACE)
-    renderer = RayTraceRenderer(parsed, width=width, height=height,
-                                integrator=integrator, seed=args.seed,
-                                coherent=args.coherent, device=args.device,
-                                mesh="auto" if args.mesh else None,
-                                **sampling)
-    timer.mark("upload+bvh")
-    setup_ms = (timer.marks["parse"] + timer.marks["upload+bvh"]) * 1000.0
+    with span("cli.setup"):
+        renderer = RayTraceRenderer(parsed, width=width, height=height,
+                                    integrator=integrator, seed=args.seed,
+                                    coherent=args.coherent,
+                                    device=args.device,
+                                    mesh="auto" if args.mesh else None,
+                                    **sampling)
+    ms = _phase_ms(rec)
+    setup_ms = ms["cli.parse"] + ms["cli.setup"]
     print(f"Setup time: {setup_ms:.0f}ms", file=sys.stderr)
 
-    done_spp = 0
-    sid = scene_id(scene_path) if args.checkpoint else ""
-    if args.checkpoint and os.path.exists(args.checkpoint):
-        try:
-            renderer.load_checkpoint(args.checkpoint, scene_id=sid)
-        except ValueError as e:
-            print(f"error: {e}", file=sys.stderr)
-            return 2, None, None
-        # the checkpoint's resolution, integrator and sif win over the flags
-        if (renderer.integrator is not integrator
-                or (renderer.width, renderer.height) != (width, height)):
-            print(f"Resume overrides flags: {renderer.width}x"
-                  f"{renderer.height} {renderer.integrator.name_str}",
+    # the render phase: a resume's checkpoint load, the launches, the
+    # checkpoints and, under --profile, the trace's export
+    with span("cli.render"):
+        done_spp = 0
+        sid = scene_id(scene_path) if args.checkpoint else ""
+        if args.checkpoint and os.path.exists(args.checkpoint):
+            try:
+                renderer.load_checkpoint(args.checkpoint, scene_id=sid)
+            except ValueError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 2, None, None
+            # the checkpoint's resolution, integrator and sif win over the
+            # flags
+            if (renderer.integrator is not integrator
+                    or (renderer.width, renderer.height) != (width, height)):
+                print(f"Resume overrides flags: {renderer.width}x"
+                      f"{renderer.height} {renderer.integrator.name_str}",
+                      file=sys.stderr)
+            width, height = renderer.width, renderer.height
+            done_spp = min(renderer.completed_spp, args.spp)
+            print(f"Resumed {args.checkpoint}: {done_spp} spp done",
                   file=sys.stderr)
-        width, height = renderer.width, renderer.height
-        done_spp = min(renderer.completed_spp, args.spp)
-        print(f"Resumed {args.checkpoint}: {done_spp} spp done",
-              file=sys.stderr)
 
-    total = renderer.launches(args.spp)
-    base = renderer.launches(done_spp)
+        total = renderer.launches(args.spp)
+        base = renderer.launches(done_spp)
 
-    def progress(done):
-        pct = min(100.0, 100.0 * (base + done) / max(total, 1))
-        print(f"\rRendering... {pct:5.1f}%", end="", file=sys.stderr, flush=True)
+        def progress(done):
+            pct = min(100.0, 100.0 * (base + done) / max(total, 1))
+            print(f"\rRendering... {pct:5.1f}%", end="", file=sys.stderr,
+                  flush=True)
 
-    def save_checkpoint():
-        # atomic: np.savez appends .npz to a name without it, so keep the
-        # suffix and rename over the target
-        tmp = args.checkpoint + ".tmp.npz"
-        renderer.save_checkpoint(tmp, scene_id=sid)
-        os.replace(tmp, args.checkpoint)
+        def save_checkpoint():
+            # atomic: np.savez appends .npz to a name without it, so keep
+            # the suffix and rename over the target
+            tmp = args.checkpoint + ".tmp.npz"
+            renderer.save_checkpoint(tmp, scene_id=sid)
+            os.replace(tmp, args.checkpoint)
 
-    with profiler_trace(args.profile or "", enabled=args.profile is not None):
-        remaining = args.spp - done_spp
-        step = args.checkpoint_every if args.checkpoint else remaining
-        # whole sif groups per chunk: draw(n) runs ceil(n * steps / sif)
-        # launches, so other chunk sizes would sum past launches(spp)
-        sif = renderer.samples_in_flight
-        step = -(-max(step, 1) // sif) * sif
-        try:
-            while remaining > 0:
-                n = min(step, remaining)
-                renderer.draw(n, progress, return_image=False)
-                remaining -= n
-                base = renderer.launches(args.spp - remaining)
-                if args.checkpoint and remaining > 0:
+        with profiler_trace(args.profile or "",
+                            enabled=args.profile is not None):
+            remaining = args.spp - done_spp
+            step = args.checkpoint_every if args.checkpoint else remaining
+            # whole sif groups per chunk: draw(n) runs ceil(n * steps / sif)
+            # launches, so other chunk sizes would sum past launches(spp)
+            sif = renderer.samples_in_flight
+            step = -(-max(step, 1) // sif) * sif
+            try:
+                while remaining > 0:
+                    n = min(step, remaining)
+                    renderer.draw(n, progress, return_image=False)
+                    remaining -= n
+                    base = renderer.launches(args.spp - remaining)
+                    if args.checkpoint and remaining > 0:
+                        save_checkpoint()
+            except KeyboardInterrupt:
+                if args.checkpoint:
                     save_checkpoint()
-        except KeyboardInterrupt:
+                    print(f"\nInterrupted: checkpoint saved to "
+                          f"{args.checkpoint}", file=sys.stderr)
+                    return 130, renderer, None
+                raise
             if args.checkpoint:
                 save_checkpoint()
-                print(f"\nInterrupted: checkpoint saved to "
-                      f"{args.checkpoint}", file=sys.stderr)
-                return 130, renderer, None
-            raise
-        if args.checkpoint:
-            save_checkpoint()
-    timer.mark("render")
     print(file=sys.stderr)
-    render_ms = timer.marks["render"] * 1000.0
+    render_ms = _phase_ms(rec)["cli.render"]
     launches = total - renderer.launches(done_spp)
     # rays traced this run: launches x sif path states per pixel
     rays = width * height * renderer.samples_in_flight * launches
@@ -227,16 +250,25 @@ def run(argv=None):
     # display-time only: the accumulation (and any checkpoint) is saved
     # raw; the filter is applied once, to the written image
     renderer.denoise = args.denoise
-    renderer.save(args.output)
-    timer.mark("save")
+    with span("cli.save"):
+        renderer.save(args.output)
     if args.profile is not None:
-        phases = "  ".join(f"{k}={v * 1e3:.0f}ms"
-                           for k, v in timer.marks.items())
+        ms = _phase_ms(rec)
+        phases = "  ".join(f"{label}={ms[name]:.0f}ms"
+                           for name, label in PHASES)
         print(f"Phases: {phases}", file=sys.stderr)
+        rec.export(os.path.join(args.profile, SPANS_FILE))
         print(f"Profile trace written to {args.profile}/", file=sys.stderr)
     print(f"Saved {args.output}", file=sys.stderr)
     return 0, renderer, {"setup": setup_ms, "render": render_ms,
                          "launches": launches}
+
+
+def _phase_ms(rec) -> dict:
+    """Milliseconds of each of the CLI's phase spans so far."""
+    spans = rec.summary()["spans"]
+    return {name: spans[name]["total_s"] * 1e3 if name in spans else 0.0
+            for name, _ in PHASES}
 
 
 if __name__ == "__main__":

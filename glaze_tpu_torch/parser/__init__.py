@@ -66,18 +66,22 @@ def parse(path):
     """Parses a ``.glaze`` file and returns a :class:`ParsedScene`-like object.
 
     Raises ``IOError`` for wrong magic, unsupported versions, or corruption
-    (mod.rs:93-116).
+    (mod.rs:93-116). The span ``setup.parse`` times the header and offsets
+    read here; the chunks decode where they are read (the flatten's reads
+    carry the same span).
     """
     from glaze_tpu_torch.parser.v1 import ContentV1
+    from glaze_tpu_torch.utils.runtime import span
 
-    f = open(path, "rb")
-    header = f.read(HEADER_LEN)
-    if len(header) < HEADER_LEN or header[:5] != MAGIC_NUMBER:
-        f.close()
-        raise IOError("Wrong or empty input file")
-    version = ParserVersion.from_byte(header[5])
-    assert version == ParserVersion.V1
-    return ContentV1(path, f)
+    with span("setup.parse"):
+        f = open(path, "rb")
+        header = f.read(HEADER_LEN)
+        if len(header) < HEADER_LEN or header[:5] != MAGIC_NUMBER:
+            f.close()
+            raise IOError("Wrong or empty input file")
+        version = ParserVersion.from_byte(header[5])
+        assert version == ParserVersion.V1
+        return ContentV1(path, f)
 
 
 def converted_file(path) -> bool:

@@ -40,6 +40,7 @@ from glaze_tpu_torch.ops import vec
 from glaze_tpu_torch.render import bsdf as bsdf_mod
 from glaze_tpu_torch.render import integrator as integ
 from glaze_tpu_torch.scene import flatten as fl
+from glaze_tpu_torch.utils.runtime import count, traced
 
 # depth of miss (sky) lanes: far beyond any scene hit, so the depth weight
 # separates sky from geometry while sky pixels filter among themselves
@@ -60,12 +61,15 @@ def lane_to_image(width: int, height: int, device):
     return inv, pw, ph
 
 
+@traced("denoise.gbuffer")
 def gbuffer_pass(scene, cam2world, screen2cam, *, width: int, height: int,
                  is_persp: bool, alpha_rounds: int = 0):
     """First-hit guide buffers per lane: ``normal`` (3 x (P,)), ``depth``,
     ``albedo`` (3 x (P,)) and ``wpos``, from one trace of the camera rays
     through pixel centres (float32 NumPy ``cam2world``/``screen2cam``), on
-    the scene's device."""
+    the scene's device. The span ``denoise.gbuffer`` and the counter
+    ``denoise.gbuffer_traces``."""
+    count("denoise.gbuffer_traces")
     px, py = integ.pixel_coords(width, height, scene.device)
     origin, direction = integ.camera_rays(
         integ.ndc(px, 0.5, width), integ.ndc(py, 0.5, height), cam2world,
@@ -80,6 +84,7 @@ def gbuffer_pass(scene, cam2world, screen2cam, *, width: int, height: int,
                    surf["shading_normal"], surf["material_id"], surf["uv"])
 
 
+@traced("denoise.gbuffer")
 def _guides(scene, origin, direction, missed, t, shading_normal, material_id,
             uv):
     """Guide buffers from first-hit attributes. Sky lanes: the ray
@@ -198,6 +203,7 @@ def _to_srgb_u8(rgb_lin, exposure):
     return torch.stack(chans, dim=-1)
 
 
+@traced("denoise.filter")
 def denoised_display(accum, count, gb, inv_map, exposure, *, pw, ph,
                      iterations=4, sif=1, sigma_l_scale=3.0,
                      launches_per_spp=integ.PT_STEPS):
@@ -306,6 +312,7 @@ def _reproject(hist, gb_planes, prev, *, width, height, pw, ph, is_persp):
     return hist_rgb, hist_h, valid
 
 
+@traced("denoise.filter")
 def denoised_display_temporal(accum, count, gb, hist, prev, inv_map,
                               exposure, *, width, height, pw, ph, is_persp,
                               iterations=4, sif=1, sigma_l_scale=3.0,

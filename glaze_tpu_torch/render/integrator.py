@@ -76,6 +76,8 @@ from glaze_tpu_torch.ops import vec
 from glaze_tpu_torch.render import bsdf as bsdf_mod
 from glaze_tpu_torch.render import lights as lights_mod
 from glaze_tpu_torch.scene import flatten as fl
+from glaze_tpu_torch.utils import runtime
+from glaze_tpu_torch.utils.runtime import span, traced
 
 PT_STEPS = 6  # raytrace_structures.rs:87
 RUSSIAN_ROULETTE = PT_STEPS // 2  # path_trace.rgen:11
@@ -804,6 +806,7 @@ def _direct_light(scene, state_rng, wo_w, frame, hit, mat, active,
     return rng, radiance
 
 
+@traced("integrator.launch")
 def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
                 screen2cam, px, py, launch_size, *, is_persp: bool,
                 direct_only: bool = False, alpha_rounds: int = 0,
@@ -836,215 +839,237 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
     launch's traced rays and their hit attributes (``missed``, ``t``,
     ``origin``, ``direction``, ``shading_normal``, ``material_id``,
     ``uv``). After a restart every lane traces a camera ray, so ``fh`` is
-    the frame's G-buffer input without a second primary trace."""
-    dev = px.device
-    p = px.shape[0]
-    coh = resolve_coherent(coherent)
-    enabled = scene.lights_no > 0  # path_trace.rgen:137-141
-    width_f = float(launch_size[0])
-    height_f = float(launch_size[1])
+    the frame's G-buffer input without a second primary trace.
 
-    # vec3(uint seed, ...) converts to float
-    seed_f = float(np.float32(np.uint32(int(seed) & 0xFFFFFFFF)))
-    if coh == 1 and rng_py is None:
-        # frame-shared chain kept at shape (1,): draw-driven table lookups
-        # gather one row, broadcast only where per-lane data mixes in
-        one = torch.zeros((1,), dtype=torch.float32, device=dev)
-        rng = rng_mod.srand_f32x3(one + seed_f, one, one)
-    elif coh == 2 and p % (TILE_W * TILE_H) == 0:
-        # one chain per 2048-lane tile, kept at shape (n_tiles,); in-flight
-        # copies are whole tiles, each with its copy offset
-        blk = TILE_W * TILE_H
-        pxb, pyb = px[::blk], py[::blk]
-        copy_b = (torch.zeros_like(pxb) if rng_py is None
-                  else (rng_py - py)[::blk])
-        tiles_x = float(np.ceil(np.float32(width_f) / np.float32(TILE_W)))
-        chan = torch.floor(pxb / TILE_W) + torch.floor(pyb / TILE_H) * tiles_x
-        rng = rng_mod.srand_f32x3(torch.full_like(pxb, seed_f), chan, copy_b)
-    elif coh:
-        # rng_py - py is the per-copy offset of sif_lanes: copies stay
-        # decorrelated while the lanes of one copy share draws
-        copy = torch.zeros_like(px) if rng_py is None else rng_py - py
-        if coh == 2:
+    The span ``integrator.launch`` (the counter ``integrator.launches``)
+    and its stages: ``integrator.camera`` (the chains, the jitter, the
+    camera rays and the regeneration), ``.trace`` (the path rays' closest
+    hits), ``.shade`` (the sky, the hit's attributes and material),
+    ``.nee`` (direct light with its shadow rays, the contribution) and
+    ``.bsdf`` (roulette, the BSDF sample, the new state)."""
+    runtime.count("integrator.launches")
+    with span("integrator.camera"):
+        dev = px.device
+        p = px.shape[0]
+        coh = resolve_coherent(coherent)
+        enabled = scene.lights_no > 0  # path_trace.rgen:137-141
+        width_f = float(launch_size[0])
+        height_f = float(launch_size[1])
+
+        # vec3(uint seed, ...) converts to float
+        seed_f = float(np.float32(np.uint32(int(seed) & 0xFFFFFFFF)))
+        if coh == 1 and rng_py is None:
+            # frame-shared chain kept at shape (1,): draw-driven table lookups
+            # gather one row, broadcast only where per-lane data mixes in
+            one = torch.zeros((1,), dtype=torch.float32, device=dev)
+            rng = rng_mod.srand_f32x3(one + seed_f, one, one)
+        elif coh == 2 and p % (TILE_W * TILE_H) == 0:
+            # one chain per 2048-lane tile, kept at shape (n_tiles,); in-flight
+            # copies are whole tiles, each with its copy offset
+            blk = TILE_W * TILE_H
+            pxb, pyb = px[::blk], py[::blk]
+            copy_b = (torch.zeros_like(pxb) if rng_py is None
+                      else (rng_py - py)[::blk])
             tiles_x = float(np.ceil(np.float32(width_f) / np.float32(TILE_W)))
-            chan = torch.floor(px / TILE_W) + torch.floor(py / TILE_H) * tiles_x
+            chan = (torch.floor(pxb / TILE_W)
+                    + torch.floor(pyb / TILE_H) * tiles_x)
+            rng = rng_mod.srand_f32x3(torch.full_like(pxb, seed_f), chan,
+                                      copy_b)
+        elif coh:
+            # rng_py - py is the per-copy offset of sif_lanes: copies stay
+            # decorrelated while the lanes of one copy share draws
+            copy = torch.zeros_like(px) if rng_py is None else rng_py - py
+            if coh == 2:
+                tiles_x = float(np.ceil(np.float32(width_f)
+                                        / np.float32(TILE_W)))
+                chan = (torch.floor(px / TILE_W)
+                        + torch.floor(py / TILE_H) * tiles_x)
+            else:
+                chan = copy
+            rng = rng_mod.srand_f32x3(torch.full_like(px, seed_f), chan, copy)
         else:
-            chan = copy
-        rng = rng_mod.srand_f32x3(torch.full_like(px, seed_f), chan, copy)
-    else:
-        rng = rng_mod.srand_f32x3(torch.full_like(px, seed_f), px,
-                                  py if rng_py is None else rng_py)
+            rng = rng_mod.srand_f32x3(torch.full_like(px, seed_f), px,
+                                      py if rng_py is None else rng_py)
 
-    pk = None
-    if sampler == "ld":
-        # per-pixel stratified jitter: the lane's path count indexes its
-        # own Owen-Sobol stream (the WorkScheduler offset is unused)
-        pk = (px.to(torch.int64)
-              + (py if rng_py is None else rng_py).to(torch.int64) * 65536)
-        if sampler_seed is not None:
-            pk = pk ^ (int(sampler_seed) & sobol_mod.M32)
-        pk = pk & sobol_mod.M32
-        ju, jv = sobol_mod.sobol02(state.path_no, pk, 0)
-    elif isinstance(pixel_offset[0], torch.Tensor):
-        ju, jv = pixel_offset
-    else:
-        ju = float(np.float32(pixel_offset[0]))
-        jv = float(np.float32(pixel_offset[1]))
-    cam_origin, cam_dir = camera_rays(ndc(px, ju, width_f),
-                                      ndc(py, jv, height_f), cam2world,
-                                      screen2cam, is_persp)
+        pk = None
+        if sampler == "ld":
+            # per-pixel stratified jitter: the lane's path count indexes its
+            # own Owen-Sobol stream (the WorkScheduler offset is unused)
+            pk = (px.to(torch.int64)
+                  + (py if rng_py is None else rng_py).to(torch.int64) * 65536)
+            if sampler_seed is not None:
+                pk = pk ^ (int(sampler_seed) & sobol_mod.M32)
+            pk = pk & sobol_mod.M32
+            ju, jv = sobol_mod.sobol02(state.path_no, pk, 0)
+        elif isinstance(pixel_offset[0], torch.Tensor):
+            ju, jv = pixel_offset
+        else:
+            ju = float(np.float32(pixel_offset[0]))
+            jv = float(np.float32(pixel_offset[1]))
+        cam_origin, cam_dir = camera_rays(ndc(px, ju, width_f),
+                                          ndc(py, jv, height_f), cam2world,
+                                          screen2cam, is_persp)
 
-    if direct_only:
-        regen = torch.ones((p,), dtype=torch.bool, device=dev)
-    else:
-        regen = state.bounce == 0.0
-    if lane_active is not None:
-        # adaptive stop: converged tiles park at the path boundary
-        parked = regen & ~lane_active
-        regen = regen & lane_active
-    else:
-        parked = None
-    live = enabled if parked is None else enabled & ~parked
-    count = state.count + live.to(torch.float32)
-    new_path_no = (state.path_no + regen.to(torch.int64)) & sobol_mod.M32
+        if direct_only:
+            regen = torch.ones((p,), dtype=torch.bool, device=dev)
+        else:
+            regen = state.bounce == 0.0
+        if lane_active is not None:
+            # adaptive stop: converged tiles park at the path boundary
+            parked = regen & ~lane_active
+            regen = regen & lane_active
+        else:
+            parked = None
+        live = enabled if parked is None else enabled & ~parked
+        count = state.count + live.to(torch.float32)
+        new_path_no = (state.path_no + regen.to(torch.int64)) & sobol_mod.M32
 
-    # ld with coherent 0: every decision of bounce b of a pixel's path i
-    # comes from domain 1 + 9*b + slot of its stream at index i. Lanes
-    # regenerating this launch start path ``path_no``; continuing lanes
-    # extend path ``path_no - 1``
-    ld_draws = None
-    if sampler == "ld" and coh == 0:
-        samp_idx = torch.where(regen, state.path_no,
-                               (state.path_no - 1) & sobol_mod.M32)
-        b_dom = 1 + 9 * state.bounce.to(torch.int64)
-        d_pick = sobol_mod.sobol1(samp_idx, pk, b_dom)
-        d_la, d_lb = sobol_mod.sobol02(samp_idx, pk, b_dom + 1)
-        d_lc = sobol_mod.sobol1(samp_idx, pk, b_dom + 3)
-        d_bv = sobol_mod.sobol1(samp_idx, pk, b_dom + 4)
-        d_rr = sobol_mod.sobol1(samp_idx, pk, b_dom + 5)
-        d_sa, d_sb = sobol_mod.sobol02(samp_idx, pk, b_dom + 6)
-        d_sc = sobol_mod.sobol1(samp_idx, pk, b_dom + 8)
-        ld_draws = (d_pick, d_la, d_lb, d_lc, d_bv, d_rr, d_sa, d_sb, d_sc)
+        # ld with coherent 0: every decision of bounce b of a pixel's path i
+        # comes from domain 1 + 9*b + slot of its stream at index i. Lanes
+        # regenerating this launch start path ``path_no``; continuing lanes
+        # extend path ``path_no - 1``
+        ld_draws = None
+        if sampler == "ld" and coh == 0:
+            samp_idx = torch.where(regen, state.path_no,
+                                   (state.path_no - 1) & sobol_mod.M32)
+            b_dom = 1 + 9 * state.bounce.to(torch.int64)
+            d_pick = sobol_mod.sobol1(samp_idx, pk, b_dom)
+            d_la, d_lb = sobol_mod.sobol02(samp_idx, pk, b_dom + 1)
+            d_lc = sobol_mod.sobol1(samp_idx, pk, b_dom + 3)
+            d_bv = sobol_mod.sobol1(samp_idx, pk, b_dom + 4)
+            d_rr = sobol_mod.sobol1(samp_idx, pk, b_dom + 5)
+            d_sa, d_sb = sobol_mod.sobol02(samp_idx, pk, b_dom + 6)
+            d_sc = sobol_mod.sobol1(samp_idx, pk, b_dom + 8)
+            ld_draws = (d_pick, d_la, d_lb, d_lc, d_bv, d_rr, d_sa, d_sb, d_sc)
 
-    origin = vec.where(regen, cam_origin, state.origin)
-    direction = vec.where(regen, cam_dir, state.direction)
-    importance = torch.where(regen, spectra.one_t(p, dev), state.importance)
+        origin = vec.where(regen, cam_origin, state.origin)
+        direction = vec.where(regen, cam_dir, state.direction)
+        importance = torch.where(regen, spectra.one_t(p, dev),
+                                 state.importance)
 
-    if parked is None:
-        hit = trace_alpha_sorted(scene, origin, direction,
-                                 alpha_rounds=alpha_rounds)
-    else:
-        # parked lanes: cap -1 culls their walk (they sort to the tail)
-        hit = trace_alpha_sorted(
-            scene, origin, direction,
-            t_max=torch.where(parked, -1.0, float("inf")),
+    with span("integrator.trace"):
+        if parked is None:
+            hit = trace_alpha_sorted(scene, origin, direction,
+                                     alpha_rounds=alpha_rounds)
+        else:
+            # parked lanes: cap -1 culls their walk (they sort to the tail)
+            hit = trace_alpha_sorted(
+                scene, origin, direction,
+                t_max=torch.where(parked, -1.0, float("inf")),
             alpha_rounds=alpha_rounds)
-    missed = hit["tri"] < 0
+    with span("integrator.shade"):
+        missed = hit["tri"] < 0
 
-    # ---- miss: sky radiance only on camera rays / after specular bounces
-    sky_visible = (state.bounce == 0.0) | (state.last_specular == 1.0)
-    add_sky = missed & sky_visible & (scene.sky_tex > 0)
-    if parked is not None:
-        add_sky = add_sky & ~parked
-    sr, sg, sb = _sky_radiance(scene, direction)
-    sky_spec = importance * spectra.from_illuminant_color_t(sr, sg, sb)
-    mr, mg, mb = spectra.to_rgb_t(sky_spec)
-    zero = torch.zeros_like(mr)
-    miss_contrib = (torch.where(add_sky, mr, zero),
-                    torch.where(add_sky, mg, zero),
-                    torch.where(add_sky, mb, zero))
+        # ---- miss: sky radiance only on camera rays / after specular bounces
+        sky_visible = (state.bounce == 0.0) | (state.last_specular == 1.0)
+        add_sky = missed & sky_visible & (scene.sky_tex > 0)
+        if parked is not None:
+            add_sky = add_sky & ~parked
+        sr, sg, sb = _sky_radiance(scene, direction)
+        sky_spec = importance * spectra.from_illuminant_color_t(sr, sg, sb)
+        mr, mg, mb = spectra.to_rgb_t(sky_spec)
+        zero = torch.zeros_like(mr)
+        miss_contrib = (torch.where(add_sky, mr, zero),
+                        torch.where(add_sky, mg, zero),
+                        torch.where(add_sky, mb, zero))
 
-    # ---- hit shading
-    surf = _interpolate_hit(scene, hit)
-    wo_w = vec.neg(direction)
-    frame = shading.new_shading_space_v(surf["dpdu"], surf["shading_normal"])
-    mat = bsdf_mod.gather_material(scene, surf["material_id"])
-    mat_specular = mat["scalars"][fl.MS_IS_SPECULAR] > 0.5
+        # ---- hit shading
+        surf = _interpolate_hit(scene, hit)
+        wo_w = vec.neg(direction)
+        frame = shading.new_shading_space_v(surf["dpdu"],
+                                            surf["shading_normal"])
+        mat = bsdf_mod.gather_material(scene, surf["material_id"])
+        mat_specular = mat["scalars"][fl.MS_IS_SPECULAR] > 0.5
 
-    nee_active = ~missed & ~mat_specular
-    if parked is not None:
-        nee_active = nee_active & ~parked
-    ex = lambda a: _expand_block(a, p)  # noqa: E731
-    rng, nee_radiance = _direct_light(scene, rng, wo_w, frame, surf, mat,
-                                      nee_active, alpha_rounds=alpha_rounds,
-                                      expand=ex,
-                                      draws=(None if ld_draws is None
-                                             else ld_draws[:5]))
-    nee_radiance = nee_radiance * importance
-    nr, ng, nb = spectra.to_rgb_t(nee_radiance)
-    nee_contrib = (torch.where(nee_active, nr, zero),
-                   torch.where(nee_active, ng, zero),
-                   torch.where(nee_active, nb, zero))
+        nee_active = ~missed & ~mat_specular
+        if parked is not None:
+            nee_active = nee_active & ~parked
+    with span("integrator.nee"):
+        ex = lambda a: _expand_block(a, p)  # noqa: E731
+        rng, nee_radiance = _direct_light(
+            scene, rng, wo_w, frame, surf, mat, nee_active,
+            alpha_rounds=alpha_rounds, expand=ex,
+            draws=None if ld_draws is None else ld_draws[:5])
+        nee_radiance = nee_radiance * importance
+        nr, ng, nb = spectra.to_rgb_t(nee_radiance)
+        nee_contrib = (torch.where(nee_active, nr, zero),
+                       torch.where(nee_active, ng, zero),
+                       torch.where(nee_active, nb, zero))
 
-    new_specular = torch.where(missed, state.last_specular,
-                               mat_specular.to(torch.float32))
+    with span("integrator.bsdf"):
+        new_specular = torch.where(missed, state.last_specular,
+                                   mat_specular.to(torch.float32))
 
-    en = enabled.to(torch.float32)
-    accum = tuple(state.accum[i] + en * (miss_contrib[i] + nee_contrib[i])
-                  for i in range(3))
-    c_lum = en * (0.2126 * (miss_contrib[0] + nee_contrib[0])
-                  + 0.7152 * (miss_contrib[1] + nee_contrib[1])
-                  + 0.0722 * (miss_contrib[2] + nee_contrib[2]))
-    sq = state.sq + c_lum * c_lum
+        en = enabled.to(torch.float32)
+        accum = tuple(state.accum[i] + en * (miss_contrib[i] + nee_contrib[i])
+                      for i in range(3))
+        c_lum = en * (0.2126 * (miss_contrib[0] + nee_contrib[0])
+                      + 0.7152 * (miss_contrib[1] + nee_contrib[1])
+                      + 0.0722 * (miss_contrib[2] + nee_contrib[2]))
+        sq = state.sq + c_lum * c_lum
 
-    fh = None
-    if want_first_hit:
-        fh = {"missed": missed, "t": hit["t"], "origin": origin,
-              "direction": direction,
-              "shading_normal": surf["shading_normal"],
-              "material_id": surf["material_id"], "uv": surf["uv"]}
+        fh = None
+        if want_first_hit:
+            fh = {"missed": missed, "t": hit["t"], "origin": origin,
+                  "direction": direction,
+                  "shading_normal": surf["shading_normal"],
+                  "material_id": surf["material_id"], "uv": surf["uv"]}
 
-    if direct_only:
+        if direct_only:
+            st = PathState(
+                importance=state.importance,
+                origin=state.origin,
+                direction=state.direction,
+                bounce=torch.zeros_like(state.bounce),
+                last_specular=torch.where(enabled, new_specular,
+                                          state.last_specular),
+                accum=accum, count=count, path_no=new_path_no, sq=sq)
+            return (st, fh) if want_first_hit else st
+
+        # ---- Russian roulette (path_trace.rgen:196-211)
+        rng, rr_roll = rng_mod.next_f32(rng)
+        if ld_draws is not None:
+            rr_roll = ld_draws[5]
+        rr_active = state.bounce > RUSSIAN_ROULETTE
+        kill_prob = torch.clamp(1.0 - spectra.luminance_t(importance),
+                                min=0.05)
+        rr_kill = rr_active & (ex(rr_roll) < kill_prob)
+        rr_scale = torch.where(rr_active, 1.0 / (1.0 - kill_prob),
+                               torch.ones_like(kill_prob))
+        importance = importance * rr_scale
+
+        # ---- BSDF sampling (path_trace.rgen:212-228)
+        rng, sa = rng_mod.next_f32(rng)
+        rng, sb_ = rng_mod.next_f32(rng)
+        rng, sc = rng_mod.next_f32(rng)
+        if ld_draws is not None:
+            sa, sb_, sc = ld_draws[6], ld_draws[7], ld_draws[8]
+        wo = shading.to_shading_space_v(wo_w, frame)
+        wi, value, pdf = bsdf_mod.bsdf_sample(scene, mat, wo, surf["uv"],
+                                              (ex(sa), ex(sb_), ex(sc)))
+        wi_w = shading.to_world_space_v(wi, frame)
+        sample_dead = pdf <= 0.0
+        weight = (torch.abs(vec.dot(wi_w, surf["shading_normal"]))
+                  / torch.clamp(pdf, min=1e-20))
+        next_importance = importance * value * weight
+
+        path_dead = missed | rr_kill | sample_dead
+        # "if bounce < PT_STEPS inc else reset"
+        at_max = state.bounce >= PT_STEPS
+        new_bounce = torch.where(path_dead | at_max,
+                                 torch.zeros_like(state.bounce),
+                                 state.bounce + 1.0)
+
+        upd = enabled & ~path_dead
         st = PathState(
-            importance=state.importance,
-            origin=state.origin,
-            direction=state.direction,
-            bounce=torch.zeros_like(state.bounce),
+            importance=torch.where(upd, next_importance, state.importance),
+            origin=vec.where(upd, surf["point"], state.origin),
+            direction=vec.where(upd, wi_w, state.direction),
+            bounce=torch.where(enabled, new_bounce, state.bounce),
             last_specular=torch.where(enabled, new_specular,
                                       state.last_specular),
             accum=accum, count=count, path_no=new_path_no, sq=sq)
         return (st, fh) if want_first_hit else st
-
-    # ---- Russian roulette (path_trace.rgen:196-211)
-    rng, rr_roll = rng_mod.next_f32(rng)
-    if ld_draws is not None:
-        rr_roll = ld_draws[5]
-    rr_active = state.bounce > RUSSIAN_ROULETTE
-    kill_prob = torch.clamp(1.0 - spectra.luminance_t(importance), min=0.05)
-    rr_kill = rr_active & (ex(rr_roll) < kill_prob)
-    rr_scale = torch.where(rr_active, 1.0 / (1.0 - kill_prob),
-                           torch.ones_like(kill_prob))
-    importance = importance * rr_scale
-
-    # ---- BSDF sampling (path_trace.rgen:212-228)
-    rng, sa = rng_mod.next_f32(rng)
-    rng, sb_ = rng_mod.next_f32(rng)
-    rng, sc = rng_mod.next_f32(rng)
-    if ld_draws is not None:
-        sa, sb_, sc = ld_draws[6], ld_draws[7], ld_draws[8]
-    wo = shading.to_shading_space_v(wo_w, frame)
-    wi, value, pdf = bsdf_mod.bsdf_sample(scene, mat, wo, surf["uv"],
-                                          (ex(sa), ex(sb_), ex(sc)))
-    wi_w = shading.to_world_space_v(wi, frame)
-    sample_dead = pdf <= 0.0
-    weight = (torch.abs(vec.dot(wi_w, surf["shading_normal"]))
-              / torch.clamp(pdf, min=1e-20))
-    next_importance = importance * value * weight
-
-    path_dead = missed | rr_kill | sample_dead
-    at_max = state.bounce >= PT_STEPS  # "if bounce < PT_STEPS inc else reset"
-    new_bounce = torch.where(path_dead | at_max, torch.zeros_like(state.bounce),
-                             state.bounce + 1.0)
-
-    upd = enabled & ~path_dead
-    st = PathState(
-        importance=torch.where(upd, next_importance, state.importance),
-        origin=vec.where(upd, surf["point"], state.origin),
-        direction=vec.where(upd, wi_w, state.direction),
-        bounce=torch.where(enabled, new_bounce, state.bounce),
-        last_specular=torch.where(enabled, new_specular, state.last_specular),
-        accum=accum, count=count, path_no=new_path_no, sq=sq)
-    return (st, fh) if want_first_hit else st
 
 
 def render_steps(scene, state, seeds, offsets, cam2world, screen2cam, *,

@@ -38,6 +38,7 @@ from glaze_tpu_torch.core import (Camera, LightType, Texture, TextureFormat,
 from glaze_tpu_torch.render import integrator as integ
 from glaze_tpu_torch.render.preview import FlatPreviewRenderer
 from glaze_tpu_torch.render.renderer import Integrator, RayTraceRenderer
+from glaze_tpu_torch.utils.runtime import count, span, traced
 
 # launches in flight before a frame is presented (vulkan/mod.rs:38)
 FRAMES_IN_FLIGHT = 2
@@ -45,14 +46,12 @@ _TEX_SLOTS = ("diffuse", "roughness", "metalness", "opacity", "normal")
 
 
 class FrameStats:
-    """fps and draws-per-second over a window of at least one second
-    (renderer.rs:733-775)."""
+    """fps over a window of at least one second (renderer.rs:733-775)."""
 
     def __init__(self):
         self._window_start = time.perf_counter()
         self._frames = 0
         self.fps = 0.0
-        self.draw_calls_per_sec = 0.0
 
     def tick(self):
         self._frames += 1
@@ -60,7 +59,6 @@ class FrameStats:
         dt = now - self._window_start
         if dt >= 1.0:
             self.fps = self._frames / dt
-            self.draw_calls_per_sec = self.fps
             self._frames = 0
             self._window_start = now
 
@@ -284,32 +282,40 @@ class RealtimeRenderer:
         self._preview = self._new_preview()
 
     # -- the frame loop -------------------------------------------------------
+    @traced("frame")
     def draw_frame(self, pipelined: bool = False) -> np.ndarray:
         """One progressive launch and its present (renderer.rs:415-545).
 
         ``pipelined=True`` keeps FRAMES_IN_FLIGHT launches in flight and
         presents the oldest (two frames of display latency); a toggle
         between the path tracer and the preview drops the other one's
-        frames. The default presents the launch it just issued."""
+        frames. The default presents the launch it just issued.
+
+        The span ``frame`` (the counter ``frame.presented``); pipelined,
+        ``frame.copy`` (the unswizzle and the copy to the host, issued) and
+        ``frame.present_wait`` (the wait for the presented frame's copy)."""
         active = self._rt if self.use_raytracer else self._preview
         if pipelined:
             if self._inflight_src is not active:
                 self._inflight.clear()
                 self._inflight_src = active
             img = active.draw_frame(return_image=True)
-            self._inflight.append(_to_host_async(
-                _unswizzle(img, active.width, active.height).contiguous()))
+            with span("frame.copy"):
+                self._inflight.append(_to_host_async(
+                    _unswizzle(img, active.width, active.height).contiguous()))
             if len(self._inflight) > FRAMES_IN_FLIGHT:
                 host, event = self._inflight.popleft()
             else:  # warm-up: present the oldest and keep it in flight
                 host, event = self._inflight[0]
-            if event is not None:
-                event.synchronize()
+            with span("frame.present_wait"):
+                if event is not None:
+                    event.synchronize()
             frame = host.numpy()
         else:
             self._inflight.clear()
             active.draw_frame()
             frame = active.get_image()
+        count("frame.presented")
         self.stats.tick()
         if self.presenter is not None:
             self.presenter(frame)

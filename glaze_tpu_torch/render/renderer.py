@@ -84,7 +84,7 @@ from glaze_tpu_torch.device import resolve_device
 from glaze_tpu_torch.render import integrator as integ
 from glaze_tpu_torch.render.scheduler import WorkScheduler
 from glaze_tpu_torch.utils.log import get_logger
-from glaze_tpu_torch.utils.runtime import check_nans, debug_nans
+from glaze_tpu_torch.utils.runtime import check_nans, count, debug_nans, span
 
 log = get_logger("renderer")
 
@@ -365,45 +365,52 @@ class RayTraceRenderer:
         """Re-flattens the material, light and sky tables in place
         (RayTraceScene::update_materials_and_lights, scene.rs:1578-1624)
         and restarts accumulation. Needs a renderer built from a parsed
-        scene (so the host instance tables exist)."""
+        scene (so the host instance tables exist). The span ``scene.edit``
+        and the counter ``scene.edits``."""
         from glaze_tpu_torch.scene import flatten as fl
 
         if self.host is None:
             raise ValueError(
                 "update_materials_and_lights needs a renderer built from a "
                 "parsed scene; use change_scene for DeviceScene-built ones")
-        lights_r = fl.reorder_lights(lights)
-        tables = {
-            **fl.flatten_materials(materials),
-            **fl.flatten_lights(lights_r, self.host.inst_material,
-                                self.host.inst_tri_first,
-                                self.host.inst_tri_count),
-            **fl.build_sky_tables(lights_r, self.host.textures),
-        }
-        self.scene = self.scene._replace(
-            **{k: fl.array_to(v, self.device) for k, v in tables.items()})
-        self.host = self.host._replace(materials=list(materials),
-                                       lights=lights_r)
-        self._scene_edited()
+        count("scene.edits")
+        with span("scene.edit"):
+            lights_r = fl.reorder_lights(lights)
+            tables = {
+                **fl.flatten_materials(materials),
+                **fl.flatten_lights(lights_r, self.host.inst_material,
+                                    self.host.inst_tri_first,
+                                    self.host.inst_tri_count),
+                **fl.build_sky_tables(lights_r, self.host.textures),
+            }
+            self.scene = self.scene._replace(
+                **{k: fl.array_to(v, self.device)
+                   for k, v in tables.items()})
+            self.host = self.host._replace(materials=list(materials),
+                                           lights=lights_r)
+            self._scene_edited()
 
     def update_textures(self, textures):
         """Swaps the texture set: rebuilds the atlas and, as the reference
         rebuilds the sky distribution when its texture changes
         (scene.rs:1598-1616), the sky tables, and in a scene with opacity
-        maps the opaque/alpha split. Restarts accumulation."""
+        maps the opaque/alpha split. Restarts accumulation. The span
+        ``scene.edit`` and the counter ``scene.edits``."""
         from glaze_tpu_torch.ops.texture import build_atlas
         from glaze_tpu_torch.scene import flatten as fl
 
         if self.host is None:
             raise ValueError(
                 "update_textures needs a renderer built from a parsed scene")
-        textures = list(textures)
-        sky = fl.build_sky_tables(self.host.lights, textures)
-        self.scene = self.scene._replace(
-            atlas=build_atlas(textures, self.device),
-            **{k: fl.array_to(v, self.device) for k, v in sky.items()})
-        self.host = self.host._replace(textures=textures)
-        self._scene_edited(textures_changed=True)
+        count("scene.edits")
+        with span("scene.edit"):
+            textures = list(textures)
+            sky = fl.build_sky_tables(self.host.lights, textures)
+            self.scene = self.scene._replace(
+                atlas=build_atlas(textures, self.device),
+                **{k: fl.array_to(v, self.device) for k, v in sky.items()})
+            self.host = self.host._replace(textures=textures)
+            self._scene_edited(textures_changed=True)
 
     def change_scene(self, parsed, camera=None):
         """Full scene swap (raytracer.rs change_scene), on the renderer's
@@ -429,6 +436,7 @@ class RayTraceRenderer:
     # -- rendering ------------------------------------------------------------
     def _maybe_restart(self):
         if self._request_new_frame:
+            count("render.restarts")
             self._request_new_frame = False
             self._scheduler.rewind()
             self._state = self._zero_state()
@@ -453,7 +461,9 @@ class RayTraceRenderer:
         """Blocking render of ``spp`` samples/pixel; returns (H, W, 3) uint8
         (or None with ``return_image=False``). ``callback(launches_done)``
         fires after each chunk of launches. With adaptive stopping the tile
-        mask is taken once per chunk, from the whole state before it."""
+        mask is taken once per chunk, from the whole state before it. The
+        spans ``render.chunk`` (a chunk's launches) and ``render.sync``
+        (the wait for the card before the callback or the return)."""
         self._maybe_restart()
         c2w, s2c = integ.camera_matrices(self.camera, self.width, self.height)
         kw = dict(width=self.width, height=self.height,
@@ -469,30 +479,34 @@ class RayTraceRenderer:
             shards = pmesh.shard_state(self._state, self._mesh)
         done = 0
         for n in _chunk_sizes(self.launches(spp)):
-            seeds = self._rng.integers(0, 2**32, size=n, dtype=np.uint32)
-            offsets = self._take_offsets(n)
-            lane_active = self._lane_active(self._state)
-            if self._mesh is None:
-                self._state = integ.render_steps(
-                    self.scene, self._state, seeds, offsets, c2w, s2c,
-                    steps=n, sif=self.samples_in_flight,
-                    lane_active=lane_active, after_launch=self._nan_check(),
-                    **kw)
-            else:
-                shards = pmesh.render_steps_sharded(
-                    self.scene, shards, seeds, offsets, c2w, s2c, self._mesh,
-                    steps=n, lane_active=lane_active, lanes=self._lanes(),
-                    after_launch=self._nan_check(sharded=True), **kw)
-                # the whole state after every chunk, as unsharded: the
-                # adaptive mask and a Ctrl-C checkpoint read it
-                self._state = pmesh.unshard_state(shards, self.device)
+            with span("render.chunk"):
+                seeds = self._rng.integers(0, 2**32, size=n, dtype=np.uint32)
+                offsets = self._take_offsets(n)
+                lane_active = self._lane_active(self._state)
+                if self._mesh is None:
+                    self._state = integ.render_steps(
+                        self.scene, self._state, seeds, offsets, c2w, s2c,
+                        steps=n, sif=self.samples_in_flight,
+                        lane_active=lane_active,
+                        after_launch=self._nan_check(), **kw)
+                else:
+                    shards = pmesh.render_steps_sharded(
+                        self.scene, shards, seeds, offsets, c2w, s2c,
+                        self._mesh, steps=n, lane_active=lane_active,
+                        lanes=self._lanes(),
+                        after_launch=self._nan_check(sharded=True), **kw)
+                    # the whole state after every chunk, as unsharded: the
+                    # adaptive mask and a Ctrl-C checkpoint read it
+                    self._state = pmesh.unshard_state(shards, self.device)
             done += n
             self._launch_no += n
             if callback is not None:
-                self._sync()
+                with span("render.sync"):
+                    self._sync()
                 callback(done)
         if not return_image:
-            self._sync()
+            with span("render.sync"):
+                self._sync()
             return None
         return self.get_image()
 

@@ -41,6 +41,7 @@ from glaze_tpu_torch.core import LightType, Texture
 from glaze_tpu_torch.core.distribution import Distribution2D
 from glaze_tpu_torch.core.spectrum import CIE_Y, INVY_SUM, rgb_to_spectrum_np
 from glaze_tpu_torch.ops.texture import TextureAtlas, atlas_from_np, build_atlas_np
+from glaze_tpu_torch.utils.runtime import span, traced
 
 # Columns of the fused per-triangle attribute table ``tri_attr`` (N, 34)
 ATTR_V0 = 0  # 3: hit-point base
@@ -662,6 +663,7 @@ def _alpha_boxes(tri_pos, sel_a):
         for g in groups if g.size], np.float32)
 
 
+@traced("setup.alpha_split")
 def build_alpha_split(tri_pos, tri_mat, mat_tex, full_order, sentinel_rows,
                       tri_uv, textures, atlas):
     """Opaque/alpha tree split (acceleration.rs:137-141 OPAQUE-flag
@@ -786,32 +788,36 @@ def build_alpha_split(tri_pos, tri_mat, mat_tex, full_order, sentinel_rows,
             "alpha_attr_full": attr_full, "_full_payload": full_payload}
 
 
+@traced("setup.flatten")
 def flatten_scene_np(parsed):
     """Host half of the upload: ParsedScene -> (fields, camera, host).
 
     ``fields`` maps every DeviceScene field name to NumPy (the BVH as
     ``bvh.nodes`` ... ``bvh.n_tris``, the atlas as ``atlas.texels`` ...),
-    the layout :func:`device_scene_from_numpy` reads."""
-    materials = parsed.materials()
-    vertices_np = getattr(parsed, "vertices_np", None)
-    meshes = parsed.meshes()
-    transforms = parsed.transforms()
-    instances = parsed.instances()
-    cameras = parsed.cameras()
-    textures = parsed.textures()
-    lights = reorder_lights(parsed.lights())
-    meta = parsed.meta()
+    the layout :func:`device_scene_from_numpy` reads. The span
+    ``setup.flatten`` times it, and ``setup.parse`` its reads of the
+    parsed scene's chunks."""
+    with span("setup.parse"):
+        materials = parsed.materials()
+        vertices_np = getattr(parsed, "vertices_np", None)
+        meshes = parsed.meshes()
+        transforms = parsed.transforms()
+        instances = parsed.instances()
+        cameras = parsed.cameras()
+        textures = parsed.textures()
+        lights = reorder_lights(parsed.lights())
+        meta = parsed.meta()
 
-    if vertices_np is not None:
-        vpos, vnorm, vuv = vertices_np()
-    else:
-        vertices = parsed.vertices()
-        vpos = (np.stack([v.vv for v in vertices]) if vertices
-                else np.zeros((0, 3), np.float32))
-        vnorm = (np.stack([v.vn for v in vertices]) if vertices
-                 else np.zeros((0, 3), np.float32))
-        vuv = (np.stack([v.vt for v in vertices]) if vertices
-               else np.zeros((0, 2), np.float32))
+        if vertices_np is not None:
+            vpos, vnorm, vuv = vertices_np()
+        else:
+            vertices = parsed.vertices()
+            vpos = (np.stack([v.vv for v in vertices]) if vertices
+                    else np.zeros((0, 3), np.float32))
+            vnorm = (np.stack([v.vn for v in vertices]) if vertices
+                     else np.zeros((0, 3), np.float32))
+            vuv = (np.stack([v.vt for v in vertices]) if vertices
+                   else np.zeros((0, 2), np.float32))
 
     mesh_by_id = {m.id: m for m in meshes}
     tri_pos, tri_nrm, tri_uv, tri_mat = [], [], [], []
@@ -952,6 +958,7 @@ def array_to(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+@traced("setup.upload")
 def device_scene_from_numpy(fields: dict, device) -> DeviceScene:
     """Builds the port's :class:`DeviceScene` from NumPy arrays, one field
     at a time: either :func:`flatten_scene_np`'s output or the JAX
@@ -1009,6 +1016,7 @@ def device_scene_to_numpy(scene: DeviceScene) -> dict:
     return out
 
 
+@traced("setup.alpha_split")
 def rebuild_alpha_split(scene: DeviceScene, host: HostSceneData) -> dict:
     """The opaque/alpha split of ``scene`` rebuilt from ``host``'s current
     materials and textures (the JAX package's
