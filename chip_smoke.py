@@ -18,11 +18,16 @@ the closest-hit and any-hit walks (K1, K3) on the Sponza-class scene
 (262k triangles) with its curtain's opacity map removed, the masked
 walks (K2 on the full tree and on the alpha subset tree, K4) on the whole
 scene, lace curtains included, and the fat-leaf walks (K7c, K7a) on the
-opaque scene uploaded with GLAZE_TREE=fat. It renders the scenes through
-the port's CLI at 1920x1080, 2 spp (full and opaque on the classic tree,
-then opaque with GLAZE_TREE=fat and =hybrid, and full with
-GLAZE_TREE=fat), checks that exactly the expected kernels served each
-render, and renders the golden scene against the stored golden. It
+opaque scene uploaded with GLAZE_TREE=fat, and the NEE kernel
+(csrc/shade.cu) against its plain version on the inputs of the full
+scene's first two 1080p launches, with its time and bound ([nee]). Every
+render below must launch the NEE kernel once a launch, beside the walks
+it expects. It renders
+the scenes through the port's CLI at 1920x1080, 2 spp (full and opaque
+on the classic tree, then opaque with GLAZE_TREE=fat and =hybrid, and
+full with GLAZE_TREE=fat), checks that exactly the expected kernels
+served each render, and renders the golden scene against the stored
+golden. It
 renders the full scene with two samples in flight, the ld sampler,
 coherent off and adaptive stopping, holds K2 and K4 against their plain
 walkers on that render's own rays (parked lanes included) and the golden
@@ -140,21 +145,26 @@ BYTES_PER_COEF_ROW = 76
 # on the opaque tree and K2 twice on the alpha tree (_alpha_walk_refined),
 # and the occlusion (_occlusion_sorted's candidate path) K3 on the opaque
 # tree and K2 twice on the alpha tree.
+# Every path launches the NEE kernel (render/nee_cuda.py) once a launch.
 LAUNCHES = SPP * 6
 KERNELS = ("closest_hit", "any_hit", "closest_hit_masked", "any_hit_masked",
-           "closest_hit_fat", "any_hit_fat")
+           "closest_hit_fat", "any_hit_fat", "nee")
 
 
-def _expected(**counts):
-    return {k: counts.get(k, 0) for k in KERNELS}
+def _expected(nee, **walks):
+    """Launch counts by KERNELS name: ``nee`` NEE kernel launches (one a
+    launch) and the walks named in ``walks``, the others 0."""
+    return {k: nee if k == "nee" else walks.get(k, 0) for k in KERNELS}
 
 
-EXPECTED_OPAQUE = _expected(closest_hit=LAUNCHES, any_hit=LAUNCHES)
-EXPECTED_FULL = _expected(closest_hit_masked=4 * LAUNCHES,
+EXPECTED_OPAQUE = _expected(LAUNCHES, closest_hit=LAUNCHES, any_hit=LAUNCHES)
+EXPECTED_FULL = _expected(LAUNCHES, closest_hit_masked=4 * LAUNCHES,
                           any_hit_masked=LAUNCHES)
-EXPECTED_FAT = _expected(closest_hit_fat=LAUNCHES, any_hit_fat=LAUNCHES)
-EXPECTED_HYBRID = _expected(closest_hit_fat=LAUNCHES, any_hit=LAUNCHES)
-EXPECTED_FAT_FULL = _expected(closest_hit=LAUNCHES, any_hit=LAUNCHES,
+EXPECTED_FAT = _expected(LAUNCHES, closest_hit_fat=LAUNCHES,
+                         any_hit_fat=LAUNCHES)
+EXPECTED_HYBRID = _expected(LAUNCHES, closest_hit_fat=LAUNCHES,
+                            any_hit=LAUNCHES)
+EXPECTED_FAT_FULL = _expected(LAUNCHES, closest_hit=LAUNCHES, any_hit=LAUNCHES,
                               closest_hit_masked=4 * LAUNCHES)
 
 # The probe kernels' bounds: the dense tensor rates of TF32 and bf16 (NVIDIA
@@ -261,21 +271,25 @@ def phase_build():
 
     from glaze_tpu_torch import native
     from glaze_tpu_torch.accel import traverse_cuda as tc
+    from glaze_tpu_torch.render import nee_cuda as nc
     from glaze_tpu_torch.tools import probes_cuda as pc
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        jobs = [pool.submit(f) for f in (tc.build, pc.build, native.get_lib,
+    with ThreadPoolExecutor(5) as pool:
+        jobs = [pool.submit(f) for f in (tc.build, pc.build, nc.build,
+                                         native.get_lib,
                                          _script("issue_rates").build)]
         for job in jobs:
             job.result()
-    log(f"[build] traverse.cu + probes.cu + issue_rates.cu + native host "
-        f"library in {time.perf_counter() - t0:.2f} s")
-    for lib, text in (("traverse", tc.build_log), ("probes", pc.build_log)):
+    log(f"[build] traverse.cu + probes.cu + shade.cu + issue_rates.cu + "
+        f"native host library in {time.perf_counter() - t0:.2f} s")
+    for lib, text in (("traverse", tc.build_log), ("probes", pc.build_log),
+                      ("shade", nc.build_log)):
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"[build] {lib} ptxas: {line.strip()}")
     attrs = tc.kernel_attrs()
+    attrs["nee"] = nc.kernel_attrs()
     at = {"drain": ", at T = 128", "chain": ", at W = 512"}
     for name, a in (*attrs.items(), *pc.kernel_attrs().items()):
         where = (", at W = 2048" if name.endswith("w2048")
@@ -1138,24 +1152,244 @@ def phase_fat_kernels(path):
     return {"closest_hit_fat": k7c, "any_hit_fat": k7a}
 
 
+# The NEE kernel's least instructions (csrc/shade_lane.cuh nee_lane), by
+# part and class, as a floor: the float arithmetic as written, an IEEE
+# division and square root at their fast paths (MUFU.RCP or MUFU.RSQ and
+# the Newton steps), sinf/cosf at the least of their sequence; integer,
+# address and load work is not charged, and an sRGB tap is charged its
+# compare and the linear branch's multiply only
+NEE_DIV = {"MUFU": 1, "FFMA": 2, "FADD": 1, "FSETP": 1}
+NEE_SQRT = {"MUFU": 1, "FMUL": 1, "FFMA": 2, "FSETP": 1}
+NEE_TRIG = {"FMUL": 3, "FFMA": 8, "FSETP": 1}
+NEE_NORMALIZE = summed({"FMUL": 6, "FADD": 2, "FMNMX": 1}, NEE_SQRT, NEE_DIV)
+NEE_SMITS = summed({"FSETP": 6}, scaled({"FMUL": 4, "FADD": 3, "FMNMX": 2},
+                                        16))
+NEE_TOWARD = summed({"FADD": 5, "FMUL": 6, "FMNMX": 2}, NEE_SQRT, NEE_DIV,
+                    NEE_DIV)
+NEE_TEX_SETUP = {"FADD": 6, "FMUL": 2, "other": 4}
+NEE_TEX = {1: summed(NEE_TEX_SETUP, {"FMUL": 10, "FADD": 3, "FSETP": 4}),
+           3: summed(NEE_TEX_SETUP, scaled({"FMUL": 10, "FADD": 3,
+                                            "FSETP": 4}, 3))}
+NEE_LAMBDA = summed({"FMUL": 7, "FADD": 4, "FMNMX": 3, "FSETP": 1},
+                    scaled(NEE_DIV, 3), NEE_SQRT)
+NEE_GGX = summed({"FMUL": 12, "FADD": 8, "FMNMX": 1, "FSETP": 1},
+                 scaled(NEE_DIV, 10), scaled(NEE_LAMBDA, 3))  # D, G, pdf
+NEE_FRESNEL_C = summed({"FMUL": 6, "FADD": 6}, scaled(NEE_DIV, 2))
+NEE_FRESNEL_D = summed({"FMUL": 8, "FADD": 5, "FMNMX": 2, "FSETP": 1},
+                       NEE_SQRT, scaled(NEE_DIV, 3))
+NEE_OPS = {
+    "common": summed(
+        {"FMUL": 1 + 18 + 3 + 2 + 1 + 16 * 6 + 12 + 5,
+         "FADD": 12 + 2 + 16 * 3 + 6 + 1 + 6, "FSETP": 2 + 3,
+         "FMNMX": 1 + 7}, scaled(NEE_NORMALIZE, 2), scaled(NEE_DIV, 2)),
+    "omni": summed(NEE_TOWARD, {"FMUL": 16}),
+    "sun": {"FMUL": 17, "FADD": 1},
+    "area": summed({"FADD": 15, "FMUL": 22, "FMNMX": 2}, NEE_SQRT, NEE_SQRT,
+                   NEE_TOWARD, NEE_SMITS, {"FMUL": 16}, NEE_DIV),
+    "sky": summed({"FMUL": 17, "FADD": 13, "FSETP": 4, "FMNMX": 4},
+                  scaled(NEE_DIV, 7), scaled(NEE_TRIG, 4), NEE_NORMALIZE,
+                  NEE_TEX[3], NEE_SMITS),
+    "lambert": summed(NEE_SMITS, {"FMUL": 5, "FSETP": 1}),
+    "metal": summed(NEE_NORMALIZE, {"FADD": 5, "FMUL": 7}, NEE_GGX,
+                    scaled(NEE_FRESNEL_C, 16), {"FMUL": 16}),
+    "frosted": summed(NEE_NORMALIZE, {"FADD": 9, "FMUL": 12}, NEE_GGX,
+                      NEE_FRESNEL_D, scaled(NEE_DIV, 2)),
+    "uber_spec": summed(NEE_NORMALIZE, {"FADD": 9, "FMUL": 12}, NEE_GGX,
+                        NEE_FRESNEL_D, scaled(summed(NEE_FRESNEL_C, {
+                            "FADD": 2, "FMUL": 2}), 16)),
+    "uber_diffuse": summed({"FMUL": 15, "FADD": 9, "FMNMX": 1, "FSETP": 2},
+                           scaled(NEE_SQRT, 2), scaled(NEE_DIV, 7),
+                           NEE_SMITS),
+    "tex1": NEE_TEX[1], "tex3": NEE_TEX[3],
+}
+
+
+def _nee_work(scene, args):
+    """Lanes by the parts of NEE_OPS they run, from one launch's inputs
+    (lights by the picked light's type, BSDFs by the lane's family, the
+    uber lanes split by their BSDF draw, texture fetches by the slots the
+    scene textures and the texels the kernel writes)."""
+    hit, imp, draws = args["hit"], args["importance"], args["draws"]
+    p = imp.shape[1]
+    c = draws[0].shape[0]
+    ex = (lambda a: a.repeat_interleave(p // c)) if c != p else (lambda a: a)
+    n = int(scene.lights_no)
+    li = torch.clamp(torch.minimum((ex(draws[0]) * float(n)).to(torch.int32),
+                                   torch.tensor(n - 1, device=imp.device)),
+                     min=0)
+    ltype = scene.light_scalars[li.long(), 0].to(torch.int32)
+    fam = scene.mat_scalars[hit["material_id"].long(), 8].to(torch.int32)
+    spec = ex(draws[4]) < 0.5
+    lanes = {"common": p}
+    for k, name in enumerate(("omni", "sun", "area", "sky")):
+        lanes[name] = int((ltype == k).sum())
+    for k, name in ((0, "lambert"), (3, "metal"), (4, "frosted")):
+        lanes[name] = int((fam == k).sum())
+    lanes["uber_spec"] = int(((fam == 5) & spec).sum())
+    lanes["uber_diffuse"] = int(((fam == 5) & ~spec).sum())
+    slots, fams = set(scene.tex_slots), set(scene.mat_families)
+    diffuse = (0 in slots) and bool(fams & {0, 5})
+    lanes["tex3"] = p if diffuse else 0
+    lanes["tex1"] = p * (int((1 in slots) and bool(fams & {3, 4, 5}))
+                         + int((2 in slots) and 5 in fams))
+    return lanes
+
+
+def _nee_bytes(args, out):
+    """Bytes a launch must move: every lane input read once (the draws at
+    their chain width) and every output written once; the scene's rows
+    and texels, which the lanes share from L2, are not counted."""
+    hit = args["hit"]
+    ins = [*hit["point"], *args["frame"][0], *args["frame"][1],
+           *args["frame"][2], *args["wo_w"], *hit["uv"], hit["material_id"],
+           args["importance"], args["nee_active"], *args["draws"]]
+    outs = [out[k] for k in ("wiw", "cap", "active", "rgb", "key",
+                             "diffuse", "rough", "metal") if k in out]
+    return sum(t.numel() * t.element_size() for t in ins + outs)
+
+
+def phase_nee(path):
+    """The NEE kernel (render/nee_cuda.py, csrc/shade.cu) against its plain
+    version on the card, on the inputs of the first two launches of a
+    1920x1080 render of the full scene (camera hits, then bounce hits):
+    wiw, cap, the shadow rays' active lanes and sort key, and the texels
+    bit for bit; the contribution within 1e-5 of the lane's largest
+    channel (the 16-bin sums run in another order). Times the kernel
+    (CUDA events over 20 launches), the plain version and the bound."""
+    import ctypes
+
+    from glaze_tpu_torch.render import bsdf as bsdf_mod
+    from glaze_tpu_torch.render import integrator as ti
+    from glaze_tpu_torch.render import nee_cuda as nc
+
+    sets = []
+    orig = nc.nee
+
+    def capture(scene, hit, wo_w, frame, mat, importance, nee_active, draws,
+                expand):
+        if len(sets) < 2:
+            def cl(x):
+                return tuple(cl(y) for y in x) if isinstance(x, tuple) \
+                    else x.clone()
+            sets.append({"hit": {k: cl(hit[k]) for k in (
+                "point", "shading_normal", "uv", "material_id")},
+                "wo_w": cl(wo_w), "frame": cl(frame),
+                "importance": importance.clone(),
+                "nee_active": nee_active.clone(), "draws": cl(draws)})
+        return orig(scene, hit, wo_w, frame, mat, importance, nee_active,
+                    draws, expand)
+
+    nc.nee = capture
+    try:
+        r, _ = _capture_sample(path)
+    finally:
+        nc.nee = orig
+    scene = r.scene
+    p = sets[0]["importance"].shape[1]
+    entry = dict(name="nee", route="cuda", source="glaze_tpu_torch/csrc/shade.cu",
+                 replaces="none (glaze_tpu/render/integrator.py direct_light, "
+                 "left to XLA's fusion)", library_ms=None, launches=0,
+                 launches_by_path={}, sets={})
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for label, a in zip(("camera_hits", "bounce_hits"), sets):
+        def plain(mat):
+            return nc.nee_plain(scene, a["hit"], a["wo_w"], a["frame"], mat,
+                                a["importance"], a["nee_active"], a["draws"],
+                                lambda x: ti._expand_block(x, p))
+
+        mat_p = bsdf_mod.gather_material(scene, a["hit"]["material_id"])
+        want = plain(mat_p)
+        mat_k = bsdf_mod.gather_material(scene, a["hit"]["material_id"])
+        got = nc.nee_kernel(scene, a["hit"], a["wo_w"], a["frame"], mat_k,
+                            a["importance"], a["nee_active"], a["draws"])
+        torch.cuda.synchronize()
+        bad = {}
+        for k in ("cap", "active", "key"):
+            w = want[k] if k != "key" else ti._trace_key(
+                scene, a["hit"]["point"], want["wiw"], want["active"])
+            bad[k] = int((got[k] != w).sum())
+        bad["wiw"] = int(sum((g != w).sum() for g, w in zip(got["wiw"],
+                                                            want["wiw"])))
+        for key, (_, val) in mat_p.get("_texmemo", {}).items():
+            mine = mat_k["_texmemo"][key][1]
+            for g, w in zip(mine if isinstance(mine, tuple) else (mine,),
+                            val if isinstance(val, tuple) else (val,)):
+                bad[f"texel_{key}"] = bad.get(f"texel_{key}", 0) + int(
+                    (g != w).sum())
+        scale = want["rgb"].abs().amax(dim=0)
+        err = ((got["rgb"] - want["rgb"]).abs()
+               / torch.clamp(scale, min=1e-30)).amax().item()
+        bad["rgb_beyond_1e-5"] = int(((got["rgb"] - want["rgb"]).abs()
+                                      > 1e-5 * scale).any(dim=0).sum())
+        log(f"[nee] {label}: {p} lanes, {int(a['nee_active'].sum())} NEE "
+            f"lanes, {int(got['active'].sum())} shadow rays; lanes apart "
+            f"from the plain version {bad}; rgb off by {err:.2e} of the "
+            "lane's scale at most")
+        if any(bad.values()):
+            raise RuntimeError(f"[nee] {label}: the kernel disagrees with "
+                               f"its plain version: {bad}")
+        args, out = nc.prepare(scene, a["hit"], a["wo_w"], a["frame"],
+                               a["importance"], a["nee_active"], a["draws"])
+        lib = nc._load()
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(3):
+            lib.glaze_nee_launch(ctypes.byref(args), stream)
+        ev[0].record()
+        for _ in range(20):
+            lib.glaze_nee_launch(ctypes.byref(args), stream)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1]) / 20
+        plain(bsdf_mod.gather_material(scene, a["hit"]["material_id"]))
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(3):
+            plain(bsdf_mod.gather_material(scene, a["hit"]["material_id"]))
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain_ms = ev[0].elapsed_time(ev[1]) / 3
+        lanes = _nee_work(scene, a)
+        ops = summed(*(scaled(NEE_OPS[k], n) for k, n in lanes.items()))
+        t_ops, term = ops_ms(ops, blocks=SMS)
+        nbytes = _nee_bytes(a, out)
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        entry["sets"][label] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes" if t_bytes >= t_ops else f"operations, {term}",
+            bytes_ms=t_bytes, ops_ms=t_ops, bytes=nbytes, lanes=lanes,
+            max_abs_err=err, mismatches=bad, warp={})
+        log(f"[nee] {label}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+            f"bound {bound:.4f} ms (bytes {nbytes / 1e9:.3f} GB = "
+            f"{t_bytes:.4f} ms; operations {t_ops:.4f} ms, {term}); lanes "
+            f"by part {lanes}")
+    _summarize(entry, ("camera_hits", "bounce_hits"))
+    del r, sets
+    torch.cuda.empty_cache()
+    return {"nee": entry}
+
+
 def _launch_counts():
-    """Every traversal kernel's launch count, by KERNELS name, and every
-    probe kernel's."""
+    """Every traversal kernel's and the NEE kernel's launch count, by
+    KERNELS name, and every probe kernel's."""
     from glaze_tpu_torch.accel import traverse_cuda as tc
+    from glaze_tpu_torch.render import nee_cuda as nc
     from glaze_tpu_torch.tools import probes_cuda as pc
 
     wrappers = (tc.closest_hit_soa, tc.any_hit_soa, tc.closest_hit_soa_masked,
                 tc.any_hit_soa_masked, tc.closest_hit_fat_soa,
-                tc.any_hit_fat_soa)
+                tc.any_hit_fat_soa, nc.nee_kernel)
     return ({name: fn.launches for name, fn in zip(KERNELS, wrappers)},
             {fn.__name__: fn.launches for fn in pc.KERNEL_WRAPPERS})
 
 
 def _reset_counts():
     from glaze_tpu_torch.accel import traverse_cuda as tc
+    from glaze_tpu_torch.render import nee_cuda as nc
     from glaze_tpu_torch.tools import probes_cuda as pc
 
     tc.reset_launch_counts()
+    nc.reset_launch_counts()
     pc.reset_launch_counts()
 
 
@@ -1275,6 +1509,11 @@ def profile_sample(renderer, label):
         f"traversal kernels {trav:.2f} ms ({100 * trav / busy_ms:.1f}% of busy), "
         f"{sum(v[1] for v in kernels.values())} kernel launches")
     per_launch = {name: ms / n for name, (ms, n) in walks.items()}
+    nee = [v for k, v in kernels.items() if "nee_kernel" in k]
+    if nee:
+        per_launch["nee"] = sum(v[0] for v in nee) / sum(v[1] for v in nee)
+        log(f"[profile:{label}]   NEE kernel: {sum(v[1] for v in nee)} "
+            f"launches, {per_launch['nee']:.3f} ms per launch in the render")
     for name, (ms, n) in sorted(walks.items()):
         log(f"[profile:{label}]   traversal {name}: {n} launches, {ms:.2f} ms, "
             f"{ms / n:.3f} ms per launch in the render")
@@ -1385,11 +1624,12 @@ SAMPLING_ENV = {"GLAZE_ADAPTIVE_MIN": "6", "GLAZE_ADAPTIVE_TAU": "0.5"}
 SAMPLING_FLAGS = ["--sif", "2", "--sampler", "ld", "--coherent", "off",
                   "--adaptive", "on"]
 SAMPLING_LAUNCHES = -(-SPP * 6 // 2)
-EXPECTED_SAMPLING = _expected(closest_hit_masked=4 * SAMPLING_LAUNCHES,
+EXPECTED_SAMPLING = _expected(SAMPLING_LAUNCHES,
+                              closest_hit_masked=4 * SAMPLING_LAUNCHES,
                               any_hit_masked=SAMPLING_LAUNCHES)
 # [resume]: one sample (6 launches) of the full scene per process
-EXPECTED_RESUME = _expected(closest_hit_masked=4 * 6, any_hit_masked=6)
-EXPECTED_PROFILE = _expected(closest_hit=6, any_hit=6)
+EXPECTED_RESUME = _expected(6, closest_hit_masked=4 * 6, any_hit_masked=6)
+EXPECTED_PROFILE = _expected(6, closest_hit=6, any_hit=6)
 
 
 @contextlib.contextmanager
@@ -1591,6 +1831,7 @@ RESUME_CHILD = """
 import json, sys
 from glaze_tpu_torch import cli
 from glaze_tpu_torch.accel import traverse_cuda as tc
+from glaze_tpu_torch.render import nee_cuda as nc
 code, r, t = cli.run(sys.argv[1:])
 print(json.dumps({"code": code, "times": t, "completed_spp": r.completed_spp,
                   "launches": [tc.closest_hit_soa.launches,
@@ -1598,7 +1839,8 @@ print(json.dumps({"code": code, "times": t, "completed_spp": r.completed_spp,
                                tc.closest_hit_soa_masked.launches,
                                tc.any_hit_soa_masked.launches,
                                tc.closest_hit_fat_soa.launches,
-                               tc.any_hit_fat_soa.launches]}))
+                               tc.any_hit_fat_soa.launches,
+                               nc.nee_kernel.launches]}))
 """
 
 
@@ -1938,7 +2180,8 @@ def phase_convert(full_path, workdir, report):
                            f"MIXED; written directly {direct_tris}, "
                            f"{direct_mixed}")
     calls = {k: len(v) for k, v in cap.calls.items()}
-    derived = _expected(closest_hit_masked=calls["closest_hit_soa_masked_auto"],
+    derived = _expected(times["launches"],
+                        closest_hit_masked=calls["closest_hit_soa_masked_auto"],
                         any_hit_masked=calls["any_hit_soa_masked_auto"])
     log(f"[convert] dispatches {calls}; {times['launches']} launches")
     if calls["closest_hit_soa_auto"] or calls["any_hit_soa_auto"] or \
@@ -1986,11 +2229,12 @@ def phase_convert(full_path, workdir, report):
 # classic tree takes K2/K4 (EXPECTED_FULL) and the fat tree the
 # opaque/alpha split (EXPECTED_FAT_FULL); without it K1/K3 and K7c/K7a
 EXPECTED_EDIT = {
-    ("classic", True): _expected(closest_hit_masked=4 * 6, any_hit_masked=6),
-    ("classic", False): _expected(closest_hit=6, any_hit=6),
-    ("fat", True): _expected(closest_hit=6, any_hit=6,
+    ("classic", True): _expected(6, closest_hit_masked=4 * 6,
+                                 any_hit_masked=6),
+    ("classic", False): _expected(6, closest_hit=6, any_hit=6),
+    ("fat", True): _expected(6, closest_hit=6, any_hit=6,
                              closest_hit_masked=4 * 6),
-    ("fat", False): _expected(closest_hit_fat=6, any_hit_fat=6),
+    ("fat", False): _expected(6, closest_hit_fat=6, any_hit_fat=6),
 }
 
 
@@ -2403,7 +2647,7 @@ def phase_interactive(path, workdir, report):
                            "G-buffer passes")
     pt = sum(n for k, n in counts.items() if k != "preview")
     expected = _expected(
-        closest_hit_masked=(4 * pt + PREVIEW_K2 * counts["preview"]
+        pt, closest_hit_masked=(4 * pt + PREVIEW_K2 * counts["preview"]
                             + GBUFFER_K2 * len(gb_passes)),
         any_hit_masked=pt)
     _held_to("interactive", "interactive", launches, probes, expected,
@@ -2577,7 +2821,7 @@ def phase_viewer(path, report):
     if set(kinds) - {"raw still", "raw drag"}:
         raise RuntimeError(f"the viewer drew {kinds}")
     _held_to("viewer", "viewer", launches, probes,
-             _expected(closest_hit_masked=4 * n, any_hit_masked=n), report)
+             _expected(n, closest_hit_masked=4 * n, any_hit_masked=n), report)
     ms = statistics.median(dt for _, dt, _ in frames.frames) * 1e3
     log(f"[viewer] {w}x{h} (scale {scale}), setup {setup_s:.1f} s: {n} "
         f"frames, {ms:.1f} ms per draw_frame median (render thread; the "
@@ -2611,7 +2855,8 @@ def _expected_full(scene, launches):
     launch the closest trace runs K2 twice on the main tree, the occlusion
     K4 once on it and K2 twice on the alpha tree."""
     c, ca = _n_chunks(scene.bvh), _n_chunks(scene.bvh_alpha)
-    return _expected(closest_hit_masked=(2 * c + 2 * ca) * launches,
+    return _expected(launches,
+                     closest_hit_masked=(2 * c + 2 * ca) * launches,
                      any_hit_masked=c * launches)
 
 
@@ -2621,7 +2866,8 @@ def _expected_split(scene, launches):
     trace, K3 on the opaque tree and K2 twice on the alpha tree for the
     occlusion."""
     co, ca = _n_chunks(scene.bvh_opaque), _n_chunks(scene.bvh_alpha)
-    return _expected(closest_hit=co * launches, any_hit=co * launches,
+    return _expected(launches, closest_hit=co * launches,
+                     any_hit=co * launches,
                      closest_hit_masked=4 * ca * launches)
 
 
@@ -2938,7 +3184,7 @@ def phase_chunked(paths, workdir, report):
         elif walked == "bvh_opaque":
             expected = _expected_split(sc, 6)
         else:
-            expected = _expected(closest_hit_fat=6, any_hit=n * 6)
+            expected = _expected(6, closest_hit_fat=6, any_hit=n * 6)
         _held_to(f"chunked:{label}", f"chunked_{label}", launches, probes,
                  expected, report)
         rp, _, _, setup_p = _render_small(paths[scene], tree, None)
@@ -3152,13 +3398,16 @@ import json, os, sys
 sys.path.insert(0, os.getcwd())
 import torch
 from glaze_tpu_torch.accel import traverse_cuda as tc
+from glaze_tpu_torch.render import nee_cuda as nc
 from glaze_tpu_torch.tools import pod_launch
 tc.reset_launch_counts()
+nc.reset_launch_counts()
 code = pod_launch.main(sys.argv[2:])
 torch.cuda.synchronize()
 launches = [tc.closest_hit_soa.launches, tc.any_hit_soa.launches,
             tc.closest_hit_soa_masked.launches, tc.any_hit_soa_masked.launches,
-            tc.closest_hit_fat_soa.launches, tc.any_hit_fat_soa.launches]
+            tc.closest_hit_fat_soa.launches, tc.any_hit_fat_soa.launches,
+            nc.nee_kernel.launches]
 with open(os.path.join(sys.argv[1], "rank%s.json" % os.environ["RANK"]),
           "w") as f:
     json.dump({"code": code, "launches": launches}, f)
@@ -3252,9 +3501,10 @@ def phase_distributed(paths, workdir, report):
     log(f"[distributed] torchrun, 2 ranks on cuda:0 over gloo: straight "
         f"{walls['straight']:.1f} s, interrupted {walls['interrupted']:.1f} "
         f"s, resumed {walls['resumed']:.1f} s")
-    # 6 launches a sample and rank, each K2 four times and K4 once
+    # 6 launches a sample and rank, each K2 four times, K4 and the NEE
+    # kernel once
     _held_to("distributed", "distributed", launches, {},
-             _expected(closest_hit_masked=4 * 6 * 2 * 2,
+             _expected(6 * 2 * 2, closest_hit_masked=4 * 6 * 2 * 2,
                        any_hit_masked=6 * 2 * 2), report)
     for tag in ("straight", "resumed"):
         _checkpoints_equal(tag, files[f"{tag}.npz"], files["cli.npz"])
@@ -3306,6 +3556,7 @@ def main():
     report = run("kernels", phase_kernels, paths["opaque"])
     report.update(run("masked_kernels", phase_masked_kernels, paths["full"]))
     report.update(run("fat_kernels", phase_fat_kernels, paths["opaque"]))
+    report.update(run("nee", phase_nee, paths["full"]))
     main_numbers = {}
     for label, scene, expected, tree in (
             ("full", "full", EXPECTED_FULL, None),

@@ -1,0 +1,700 @@
+// The NEE stage of one lane before its shadow ray: the light sample, the
+// BSDF value, the weight and the unshadowed RGB contribution, as
+// glaze_tpu_torch.render.nee_cuda.nee_plain computes them with
+// render/lights.py (sample_light) and render/bsdf.py (bsdf_value).
+//
+// Host-and-device code: csrc/shade.cu runs nee_lane once per thread, and a
+// host compiler can build the same function for a loop over lanes
+// (tests/test_torch_nee.py holds that loop against the plain version on
+// the CPU). Every operation is the plain version's, in its order, one
+// rounding each (nvcc --fmad=false, no fast math): a torch elementwise op
+// on (R,) or (16, R) tensors is one scalar operation of a lane here, a
+// torch.where of two branches is a branch that computes only the taken
+// one, and a family or light type absent from the lane is not evaluated.
+// Conventions that follow PyTorch's CUDA kernels, so that the kernel
+// agrees bit for bit with the plain version run on the card:
+//   * ``1.0 / t`` is Tensor.__rtruediv__, a reciprocal times 1.0: an IEEE
+//     division 1.0f / x;
+//   * ``t / <Python float>`` multiplies by the divisor's reciprocal,
+//     taken in double and rounded to float (PyTorch's CUDA divide takes
+//     that path for a CPU scalar); a division by a tensor, 0-d ones
+//     included, divides;
+//   * clamp and clamp_min pass a NaN through, else fmaxf / fminf;
+//     torch.sign is (0 < x) - (x < 0), so 0 for NaN and for -0;
+//   * Python float constants convert to float32 as torch converts a
+//     wrapped double (F32 below);
+//   * int remainder takes the divisor's sign (torch.remainder).
+// Only the 16-bin sums of the XYZ integral run in another order than the
+// plain version's torch.sum (bins ascending here).
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define GLAZE_HD __host__ __device__ __forceinline__
+#else
+#define GLAZE_HD inline
+#endif
+
+#define F32(x) static_cast<float>(x)
+
+namespace glaze_nee {
+
+constexpr int kBins = 16;
+// the constants table (render/nee_cuda.py _consts): Smits bases (white,
+// cyan, magenta, yellow, red, green, blue rows of 16), surface then
+// illuminant; CIE x, y, z; the XYZ -> linear sRGB matrix by rows; the two
+// basis scales and 1 / (sum of CIE y)
+constexpr int kSurf = 0;
+constexpr int kIllum = 7 * kBins;
+constexpr int kCieX = 14 * kBins;
+constexpr int kCieY = 15 * kBins;
+constexpr int kCieZ = 16 * kBins;
+constexpr int kXyzToRgb = 17 * kBins;
+constexpr int kSurfScale = kXyzToRgb + 9;
+constexpr int kIllumScale = kSurfScale + 1;
+constexpr int kInvYSum = kSurfScale + 2;
+constexpr int kConsts = kSurfScale + 3;
+
+// lights.py and bsdf.py constants (float(np.float32(...)))
+constexpr float kPi = F32(3.1415926);
+constexpr float kTwoPi = F32(6.2831853);
+constexpr float kInvPi = F32(0.3183099);
+constexpr float kDefaultIor = F32(1.000293);
+constexpr float kInv255 = F32(1.0 / 255.0);
+constexpr float kTiny = F32(1e-20);
+
+// light types (lights.py TYPE_*) and BSDF families (bsdf.py FAMILY_*)
+enum { kOmni = 0, kSun = 1, kArea = 2, kSky = 3 };
+enum { kLambert = 0, kMirror = 1, kGlass = 2, kMetal = 3, kFrosted = 4,
+       kUber = 5 };
+// tex_flags bits: the slot is textured somewhere in the scene
+// (scene.tex_slots holds MT_DIFFUSE, MT_ROUGHNESS, MT_METALNESS)
+enum { kTexDiffuse = 1, kTexRoughness = 2, kTexMetalness = 4 };
+
+struct NeeArgs {
+  // lanes: hit point, shading frame (s, t, n = the shading normal), wo in
+  // world space, uv, material row, importance (16, P), nee_active
+  const float* px; const float* py; const float* pz;
+  const float* sx; const float* sy; const float* sz;
+  const float* tx; const float* ty; const float* tz;
+  const float* nx; const float* ny; const float* nz;
+  const float* wox; const float* woy; const float* woz;
+  const float* u; const float* v;
+  const int32_t* mat_id;
+  const float* importance;
+  const uint8_t* nee_active;
+  // chains (width C; lane i reads entry i / lanes_per_chain): the light
+  // pick, the three light draws, the BSDF draw
+  const float* r_pick; const float* r_a; const float* r_b; const float* r_c;
+  const float* r_bsdf;
+  // tables, read in place
+  const float* light_scalars;   // (L, 8)
+  const float* light_pos;       // (L, 3)
+  const float* light_dir;       // (L, 3)
+  const float* light_color;     // (L, 16)
+  const int32_t* lights_no;     // ()
+  const float* tri_pos;         // (N0, 9)
+  const float* mat_scalars;     // (M, 10)
+  const int32_t* mat_tex;       // (M, 5)
+  const float* metal_ior;       // (M, 16)
+  const float* metal_fresnel;   // (M, 16)
+  const int32_t* texels;        // (T, 4)
+  const int32_t* tex_offset; const int32_t* tex_width;
+  const int32_t* tex_height; const float* tex_srgb;
+  const float* sky_marg_rows;   // (H, 4)
+  const float* sky_cond_rows;   // (H * W, 4)
+  const int32_t* sky_cond_n;    // ()
+  const float* sky_marginal_integral;  // ()
+  const float* sky_obj2world;   // (3, 3)
+  const int32_t* sky_tex;       // ()
+  const float* sky_intensity;   // ()
+  const float* scene_radius;    // ()
+  const float* scene_centre;    // (3,)
+  const float* consts;          // kConsts
+  // outputs, (P,) each; the texel outputs may be null (not wanted)
+  float* wix; float* wiy; float* wiz;
+  float* cap;
+  uint8_t* shadow_active;
+  float* rgb_r; float* rgb_g; float* rgb_b;
+  int32_t* key;
+  float* diffuse_r; float* diffuse_g; float* diffuse_b;
+  float* roughness; float* metalness;
+  // sizes
+  int n_lanes;
+  int lanes_per_chain;
+  int n_tris;
+  int sky_rows;
+  int tex_flags;
+};
+
+struct V3 {
+  float x, y, z;
+};
+
+GLAZE_HD V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+GLAZE_HD V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+GLAZE_HD V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+GLAZE_HD float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+GLAZE_HD V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+          a.x * b.y - a.y * b.x};
+}
+GLAZE_HD float clamp_min(float x, float lo) {
+  return x != x ? x : fmaxf(x, lo);
+}
+GLAZE_HD float clamp2(float x, float lo, float hi) {
+  return x != x ? x : fminf(fmaxf(x, lo), hi);
+}
+GLAZE_HD float nan0(float x) { return x != x ? 0.0f : x; }
+GLAZE_HD bool is_inf(float x) { return fabsf(x) > 3.40282347e38f; }
+GLAZE_HD float sign(float x) { return F32((0.0f < x) - (x < 0.0f)); }
+GLAZE_HD float step(bool b) { return b ? 1.0f : 0.0f; }
+GLAZE_HD int imin(int a, int b) { return a < b ? a : b; }
+GLAZE_HD int imax(int a, int b) { return a > b ? a : b; }
+GLAZE_HD int int_remainder(int a, int b) {
+  int r = a % b;
+  if (r != 0 && ((r < 0) != (b < 0))) r += b;
+  return r;
+}
+GLAZE_HD float length(V3 a) { return sqrtf(dot(a, a)); }
+GLAZE_HD V3 normalize(V3 a) {
+  const float inv = 1.0f / clamp_min(length(a), kTiny);
+  return scale(a, inv);
+}
+// world -> shading space (ops/shading.py to_shading_space_v)
+GLAZE_HD V3 to_shading(V3 w, V3 s, V3 t, V3 n) {
+  return normalize({dot(w, s), dot(w, t), dot(w, n)});
+}
+
+// ---- spectra (ops/spectra.py) ----------------------------------------------
+
+// from_rgb_t: Smits RGB -> spectrum, clamped to [0, 1]
+GLAZE_HD void from_rgb(const float* K, float r, float g, float b, bool light,
+                       float* out) {
+  const float* B = K + (light ? kIllum : kSurf);
+  const float scale_ = K[light ? kIllumScale : kSurfScale];
+  const bool m1 = (r <= g) && (r <= b), m1a = g <= b;
+  const bool m2 = (g <= r) && (g <= b), m2a = r <= b;
+  const bool m3a = r <= g;
+#pragma unroll
+  for (int k = 0; k < kBins; ++k) {
+    const float white = B[k], cyan = B[kBins + k], magenta = B[2 * kBins + k],
+                yellow = B[3 * kBins + k], red = B[4 * kBins + k],
+                green = B[5 * kBins + k], blue = B[6 * kBins + k];
+    float res;
+    if (m1)
+      res = r * white + (m1a ? (g - r) * cyan + (b - g) * blue
+                             : (b - r) * cyan + (g - b) * green);
+    else if (m2)
+      res = g * white + (m2a ? (r - g) * magenta + (b - r) * blue
+                             : (b - g) * magenta + (r - b) * red);
+    else
+      res = b * white + (m3a ? (r - b) * yellow + (g - r) * green
+                             : (g - b) * yellow + (r - g) * red);
+    out[k] = clamp2(res * scale_, 0.0f, 1.0f);
+  }
+}
+
+// ---- texture atlas (ops/texture.py) ----------------------------------------
+
+GLAZE_HD float srgb_to_linear(float c) {
+  return c <= F32(0.04045)
+             ? c * F32(1.0 / 12.92)
+             : powf((c + F32(0.055)) * F32(1.0 / 1.055), F32(2.4));
+}
+
+// bilinear fetch at mip 0, REPEAT wrap, of the first ``channels`` channels
+GLAZE_HD void sample_tex(const NeeArgs& a, int tex, float u, float v,
+                         int channels, float* out) {
+  const int off = a.tex_offset[tex], w = a.tex_width[tex],
+            h = a.tex_height[tex];
+  const bool srgb = a.tex_srgb[tex] > 0.5f;
+  u = u - floorf(u);
+  v = v - floorf(v);
+  const float x = u * F32(w) - 0.5f, y = v * F32(h) - 0.5f;
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float fx = x - x0, fy = y - y0;
+  const int x0i = int_remainder(static_cast<int>(x0), w);
+  const int y0i = int_remainder(static_cast<int>(y0), h);
+  const int32_t* quad =
+      a.texels + 4 * static_cast<int64_t>(off + y0i * w + x0i);
+  int32_t q[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) q[k] = quad[k];
+  const float ofx = 1.0f - fx, ofy = 1.0f - fy;
+#pragma unroll
+  for (int c = 0; c < channels; ++c) {
+    float tap[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float x_ = F32((q[k] >> (8 * c)) & 0xFF) * kInv255;
+      tap[k] = (c < 3 && srgb) ? srgb_to_linear(x_) : x_;
+    }
+    const float top = tap[0] * ofx + tap[1] * fx;
+    const float bot = tap[2] * ofx + tap[3] * fx;
+    out[c] = top * ofy + bot * fy;
+  }
+}
+
+// ---- Fresnel and GGX (ops/fresnel.py, ops/microfacet.py) -------------------
+
+GLAZE_HD float fresnel_conductor(float cosin, float ior, float ior2abs2) {
+  const float cosin2 = cosin * cosin;
+  const float etacosin2 = ior * (cosin * 2.0f);
+  const float etacosin2plus = etacosin2 + cosin2;
+  const float etacosin2plusplus = etacosin2 + 1.0f;
+  const float rperpsq =
+      (ior2abs2 - etacosin2plus) / (ior2abs2 + etacosin2plus);
+  const float tmp = ior2abs2 * cosin2;
+  const float rparsq =
+      (tmp - etacosin2plusplus) / (tmp + etacosin2plusplus);
+  return (rperpsq + rparsq) * 0.5f;
+}
+
+GLAZE_HD float fresnel_dielectric(float costi, float etai, float etat) {
+  const float sin2ti = clamp_min(1.0f - costi * costi, 0.0f);
+  const float sin2tt = (etai * etai) / (etat * etat) * sin2ti;
+  const float costt = sqrtf(clamp_min(1.0f - sin2tt, 0.0f));
+  const float etatcostt = etat * costt, etatcosti = etat * costi;
+  const float etaicosti = etai * costi, etaicostt = etai * costt;
+  const float rparl = (etatcosti - etaicostt) / (etatcosti + etaicostt);
+  const float rperp = (etaicosti - etatcostt) / (etaicosti + etatcostt);
+  const float f = (rparl * rparl + rperp * rperp) * 0.5f;
+  return sin2tt >= 1.0f ? 1.0f : f;
+}
+
+GLAZE_HD float ggx_d(V3 wh, float ax, float ay) {
+  const float cost = wh.z;
+  const float cos2t = cost * cost;
+  const float cos4t = cos2t * cos2t;
+  const float sin2t = clamp_min(1.0f - cos2t, 0.0f);
+  const float tan2t = sin2t / cos2t;
+  const float cos2p = wh.x * wh.x / sin2t;
+  const float sin2p = wh.y * wh.y / sin2t;
+  const float eplus1 = 1.0f + (cos2p / (ax * ax) + sin2p / (ay * ay)) * tan2t;
+  const float d = 1.0f / (kPi * ax * ay * cos4t * eplus1 * eplus1);
+  return is_inf(tan2t) ? 0.0f : d;
+}
+
+GLAZE_HD float ggx_lambda(V3 v, float ax, float ay) {
+  const float cost = v.z;
+  const float cos2t = cost * cost;
+  const float sin2t = clamp_min(1.0f - cos2t, 0.0f);
+  const float tan2t = sin2t / cos2t;
+  const float cos2p = clamp_min(v.x * v.x / sin2t, 0.0f);
+  const float sin2p = clamp_min(v.y * v.y / sin2t, 0.0f);
+  const float alpha2 = cos2p * ax * ax + sin2p * ay * ay;
+  const float lam = (sqrtf(1.0f + tan2t * alpha2) + -1.0f) * 0.5f;
+  return is_inf(tan2t) ? 0.0f : lam;
+}
+
+GLAZE_HD float ggx_g(V3 wo, V3 wi, float ax, float ay) {
+  return 1.0f / (1.0f + ggx_lambda(wo, ax, ay) + ggx_lambda(wi, ax, ay));
+}
+
+GLAZE_HD float ggx_pdf(float d, float ax, float ay, V3 wo, V3 wh) {
+  const float g1 = 1.0f / (1.0f + ggx_lambda(wh, ax, ay));
+  return d * g1 * fabsf(dot(wo, wh)) / fabsf(wh.z);
+}
+
+// ---- light samples (render/lights.py) --------------------------------------
+
+struct LightSample {
+  V3 wiw;
+  float dist, pdf;
+  float em[kBins];
+};
+
+// the omni and area lights' direction, distance and 1/d^2 term toward p
+GLAZE_HD float toward(V3 target, V3 p, LightSample& L) {
+  const V3 delta = sub(target, p);
+  const float d2 = dot(delta, delta);
+  L.dist = sqrtf(d2);
+  L.wiw = scale(delta, 1.0f / clamp_min(L.dist, kTiny));
+  return clamp_min(d2, kTiny);
+}
+
+GLAZE_HD void sample_omni(const NeeArgs& a, int li, V3 p, LightSample& L) {
+  const float* p3 = a.light_pos + 3 * li;
+  const float q =
+      a.light_scalars[8 * li + 1] / toward({p3[0], p3[1], p3[2]}, p, L);
+  const float* color = a.light_color + kBins * li;
+#pragma unroll
+  for (int k = 0; k < kBins; ++k) L.em[k] = color[k] * q;
+  L.pdf = 1.0f;
+}
+
+GLAZE_HD void sample_sun(const NeeArgs& a, int li, LightSample& L) {
+  const float* d3 = a.light_dir + 3 * li;
+  L.wiw = {-d3[0], -d3[1], -d3[2]};
+  L.dist = 2.0f * *a.scene_radius + 1.0f;
+  const float intensity = a.light_scalars[8 * li + 1];
+  const float* color = a.light_color + kBins * li;
+#pragma unroll
+  for (int k = 0; k < kBins; ++k) L.em[k] = color[k] * intensity;
+  L.pdf = 1.0f;
+}
+
+GLAZE_HD void sample_area(const NeeArgs& a, const float* K, int li, V3 p,
+                          float ra, float rb, float rc, LightSample& L) {
+  const float* ls = a.light_scalars + 8 * li;
+  const int first = static_cast<int>(ls[2]);
+  const int count = imax(static_cast<int>(ls[3]), 1);
+  const float intensity = ls[1];
+  const int mat = static_cast<int>(ls[4]);
+  int tri = first + imin(static_cast<int>(ra * F32(count)), count - 1);
+  tri = imin(imax(tri, 0), a.n_tris - 1);
+  const float* t9 = a.tri_pos + 9 * static_cast<int64_t>(tri);
+  const V3 v0 = {t9[0], t9[1], t9[2]}, v1 = {t9[3], t9[4], t9[5]},
+           v2 = {t9[6], t9[7], t9[8]};
+  const float area = 0.5f * length(cross(sub(v1, v0), sub(v2, v0)));
+  const float sqr_u = sqrtf(rb);
+  const float bu = 1.0f - sqr_u;
+  const float bv = rc * sqr_u;
+  const float bw = 1.0f - bu - bv;
+  const V3 point = add(add(scale(v0, bu), scale(v1, bv)), scale(v2, bw));
+  const float q = intensity / toward(point, p, L);
+  const float* dm = a.mat_scalars + 10 * mat;
+  from_rgb(K, dm[5], dm[6], dm[7], false, L.em);
+#pragma unroll
+  for (int k = 0; k < kBins; ++k) L.em[k] = L.em[k] * q;
+  L.pdf = 1.0f / (F32(count) * clamp_min(area, kTiny));
+}
+
+// lights.py _alias_pick_rows: (picked bin, continuous position in [0, 1))
+GLAZE_HD int alias_pick(const float* rows, float rand, int base, float n_f,
+                        float& pos_out) {
+  const float rn = rand * n_f;
+  int j = imax(static_cast<int>(rn), 0);
+  j = imin(j, static_cast<int>(n_f) - 1);
+  const float frac = rn - F32(j);
+  const float* r0 = rows + 4 * static_cast<int64_t>(base + j);
+  const float p = r0[0];
+  const bool accept = frac < p;
+  const int jf = accept ? j : static_cast<int>(r0[1]);
+  const float pos = accept ? frac / clamp_min(p, kTiny)
+                           : (frac - p) / clamp_min(1.0f - p, kTiny);
+  pos_out = (F32(jf) + clamp2(pos, 0.0f, F32(0.999999))) / n_f;
+  return jf;
+}
+
+GLAZE_HD void sample_sky(const NeeArgs& a, const float* K, float ra,
+                         float rb, LightSample& L) {
+  // marginal over rows (v), then conditional over columns (u)
+  float v, u;
+  const int row = alias_pick(a.sky_marg_rows, rb, 0, F32(a.sky_rows), v);
+  const float* rm = a.sky_marg_rows + 4 * static_cast<int64_t>(row);
+  const float v_pdf = rm[2] / *a.sky_marginal_integral;
+  const float cond_integral = rm[3];
+  const int w = *a.sky_cond_n;
+  const int base = row * w;
+  const int col = alias_pick(a.sky_cond_rows, ra, base, F32(w), u);
+  const float u_pdf =
+      a.sky_cond_rows[4 * static_cast<int64_t>(base + col) + 2] /
+      cond_integral;
+  const float theta = v * kPi;
+  const float sint = sinf(theta);
+  const float phi = u * kTwoPi;
+  const float uv_pdf = u_pdf * v_pdf;
+  L.pdf = (uv_pdf > 0.0f && sint != 0.0f)
+              ? uv_pdf / (sint * F32(2.0 * double(kPi) * double(kPi)))
+              : 0.0f;
+  const V3 wl = {sint * cosf(phi), sint * sinf(phi), cosf(theta)};
+  const float* m = a.sky_obj2world;
+  L.wiw = normalize({m[0] * wl.x + m[1] * wl.y + m[2] * wl.z,
+                     m[3] * wl.x + m[4] * wl.y + m[5] * wl.z,
+                     m[6] * wl.x + m[7] * wl.y + m[8] * wl.z});
+  L.dist = 2.0f * *a.scene_radius + 1.0f;
+  float rgb[3];
+  sample_tex(a, *a.sky_tex, u, v, 3, rgb);
+  const float s = *a.sky_intensity;
+  from_rgb(K, rgb[0] * s, rgb[1] * s, rgb[2] * s, true, L.em);
+}
+
+// ---- BSDF values (render/bsdf.py) ------------------------------------------
+
+struct Material {
+  const float* s;       // mat_scalars row: ior, roughness_mul,
+                        // metalness_mul, anisotropy, is_specular, diffuse
+                        // rgb, family, type
+  const float* ior;     // metal_ior row (16)
+  const float* fres;    // metal_fresnel row (16)
+  float diffuse[3];     // _diffuse_texel
+  float rough;          // _roughness
+  float metal;          // _metalness
+};
+
+GLAZE_HD void dielectric_etas(const Material& m, float woz, float& etai,
+                              float& etat) {
+  const bool from_outside = woz >= 0.0f;
+  etai = from_outside ? kDefaultIor : m.s[0];
+  etat = from_outside ? m.s[0] : kDefaultIor;
+}
+
+GLAZE_HD float lambert_value(const float* K, const Material& m, V3 wo, V3 wi,
+                             float* val) {
+  const float same = step(wo.z * wi.z >= 0.0f);
+  from_rgb(K, m.diffuse[0] * kInvPi, m.diffuse[1] * kInvPi,
+           m.diffuse[2] * kInvPi, false, val);
+  return same * fabsf(wi.z) * kInvPi;
+}
+
+GLAZE_HD float metal_value(const Material& m, V3 wo, V3 wi, float* val) {
+  const V3 wh = normalize(add(wo, wi));
+  const bool same = wo.z * wi.z > 0.0f;
+  const float cosin = dot(wi, wh);
+  const float ax = m.rough * (1.0f + m.s[3]), ay = m.rough * (1.0f - m.s[3]);
+  // bsdf.py _ggx_reflect_terms
+  const float dotwowh = dot(wo, wh);
+  const float d = ggx_d(wh, ax, ay);
+  const float g = ggx_g(wo, wi, ax, ay);
+  const float pdf = ggx_pdf(d, ax, ay, wo, wh) / (4.0f * dotwowh);
+  const float term = d * g / (4.0f * fabsf(wo.z) * fabsf(wi.z));
+  const float t = same ? nan0(term) : 0.0f;
+#pragma unroll
+  for (int k = 0; k < kBins; ++k)
+    val[k] = fresnel_conductor(cosin, m.ior[k], m.fres[k]) * t;
+  return same ? nan0(pdf) : 0.0f;
+}
+
+GLAZE_HD float frosted_value(const Material& m, V3 wo, V3 wi, float* val) {
+  const float ax = m.rough * (1.0f + m.s[3]), ay = m.rough * (1.0f - m.s[3]);
+  const float woz = wo.z;
+  const bool same = woz * wi.z > 0.0f;
+  float etai, etat;
+  dielectric_etas(m, woz, etai, etat);
+  const float eta = etai / etat;
+  const float costwo = fabsf(woz), costwi = fabsf(wi.z);
+  float term, pdf;
+  if (same) {
+    // reflected lobe (mat_frosted_value.rcall:36-50)
+    const V3 wh = normalize(add(wo, wi));
+    const float dotwowh = dot(wo, wh), dotwiwh = dot(wi, wh);
+    const float costi = dot(wi, scale(wh, sign(wh.z)));
+    const float f = fresnel_dielectric(costi, etai, etat);
+    const float d = step(woz >= 0.0f) * ggx_d(wh, ax, ay);
+    const float g =
+        step(dotwowh >= 0.0f) * step(dotwiwh >= 0.0f) * ggx_g(wo, wi, ax, ay);
+    pdf = nan0(ggx_pdf(d, ax, ay, wo, wh) / (4.0f * dotwowh));
+    term = d * g * f / (4.0f * costwo * costwi);
+  } else {
+    // transmitted lobe (:51-69)
+    const V3 wh = scale(normalize(add(wo, scale(wi, eta))), sign(woz));
+    const float dotwowh = dot(wo, wh), dotwiwh = dot(wi, wh);
+    const float f = fresnel_dielectric(dotwowh, etai, etat);
+    const float denom = dotwowh + eta * dotwiwh;
+    const float d = ggx_d(wh, ax, ay);
+    const float g = ggx_g(wo, wi, ax, ay);
+    pdf = nan0(ggx_pdf(d, ax, ay, wo, wh) * fabsf(eta * eta * dotwiwh) /
+               (denom * denom));
+    term = d * g * (1.0f - f) * fabsf(dotwiwh) * fabsf(dotwowh) /
+           (denom * denom * costwo * costwi);
+  }
+  const float t = nan0(term);
+#pragma unroll
+  for (int k = 0; k < kBins; ++k) val[k] = t;
+  return nan0(pdf);
+}
+
+// Oren-Nayar diffuse term (bsdf.py _oren_nayar_term)
+GLAZE_HD float oren_nayar(V3 wo, V3 wi, float roughness) {
+  const float sigma = roughness * 0.5f;
+  const float sigma2 = sigma * sigma;
+  const float a_ = 1.0f - sigma2 / (2.0f * (sigma2 + F32(0.33)));
+  const float b_ = F32(0.45) * sigma2 / (sigma2 + F32(0.09));
+  const float woz = wo.z, wiz = wi.z;
+  const float sinto = sqrtf(clamp_min(1.0f - woz * woz, 0.0f));
+  const float sinti = sqrtf(clamp_min(1.0f - wiz * wiz, 0.0f));
+  const float sinpi = wi.y / sinti, cospi = wi.x / sinti;
+  const float sinpo = wo.y / sinto, cospo = wo.x / sinto;
+  const float maxcos = nan0(clamp_min(cospi * cospo + sinpi * sinpo, 0.0f));
+  const bool wi_ge_wo = fabsf(wiz) >= fabsf(woz);
+  const float sinalpha = wi_ge_wo ? sinto : sinti;
+  const float tanbeta =
+      nan0(wi_ge_wo ? sinti / fabsf(wiz) : sinto / fabsf(woz));
+  return (a_ + b_ * maxcos * sinalpha * tanbeta) * kInvPi;
+}
+
+GLAZE_HD float uber_value(const float* K, const Material& m, V3 wo, V3 wi,
+                          float rand, float* val) {
+  const float same_hemi = step(wo.z * wi.z >= 0.0f);
+  if (rand < 0.5f) {
+    // specular half (mat_uber_value.rcall:28-54), with the reference's
+    // roughness * roughness_mul^2 quirk
+    const float r2 = m.rough * m.s[1];
+    const float ax = r2 * (1.0f + m.s[3]), ay = r2 * (1.0f - m.s[3]);
+    const V3 wh = normalize(add(wo, wi));
+    const float woz = wo.z;
+    float etai, etat;
+    dielectric_etas(m, woz, etai, etat);
+    const float dotwowh = dot(wo, wh), dotwiwh = dot(wi, wh);
+    const float costi = dot(wi, scale(wh, sign(wh.z)));
+    const float fd = fresnel_dielectric(costi, etai, etat);
+    const float d = step(woz >= 0.0f) * ggx_d(wh, ax, ay);
+    const float g =
+        step(dotwowh >= 0.0f) * step(dotwiwh >= 0.0f) * ggx_g(wo, wi, ax, ay);
+    const float pdf =
+        nan0(same_hemi * 0.5f * ggx_pdf(d, ax, ay, wo, wh) / (4.0f * dotwowh));
+    const float term = nan0(d * g / (4.0f * fabsf(woz) * fabsf(wi.z)));
+#pragma unroll
+    for (int k = 0; k < kBins; ++k) {
+      const float fc = fresnel_conductor(costi, m.ior[k], m.fres[k]);
+      val[k] = (fd + (fc - fd) * m.metal) * term;
+    }
+    return pdf;
+  }
+  // diffuse half: Oren-Nayar (:55-77)
+  const float on = oren_nayar(wo, wi, m.rough);
+  from_rgb(K, m.diffuse[0] * on, m.diffuse[1] * on, m.diffuse[2] * on, false,
+           val);
+  return nan0(same_hemi * 0.5f * fabsf(wi.z) * kInvPi);
+}
+
+// ---- the shadow rays' sort key (render/integrator.py _trace_key) -----------
+
+GLAZE_HD int spread3(int x) {
+  x = (x | (x << 8)) & 0x100F;
+  x = (x | (x << 4)) & 0x10C3;
+  x = (x | (x << 2)) & 0x1249;
+  return x;
+}
+
+GLAZE_HD int32_t trace_key(const NeeArgs& a, V3 o, V3 d, bool active) {
+  int key = static_cast<int>(d.x >= 0.0f) |
+            (static_cast<int>(d.y >= 0.0f) << 1) |
+            (static_cast<int>(d.z >= 0.0f) << 2);
+  const float radius = *a.scene_radius;
+  const float inv = 1.0f / clamp_min(2.0f * radius, kTiny) * 31.0f;
+  const float oc[3] = {o.x, o.y, o.z};
+  int m = 0;
+  for (int c = 0; c < 3; ++c) {
+    const float lo = a.scene_centre[c] - radius;
+    float q = clamp2((oc[c] - lo) * inv, 0.0f, 31.0f);
+    if (q != q) q = 0.0f;
+    m |= spread3(static_cast<int>(q)) << c;
+  }
+  key = (key << 15) | m;
+  return active ? key : key | (1 << 19);
+}
+
+// ---- one lane --------------------------------------------------------------
+
+GLAZE_HD void nee_lane(const NeeArgs& a, const float* K, int i) {
+  const int chain = i / a.lanes_per_chain;
+  const V3 p = {a.px[i], a.py[i], a.pz[i]};
+
+  // the light pick and its sample (lights.py sample_light)
+  const int lights_no = *a.lights_no;
+  const float lights_no_f = F32(lights_no);
+  const int li = imax(
+      imin(static_cast<int>(a.r_pick[chain] * lights_no_f), lights_no - 1), 0);
+  const float ra = a.r_a[chain], rb = a.r_b[chain], rc = a.r_c[chain];
+  LightSample L;
+  switch (static_cast<int>(a.light_scalars[8 * li])) {
+    case kSun: sample_sun(a, li, L); break;
+    case kArea: sample_area(a, K, li, p, ra, rb, rc, L); break;
+    case kSky: sample_sky(a, K, ra, rb, L); break;
+    default: sample_omni(a, li, p, L); break;
+  }
+
+  // the lane's material and the texels bsdf.py memoizes
+  const int mid = a.mat_id[i];
+  Material m;
+  m.s = a.mat_scalars + 10 * static_cast<int64_t>(mid);
+  m.ior = a.metal_ior + kBins * static_cast<int64_t>(mid);
+  m.fres = a.metal_fresnel + kBins * static_cast<int64_t>(mid);
+  const int32_t* mt = a.mat_tex + 5 * static_cast<int64_t>(mid);
+  const int family = static_cast<int>(m.s[8]);
+  const float u = a.u[i], v = a.v[i];
+  if (a.diffuse_r || family == kLambert || family == kUber) {
+    m.diffuse[0] = m.s[5];
+    m.diffuse[1] = m.s[6];
+    m.diffuse[2] = m.s[7];
+    if (a.tex_flags & kTexDiffuse) {
+      float rgb[3];
+      sample_tex(a, mt[0], u, v, 3, rgb);
+      m.diffuse[0] = rgb[0] * m.s[5];
+      m.diffuse[1] = rgb[1] * m.s[6];
+      m.diffuse[2] = rgb[2] * m.s[7];
+    }
+    if (a.diffuse_r) {
+      a.diffuse_r[i] = m.diffuse[0];
+      a.diffuse_g[i] = m.diffuse[1];
+      a.diffuse_b[i] = m.diffuse[2];
+    }
+  }
+  if (a.roughness || family == kMetal || family == kFrosted ||
+      family == kUber) {
+    m.rough = m.s[1];
+    if (a.tex_flags & kTexRoughness) {
+      float r;
+      sample_tex(a, mt[1], u, v, 1, &r);
+      m.rough = r * m.s[1];
+    }
+    if (a.roughness) a.roughness[i] = m.rough;
+  }
+  if (a.metalness || family == kUber) {
+    m.metal = m.s[2];
+    if (a.tex_flags & kTexMetalness) {
+      float r;
+      sample_tex(a, mt[2], u, v, 1, &r);
+      m.metal = r * m.s[2];
+    }
+    if (a.metalness) a.metalness[i] = m.metal;
+  }
+
+  // the BSDF value toward the light (bsdf.py bsdf_value; MIRROR and GLASS
+  // are delta distributions: pdf 0)
+  const V3 s = {a.sx[i], a.sy[i], a.sz[i]}, t = {a.tx[i], a.ty[i], a.tz[i]},
+           n = {a.nx[i], a.ny[i], a.nz[i]};
+  const V3 wo = to_shading({a.wox[i], a.woy[i], a.woz[i]}, s, t, n);
+  const V3 wi = to_shading(L.wiw, s, t, n);
+  float val[kBins];
+  float bsdf_pdf;
+  switch (family) {
+    case kLambert: bsdf_pdf = lambert_value(K, m, wo, wi, val); break;
+    case kMetal: bsdf_pdf = metal_value(m, wo, wi, val); break;
+    case kFrosted: bsdf_pdf = frosted_value(m, wo, wi, val); break;
+    case kUber:
+      bsdf_pdf = uber_value(K, m, wo, wi, a.r_bsdf[chain], val);
+      break;
+    default:
+      bsdf_pdf = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kBins; ++k) val[k] = 0.0f;
+  }
+
+  // the weight and the unshadowed contribution, straight to linear RGB
+  const bool usable = L.pdf > 0.0f && bsdf_pdf > 0.0f;
+  const bool active = a.nee_active[i] != 0 && usable;
+  const float cos_term = fabsf(dot(L.wiw, n));
+  const float weight = step(usable) * cos_term / clamp_min(L.pdf, kTiny);
+  const float wl = weight * lights_no_f;
+  float x = 0.0f, y = 0.0f, z = 0.0f;
+  const float* imp = a.importance + i;
+#pragma unroll
+  for (int k = 0; k < kBins; ++k) {
+    const float rad =
+        val[k] * L.em[k] * wl * imp[static_cast<int64_t>(k) * a.n_lanes];
+    x = x + rad * K[kCieX + k];
+    y = y + rad * K[kCieY + k];
+    z = z + rad * K[kCieZ + k];
+  }
+  x = x * K[kInvYSum];
+  y = y * K[kInvYSum];
+  z = z * K[kInvYSum];
+  const float* M = K + kXyzToRgb;
+  a.rgb_r[i] = M[0] * x + M[1] * y + M[2] * z;
+  a.rgb_g[i] = M[3] * x + M[4] * y + M[5] * z;
+  a.rgb_b[i] = M[6] * x + M[7] * y + M[8] * z;
+  a.wix[i] = L.wiw.x;
+  a.wiy[i] = L.wiw.y;
+  a.wiz[i] = L.wiw.z;
+  a.cap[i] = L.dist - F32(1e-3);
+  a.shadow_active[i] = active;
+  a.key[i] = trace_key(a, p, L.wiw, active);
+}
+
+}  // namespace glaze_nee

@@ -4,7 +4,10 @@ Port of :mod:`glaze_tpu.render.bsdf` (the ``mat_*_value`` /
 ``mat_*_sample_value`` callables of the reference). Every family present
 in the scene is evaluated over the whole batch and the material's family
 id selects the result. Directions are (x, y, z) tuples of (R,) tensors in
-shading space; spectra are (16, R); uv is a (u, v) tuple.
+shading space; spectra are (16, R); uv is a (u, v) tuple. On the card,
+the NEE stage runs :mod:`glaze_tpu_torch.render.nee_cuda`'s kernel, one
+family a lane, in place of :func:`bsdf_value`, which stays its plain
+version; the kernel files the texels it fetched in the same memo.
 """
 
 from __future__ import annotations
@@ -96,6 +99,15 @@ def _tex_memo(mat, uv, key, fn):
     val = fn()
     cache[key] = (uv, val)
     return val
+
+
+def memo_texels(mat, uv, **texels):
+    """Files texels fetched elsewhere (the NEE kernel, render/nee_cuda.py)
+    in ``mat``'s memo under ``uv``, as :func:`_tex_memo` files its own:
+    ``diffuse`` an (r, g, b) tuple, ``rough`` and ``metal`` tensors."""
+    cache = mat.setdefault("_texmemo", {})
+    for key, val in texels.items():
+        cache[key] = (uv, val)
 
 
 def _diffuse_texel(scene, mat, uv):

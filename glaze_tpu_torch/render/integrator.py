@@ -19,7 +19,10 @@ Each launch makes two traces: the closest hit of the path rays
 maps), both Morton-sorted for coherence and both on the CUDA kernels when
 the scene lives on the card. The closest hit walks ``scene.bvh`` (a
 fat-leaf tree under ``GLAZE_TREE=fat|hybrid``), the shadow rays the
-classic ``scene.bvh_any`` of a hybrid scene, else ``scene.bvh``.
+classic ``scene.bvh_any`` of a hybrid scene, else ``scene.bvh``. The
+NEE stage before its shadow rays (the light sample, the BSDF value, the
+weight and the contribution) is :mod:`glaze_tpu_torch.render.nee_cuda`:
+one kernel on the card, the plain torch version on the CPU.
 
 Opacity maps (``alpha_rounds > 0``; raytrace_hit.rahit semantics: a hit
 whose opacity sample is < 0.5 is skipped) take one of three branches,
@@ -74,7 +77,7 @@ from glaze_tpu_torch.ops import spectra
 from glaze_tpu_torch.ops import texture as tx
 from glaze_tpu_torch.ops import vec
 from glaze_tpu_torch.render import bsdf as bsdf_mod
-from glaze_tpu_torch.render import lights as lights_mod
+from glaze_tpu_torch.render import nee_cuda
 from glaze_tpu_torch.scene import flatten as fl
 from glaze_tpu_torch.utils import runtime
 from glaze_tpu_torch.utils.runtime import span, traced
@@ -343,11 +346,20 @@ def _spread3(x):
     return x
 
 
-def _trace_perm(scene, origin, direction, active=None):
-    """Stable coherence sort for a trace phase: [inactive last | direction
-    octant | 15-bit origin Morton]. Stability keeps pixel-tile order
-    within equal keys. The sort changes only the order rays are traced
-    in, never a result."""
+def _trace_perm(scene, origin, direction, active=None, key=None):
+    """Stable coherence sort for a trace phase by :func:`_trace_key` (or
+    by ``key``, that key computed already). Stability keeps pixel-tile
+    order within equal keys. The sort changes only the order rays are
+    traced in, never a result."""
+    if key is None:
+        key = _trace_key(scene, origin, direction, active)
+    return torch.argsort(key, stable=True)
+
+
+def _trace_key(scene, origin, direction, active=None):
+    """The coherence sort key of a trace phase, (R,) int32: [inactive
+    last | direction octant | 15-bit origin Morton]. The NEE kernel
+    computes the shadow rays' (csrc/shade_lane.cuh trace_key)."""
     key = ((direction[0] >= 0).to(torch.int32)
            | ((direction[1] >= 0).to(torch.int32) << 1)
            | ((direction[2] >= 0).to(torch.int32) << 2))
@@ -361,7 +373,7 @@ def _trace_perm(scene, origin, direction, active=None):
     key = (key << 15) | m
     if active is not None:
         key = key | torch.where(active, 0, 1 << 19).to(torch.int32)
-    return torch.argsort(key, stable=True)
+    return key
 
 
 def _inverse_perm(perm):
@@ -674,8 +686,9 @@ def trace_alpha_sorted(scene, origin, direction, t_max=None,
 
 
 def _occlusion_sorted(scene, origin, direction, t_max, active,
-                      alpha_rounds: int):
-    """Alpha-aware shadow occlusion in one coherence-sorted pass.
+                      alpha_rounds: int, key=None):
+    """Alpha-aware shadow occlusion in one coherence-sorted pass
+    (``key``: the rays' :func:`_trace_key`, where computed already).
 
     Full masked tree: one 3-state masked any-hit walk blocks on OPAQUE
     cells, ignores TRANSPARENT ones and reports MIXED-only lanes pending;
@@ -693,7 +706,7 @@ def _occlusion_sorted(scene, origin, direction, t_max, active,
             alpha_rounds=alpha_rounds)
         return sh["tri"] >= 0
     if use_masked:
-        perm = _trace_perm(scene, origin, direction, active=active)
+        perm = _trace_perm(scene, origin, direction, active=active, key=key)
         inv = _inverse_perm(perm)
         s = _perm_rows(perm, list(origin) + list(direction) + [cap, active])
         o, d, cap_s, act = tuple(s[0:3]), tuple(s[3:6]), s[6], s[7]
@@ -713,7 +726,7 @@ def _occlusion_sorted(scene, origin, direction, t_max, active,
     cand = _alpha_candidates(
         scene, origin, direction,
         torch.where(active, cap, torch.full_like(cap, -1.0))) & active
-    perm = _trace_perm(scene, origin, direction, active=active)
+    perm = _trace_perm(scene, origin, direction, active=active, key=key)
     inv = _inverse_perm(perm)
     s = _perm_rows(perm, list(origin) + list(direction) + [cap, active, cand])
     o, d, cap_s, act, cand_s = (tuple(s[0:3]), tuple(s[3:6]), s[6], s[7],
@@ -730,11 +743,12 @@ def _occlusion_sorted(scene, origin, direction, t_max, active,
     return blocked[inv]
 
 
-def _any_hit_sorted(scene, origin, direction, t_max, active):
+def _any_hit_sorted(scene, origin, direction, t_max, active, key=None):
     """Shadow trace on Morton-sorted rays; inactive lanes sort to the tail
     (the kernel retires them at once). Walks the classic any-hit tree of
-    a hybrid scene (``bvh_any``) where there is one, else ``bvh``."""
-    perm = _trace_perm(scene, origin, direction, active=active)
+    a hybrid scene (``bvh_any``) where there is one, else ``bvh``.
+    ``key``: the rays' :func:`_trace_key`, where computed already."""
+    perm = _trace_perm(scene, origin, direction, active=active, key=key)
     inv = _inverse_perm(perm)
     cap = torch.broadcast_to(
         torch.as_tensor(t_max, dtype=torch.float32, device=origin[0].device),
@@ -757,53 +771,37 @@ def _expand_block(a, p: int):
     return torch.repeat_interleave(a, p // c, dim=-1)
 
 
-def _direct_light(scene, state_rng, wo_w, frame, hit, mat, active,
-                  alpha_rounds=0, expand=None, draws=None):
+def _direct_light(scene, state_rng, wo_w, frame, hit, mat, importance,
+                  active, alpha_rounds=0, expand=None, draws=None):
     """NEE (path_trace.rgen direct_light, :87-117). Advances the rng by 5
-    draws unconditionally. Returns (rng, radiance (16, R)).
+    draws unconditionally. Returns (rng, rgb (3, R)): the linear RGB
+    contribution of the lanes of ``active`` whose shadow ray is not
+    blocked, 0 elsewhere.
+
+    The light sample, the BSDF value, the weight and the contribution come
+    from :func:`glaze_tpu_torch.render.nee_cuda.nee` (one kernel on the
+    card), the shadow test from the coherence-sorted walks.
 
     ``draws``: optional 5-tuple of lane-width uniforms (pick, a, b, c,
     bsdf) that replaces the chain's draws, the ``ld`` sampler's points.
     The chain still advances, so the pcg and ld streams stay aligned."""
     ex = expand if expand is not None else (lambda a: a)
     rng = state_rng
-    rng, r_pick = rng_mod.next_f32(rng)
-    if draws is not None:
-        r_pick = draws[0]
-    lights_no = scene.lights_no
-    lights_no_f = lights_no.to(torch.float32)
-    light_idx = torch.minimum((r_pick * lights_no_f).to(torch.int32),
-                              lights_no - 1)
-    light_idx = torch.clamp(light_idx, min=0)
-    rng, ra = rng_mod.next_f32(rng)
-    rng, rb = rng_mod.next_f32(rng)
-    rng, rc = rng_mod.next_f32(rng)
-    if draws is not None:
-        ra, rb, rc = draws[1], draws[2], draws[3]
-    wiw, dist, emission, light_pdf = lights_mod.sample_light(
-        scene, light_idx, hit["point"], (ra, rb, rc), expand=expand)
-    rng, r_bsdf = rng_mod.next_f32(rng)
-    if draws is not None:
-        r_bsdf = draws[4]
-
-    wo = shading.to_shading_space_v(wo_w, frame)
-    wi = shading.to_shading_space_v(wiw, frame)
-    value, bsdf_pdf = bsdf_mod.bsdf_value(scene, mat, wo, wi, hit["uv"],
-                                          ex(r_bsdf))
-
-    usable = (light_pdf > 0.0) & (bsdf_pdf > 0.0)
+    chain = []
+    for _ in range(5):
+        rng, r = rng_mod.next_f32(rng)
+        chain.append(r)
+    out = nee_cuda.nee(scene, hit, wo_w, frame, mat, importance, active,
+                       tuple(chain) if draws is None else tuple(draws), ex)
     if alpha_rounds > 0:
         # transparent surfaces do not shadow (occlusion_tester + rahit)
-        shadow_hit = _occlusion_sorted(scene, hit["point"], wiw, dist - 1e-3,
-                                       active & usable, alpha_rounds)
+        blocked = _occlusion_sorted(scene, hit["point"], out["wiw"],
+                                    out["cap"], out["active"], alpha_rounds,
+                                    key=out["key"])
     else:
-        shadow_hit = _any_hit_sorted(scene, hit["point"], wiw, dist - 1e-3,
-                                     active & usable)
-    cos_term = torch.abs(vec.dot(wiw, hit["shading_normal"]))
-    weight = (usable.to(torch.float32) * (~shadow_hit).to(torch.float32)
-              * cos_term / torch.clamp(light_pdf, min=1e-20))
-    radiance = value * emission * (weight * lights_no_f)
-    return rng, radiance
+        blocked = _any_hit_sorted(scene, hit["point"], out["wiw"], out["cap"],
+                                  out["active"], key=out["key"])
+    return rng, torch.where(active & ~blocked, out["rgb"], 0.0)
 
 
 @traced("integrator.launch")
@@ -984,17 +982,12 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
         nee_active = ~missed & ~mat_specular
         if parked is not None:
             nee_active = nee_active & ~parked
+    ex = lambda a: _expand_block(a, p)  # noqa: E731
     with span("integrator.nee"):
-        ex = lambda a: _expand_block(a, p)  # noqa: E731
-        rng, nee_radiance = _direct_light(
-            scene, rng, wo_w, frame, surf, mat, nee_active,
+        rng, nee_contrib = _direct_light(
+            scene, rng, wo_w, frame, surf, mat, importance, nee_active,
             alpha_rounds=alpha_rounds, expand=ex,
             draws=None if ld_draws is None else ld_draws[:5])
-        nee_radiance = nee_radiance * importance
-        nr, ng, nb = spectra.to_rgb_t(nee_radiance)
-        nee_contrib = (torch.where(nee_active, nr, zero),
-                       torch.where(nee_active, ng, zero),
-                       torch.where(nee_active, nb, zero))
 
     with span("integrator.bsdf"):
         new_specular = torch.where(missed, state.last_specular,
