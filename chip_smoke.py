@@ -18,11 +18,11 @@ the closest-hit and any-hit walks (K1, K3) on the Sponza-class scene
 (262k triangles) with its curtain's opacity map removed, the masked
 walks (K2 on the full tree and on the alpha subset tree, K4) on the whole
 scene, lace curtains included, and the fat-leaf walks (K7c, K7a) on the
-opaque scene uploaded with GLAZE_TREE=fat, and the NEE kernel
-(csrc/shade.cu) against its plain version on the inputs of the full
-scene's first two 1080p launches, with its time and bound ([nee]). Every
-render below must launch the NEE kernel once a launch, beside the walks
-it expects. It renders
+opaque scene uploaded with GLAZE_TREE=fat, and the NEE and BSDF kernels
+(csrc/shade.cu) against their plain versions on the inputs of the full
+scene's first two 1080p launches, with their times and bounds ([nee],
+[bsdf]). Every render below must launch the NEE kernel and the BSDF
+kernel once a launch each, beside the walks it expects. It renders
 the scenes through the port's CLI at 1920x1080, 2 spp (full and opaque
 on the classic tree, then opaque with GLAZE_TREE=fat and =hybrid, and
 full with GLAZE_TREE=fat), checks that exactly the expected kernels
@@ -145,16 +145,20 @@ BYTES_PER_COEF_ROW = 76
 # on the opaque tree and K2 twice on the alpha tree (_alpha_walk_refined),
 # and the occlusion (_occlusion_sorted's candidate path) K3 on the opaque
 # tree and K2 twice on the alpha tree.
-# Every path launches the NEE kernel (render/nee_cuda.py) once a launch.
+# Every path launches the NEE kernel (render/nee_cuda.py) and the BSDF
+# kernel (render/bsdf_cuda.py) once a launch.
 LAUNCHES = SPP * 6
 KERNELS = ("closest_hit", "any_hit", "closest_hit_masked", "any_hit_masked",
-           "closest_hit_fat", "any_hit_fat", "nee")
+           "closest_hit_fat", "any_hit_fat", "nee", "bsdf")
+SHADE_KERNELS = ("nee", "bsdf")
 
 
-def _expected(nee, **walks):
-    """Launch counts by KERNELS name: ``nee`` NEE kernel launches (one a
-    launch) and the walks named in ``walks``, the others 0."""
-    return {k: nee if k == "nee" else walks.get(k, 0) for k in KERNELS}
+def _expected(launches, **walks):
+    """Launch counts by KERNELS name: ``launches`` NEE and BSDF kernel
+    launches (one each a launch) and the walks named in ``walks``, the
+    others 0."""
+    return {k: launches if k in SHADE_KERNELS else walks.get(k, 0)
+            for k in KERNELS}
 
 
 EXPECTED_OPAQUE = _expected(LAUNCHES, closest_hit=LAUNCHES, any_hit=LAUNCHES)
@@ -271,6 +275,7 @@ def phase_build():
 
     from glaze_tpu_torch import native
     from glaze_tpu_torch.accel import traverse_cuda as tc
+    from glaze_tpu_torch.render import bsdf_cuda as bc
     from glaze_tpu_torch.render import nee_cuda as nc
     from glaze_tpu_torch.tools import probes_cuda as pc
 
@@ -290,6 +295,7 @@ def phase_build():
                 log(f"[build] {lib} ptxas: {line.strip()}")
     attrs = tc.kernel_attrs()
     attrs["nee"] = nc.kernel_attrs()
+    attrs["bsdf"] = bc.kernel_attrs()
     at = {"drain": ", at T = 128", "chain": ", at W = 512"}
     for name, a in (*attrs.items(), *pc.kernel_attrs().items()):
         where = (", at W = 2048" if name.endswith("w2048")
@@ -1369,27 +1375,183 @@ def phase_nee(path):
     return {"nee": entry}
 
 
+def _bsdf_bytes(scene, a):
+    """Bytes a launch of the BSDF kernel must move, at least: every lane
+    reads its miss flag, material row index, bounce, last_specular, accum,
+    sq and the two contributions and writes the 29 floats of its new state;
+    a lane that hit reads the frame, wo, the hit point, uv, the launch's
+    importance and its draws (at their chain width), and the memo's texels
+    that its family reads; a lane that missed reads the old importance,
+    origin and direction. The scene's rows come from L2 and are not
+    counted."""
+    p = a["importance"].shape[1]
+    c = a["draws"][0].shape[0]
+    hit = ~a["missed"]
+    hits = int(hit.sum())
+    fam = scene.mat_scalars[a["hit"]["material_id"].long(), 8]
+    readers = {"diffuse": (0, 5), "rough": (3, 4, 5), "metal": (5,)}
+    texels = 0
+    for key, val in a["memo"].items():
+        rows = len(val) if isinstance(val, tuple) else 1
+        reads = hit & sum((fam == f) for f in readers[key]).bool()
+        texels += 4 * rows * int(reads.sum())
+    every = 1 + 4 + 4 * (1 + 1 + 3 + 1 + 3 + 3) + 4 * 29
+    live = 4 * (3 + 9 + 3 + 2 + 16) + (16 if c == p else 0)
+    draws = 0 if c == p else 4 * 4 * c
+    return every * p + live * hits + texels + draws + 4 * 22 * (p - hits)
+
+
+def phase_bsdf(path):
+    """The BSDF kernel (render/bsdf_cuda.py, csrc/shade.cu) against its
+    plain version on the card, on the inputs of the first two launches of
+    a 1920x1080 render of the full scene (camera hits, then bounce hits),
+    with the texels the NEE stage filed and without them: every leaf of the
+    new state bit for bit. Times the kernel (CUDA events over 20 launches)
+    and the plain version, and gives the bound by bytes (_bsdf_bytes)."""
+    import ctypes
+
+    from glaze_tpu_torch.render import bsdf as bsdf_mod
+    from glaze_tpu_torch.render import bsdf_cuda as bc
+    from glaze_tpu_torch.render import integrator as ti
+    from glaze_tpu_torch.render import nee_cuda as nc
+
+    sets = []
+    orig = bc.bsdf
+
+    def cl(x):
+        if isinstance(x, tuple):
+            return type(x)(*(cl(y) for y in x)) if hasattr(x, "_replace") \
+                else tuple(cl(y) for y in x)
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def capture(scene, state, hit, missed, wo_w, frame, mat, importance,
+                miss_rgb, nee_rgb, draws, expand, direct_only=False):
+        if len(sets) < 2:
+            memo = mat.get("_texmemo", {})
+            sets.append({
+                "state": cl(state), "hit": {k: cl(hit[k]) for k in (
+                    "point", "shading_normal", "uv", "material_id")},
+                "missed": missed.clone(), "wo_w": cl(wo_w),
+                "frame": cl(frame), "importance": importance.clone(),
+                "miss_rgb": cl(miss_rgb), "nee_rgb": nee_rgb.clone(),
+                "draws": cl(tuple(draws)),
+                "memo": {k: cl(v[1]) for k, v in memo.items()
+                         if v[0] is hit["uv"]}})
+        return orig(scene, state, hit, missed, wo_w, frame, mat, importance,
+                    miss_rgb, nee_rgb, draws, expand, direct_only)
+
+    bc.bsdf = capture
+    try:
+        r, _ = _capture_sample(path)
+    finally:
+        bc.bsdf = orig
+    scene = r.scene
+    p = sets[0]["importance"].shape[1]
+    entry = dict(name="bsdf", route="cuda", source="glaze_tpu_torch/csrc/shade.cu",
+                 replaces="none (glaze_tpu/render/integrator.py path_trace "
+                 "step's bounce, left to XLA's fusion)", library_ms=None,
+                 launches=0, launches_by_path={}, sets={})
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for label, a in zip(("camera_hits", "bounce_hits"), sets):
+        hit = a["hit"]
+
+        def mat(with_memo):
+            m = bsdf_mod.gather_material(scene, hit["material_id"])
+            if with_memo:
+                bsdf_mod.memo_texels(m, hit["uv"], **a["memo"])
+            return m
+
+        def call(fn, m, *extra):
+            return fn(scene, a["state"], hit, a["missed"], a["wo_w"],
+                      a["frame"], m, a["importance"], a["miss_rgb"],
+                      a["nee_rgb"], a["draws"], *extra)
+
+        def ex(x):
+            return ti._expand_block(x, p)
+
+        want = call(bc.bsdf_plain, mat(True), ex)
+        bad = {}
+        for memo in (True, False):
+            got = call(bc.bsdf_kernel, mat(memo))
+            torch.cuda.synchronize()
+            for k, w in want.items():
+                g = got[k]
+                g = torch.stack(g) if isinstance(g, tuple) else g
+                w = torch.stack(w) if isinstance(w, tuple) else w
+                same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+                n_bad = int((~same).sum())
+                if n_bad:
+                    bad[f"{k}{'' if memo else '_no_memo'}"] = n_bad
+        missed = int(a["missed"].sum())
+        killed = int(((a["state"].bounce > 3) & ~a["missed"]
+                      & (want["bounce"] == 0)).sum())
+        log(f"[bsdf] {label}: {p} lanes, {p - missed} hits, "
+            f"{int((want['bounce'] > 0).sum())} paths go on, {killed} "
+            f"roulette-active hits end; elements apart from the plain "
+            f"version {bad or 0}")
+        if bad:
+            raise RuntimeError(f"[bsdf] {label}: the kernel disagrees with "
+                               f"its plain version: {bad}")
+        args, out = bc.prepare(scene, a["state"], hit, a["missed"], a["wo_w"],
+                               a["frame"], mat(True), a["importance"],
+                               a["miss_rgb"], a["nee_rgb"], a["draws"])
+        lib = nc._load()
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(3):
+            lib.glaze_bsdf_launch(ctypes.byref(args), stream)
+        ev[0].record()
+        for _ in range(20):
+            lib.glaze_bsdf_launch(ctypes.byref(args), stream)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1]) / 20
+        call(bc.bsdf_plain, mat(True), ex)
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(3):
+            call(bc.bsdf_plain, mat(True), ex)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain_ms = ev[0].elapsed_time(ev[1]) / 3
+        nbytes = _bsdf_bytes(scene, a)
+        bound = nbytes / PEAK_BYTES * 1e3
+        entry["sets"][label] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+            bytes_ms=bound, bytes=nbytes, max_abs_err=0.0, mismatches=bad,
+            warp={})
+        log(f"[bsdf] {label}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+            f"bound {bound:.4f} ms (bytes {nbytes / 1e9:.3f} GB), "
+            f"{ms / bound:.2f}x the bound")
+    _summarize(entry, ("camera_hits", "bounce_hits"))
+    del r, sets
+    torch.cuda.empty_cache()
+    return {"bsdf": entry}
+
+
 def _launch_counts():
-    """Every traversal kernel's and the NEE kernel's launch count, by
-    KERNELS name, and every probe kernel's."""
+    """Every traversal kernel's, the NEE kernel's and the BSDF kernel's
+    launch count, by KERNELS name, and every probe kernel's."""
     from glaze_tpu_torch.accel import traverse_cuda as tc
+    from glaze_tpu_torch.render import bsdf_cuda as bc
     from glaze_tpu_torch.render import nee_cuda as nc
     from glaze_tpu_torch.tools import probes_cuda as pc
 
     wrappers = (tc.closest_hit_soa, tc.any_hit_soa, tc.closest_hit_soa_masked,
                 tc.any_hit_soa_masked, tc.closest_hit_fat_soa,
-                tc.any_hit_fat_soa, nc.nee_kernel)
+                tc.any_hit_fat_soa, nc.nee_kernel, bc.bsdf_kernel)
     return ({name: fn.launches for name, fn in zip(KERNELS, wrappers)},
             {fn.__name__: fn.launches for fn in pc.KERNEL_WRAPPERS})
 
 
 def _reset_counts():
     from glaze_tpu_torch.accel import traverse_cuda as tc
+    from glaze_tpu_torch.render import bsdf_cuda as bc
     from glaze_tpu_torch.render import nee_cuda as nc
     from glaze_tpu_torch.tools import probes_cuda as pc
 
     tc.reset_launch_counts()
     nc.reset_launch_counts()
+    bc.reset_launch_counts()
     pc.reset_launch_counts()
 
 
@@ -1509,11 +1671,14 @@ def profile_sample(renderer, label):
         f"traversal kernels {trav:.2f} ms ({100 * trav / busy_ms:.1f}% of busy), "
         f"{sum(v[1] for v in kernels.values())} kernel launches")
     per_launch = {name: ms / n for name, (ms, n) in walks.items()}
-    nee = [v for k, v in kernels.items() if "nee_kernel" in k]
-    if nee:
-        per_launch["nee"] = sum(v[0] for v in nee) / sum(v[1] for v in nee)
-        log(f"[profile:{label}]   NEE kernel: {sum(v[1] for v in nee)} "
-            f"launches, {per_launch['nee']:.3f} ms per launch in the render")
+    for name, what in (("nee", "NEE"), ("bsdf", "BSDF")):
+        mine = [v for k, v in kernels.items() if f"{name}_kernel" in k]
+        if mine:
+            per_launch[name] = (sum(v[0] for v in mine)
+                                / sum(v[1] for v in mine))
+            log(f"[profile:{label}]   {what} kernel: "
+                f"{sum(v[1] for v in mine)} launches, {per_launch[name]:.3f} "
+                "ms per launch in the render")
     for name, (ms, n) in sorted(walks.items()):
         log(f"[profile:{label}]   traversal {name}: {n} launches, {ms:.2f} ms, "
             f"{ms / n:.3f} ms per launch in the render")
@@ -1831,6 +1996,7 @@ RESUME_CHILD = """
 import json, sys
 from glaze_tpu_torch import cli
 from glaze_tpu_torch.accel import traverse_cuda as tc
+from glaze_tpu_torch.render import bsdf_cuda as bc
 from glaze_tpu_torch.render import nee_cuda as nc
 code, r, t = cli.run(sys.argv[1:])
 print(json.dumps({"code": code, "times": t, "completed_spp": r.completed_spp,
@@ -1840,7 +2006,8 @@ print(json.dumps({"code": code, "times": t, "completed_spp": r.completed_spp,
                                tc.any_hit_soa_masked.launches,
                                tc.closest_hit_fat_soa.launches,
                                tc.any_hit_fat_soa.launches,
-                               nc.nee_kernel.launches]}))
+                               nc.nee_kernel.launches,
+                               bc.bsdf_kernel.launches]}))
 """
 
 
@@ -3398,16 +3565,18 @@ import json, os, sys
 sys.path.insert(0, os.getcwd())
 import torch
 from glaze_tpu_torch.accel import traverse_cuda as tc
+from glaze_tpu_torch.render import bsdf_cuda as bc
 from glaze_tpu_torch.render import nee_cuda as nc
 from glaze_tpu_torch.tools import pod_launch
 tc.reset_launch_counts()
 nc.reset_launch_counts()
+bc.reset_launch_counts()
 code = pod_launch.main(sys.argv[2:])
 torch.cuda.synchronize()
 launches = [tc.closest_hit_soa.launches, tc.any_hit_soa.launches,
             tc.closest_hit_soa_masked.launches, tc.any_hit_soa_masked.launches,
             tc.closest_hit_fat_soa.launches, tc.any_hit_fat_soa.launches,
-            nc.nee_kernel.launches]
+            nc.nee_kernel.launches, bc.bsdf_kernel.launches]
 with open(os.path.join(sys.argv[1], "rank%s.json" % os.environ["RANK"]),
           "w") as f:
     json.dump({"code": code, "launches": launches}, f)
@@ -3557,6 +3726,7 @@ def main():
     report.update(run("masked_kernels", phase_masked_kernels, paths["full"]))
     report.update(run("fat_kernels", phase_fat_kernels, paths["opaque"]))
     report.update(run("nee", phase_nee, paths["full"]))
+    report.update(run("bsdf", phase_bsdf, paths["full"]))
     main_numbers = {}
     for label, scene, expected, tree in (
             ("full", "full", EXPECTED_FULL, None),

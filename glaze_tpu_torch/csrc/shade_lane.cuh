@@ -1,20 +1,27 @@
-// The NEE stage of one lane before its shadow ray: the light sample, the
-// BSDF value, the weight and the unshadowed RGB contribution, as
-// glaze_tpu_torch.render.nee_cuda.nee_plain computes them with
-// render/lights.py (sample_light) and render/bsdf.py (bsdf_value).
+// The lane arithmetic of the integrator's two shading kernels:
+//   * nee_lane, the NEE stage of one lane before its shadow ray: the light
+//     sample, the BSDF value, the weight and the unshadowed RGB
+//     contribution, as glaze_tpu_torch.render.nee_cuda.nee_plain computes
+//     them with render/lights.py (sample_light) and render/bsdf.py
+//     (bsdf_value);
+//   * bsdf_lane, the BSDF stage of one lane: the accumulation, Russian
+//     roulette, the BSDF sample of the lane's own family and the path-state
+//     update, as glaze_tpu_torch.render.bsdf_cuda.bsdf_plain computes them
+//     with render/bsdf.py (bsdf_sample).
 //
-// Host-and-device code: csrc/shade.cu runs nee_lane once per thread, and a
-// host compiler can build the same function for a loop over lanes
-// (tests/test_torch_nee.py holds that loop against the plain version on
-// the CPU). Every operation is the plain version's, in its order, one
+// Host-and-device code: csrc/shade.cu runs each once per thread, and a
+// host compiler can build the same functions for a loop over lanes
+// (tests/test_torch_nee.py and tests/test_torch_bsdf_stage.py hold those
+// loops against the plain versions on the CPU). Every operation is the
+// plain version's, in its order, one
 // rounding each (nvcc --fmad=false, no fast math): a torch elementwise op
 // on (R,) or (16, R) tensors is one scalar operation of a lane here, a
 // torch.where of two branches is a branch that computes only the taken
 // one, and a family or light type absent from the lane is not evaluated.
 // Conventions that follow PyTorch's CUDA kernels, so that the kernel
 // agrees bit for bit with the plain version run on the card:
-//   * ``1.0 / t`` is Tensor.__rtruediv__, a reciprocal times 1.0: an IEEE
-//     division 1.0f / x;
+//   * ``c / t`` for a Python float c is Tensor.__rtruediv__, a reciprocal
+//     times c: an IEEE division 1.0f / x, then the product (rdiv below);
 //   * ``t / <Python float>`` multiplies by the divisor's reciprocal,
 //     taken in double and rounded to float (PyTorch's CUDA divide takes
 //     that path for a CPU scalar); a division by a tensor, 0-d ones
@@ -23,9 +30,13 @@
 //     torch.sign is (0 < x) - (x < 0), so 0 for NaN and for -0;
 //   * Python float constants convert to float32 as torch converts a
 //     wrapped double (F32 below);
-//   * int remainder takes the divisor's sign (torch.remainder).
-// Only the 16-bin sums of the XYZ integral run in another order than the
-// plain version's torch.sum (bins ascending here).
+//   * int remainder takes the divisor's sign (torch.remainder);
+//   * torch.sum over the 16 bins of a (16, R) tensor: on the card four
+//     accumulators, bin k into k % 4, joined in order (PyTorch's CUDA
+//     reduction, four loads in flight a thread); on the host one
+//     accumulator, bins ascending, as PyTorch's CPU sum (luminance below).
+// Only nee_lane's 16-bin sums of the XYZ integral run in another order
+// than the plain version's torch.sum (bins ascending here).
 #pragma once
 
 #include <math.h>
@@ -148,6 +159,9 @@ GLAZE_HD float clamp2(float x, float lo, float hi) {
   return x != x ? x : fminf(fmaxf(x, lo), hi);
 }
 GLAZE_HD float nan0(float x) { return x != x ? 0.0f : x; }
+// ``c / t`` for a Python float c (Tensor.__rtruediv__): the reciprocal,
+// times c
+GLAZE_HD float rdiv(float c, float x) { return (1.0f / x) * c; }
 GLAZE_HD bool is_inf(float x) { return fabsf(x) > 3.40282347e38f; }
 GLAZE_HD float sign(float x) { return F32((0.0f < x) - (x < 0.0f)); }
 GLAZE_HD float step(bool b) { return b ? 1.0f : 0.0f; }
@@ -206,7 +220,9 @@ GLAZE_HD float srgb_to_linear(float c) {
 }
 
 // bilinear fetch at mip 0, REPEAT wrap, of the first ``channels`` channels
-GLAZE_HD void sample_tex(const NeeArgs& a, int tex, float u, float v,
+// (``a``: NeeArgs or BsdfArgs, whose atlas fields share their names)
+template <class Args>
+GLAZE_HD void sample_tex(const Args& a, int tex, float u, float v,
                          int channels, float* out) {
   const int off = a.tex_offset[tex], w = a.tex_width[tex],
             h = a.tex_height[tex];
@@ -695,6 +711,448 @@ GLAZE_HD void nee_lane(const NeeArgs& a, const float* K, int i) {
   a.cap[i] = L.dist - F32(1e-3);
   a.shadow_active[i] = active;
   a.key[i] = trace_key(a, p, L.wiw, active);
+}
+
+// ---- the BSDF stage (render/bsdf_cuda.py bsdf_plain) ----------------------
+
+struct BsdfArgs {
+  // lanes: the hit point (the new origin), the shading frame (s, t, n = the
+  // shading normal), wo in world space, uv, the material row, the miss flag
+  const float* px; const float* py; const float* pz;
+  const float* sx; const float* sy; const float* sz;
+  const float* tx; const float* ty; const float* tz;
+  const float* nx; const float* ny; const float* nz;
+  const float* wox; const float* woy; const float* woz;
+  const float* u; const float* v;
+  const int32_t* mat_id;
+  const uint8_t* missed;
+  // the launch's importance (16, P: 1 where the path regenerated), the sky's
+  // and the NEE stage's RGB contributions
+  const float* importance;
+  const float* miss_r; const float* miss_g; const float* miss_b;
+  const float* nee_r; const float* nee_g; const float* nee_b;
+  // the state before the launch (importance, origin and direction are null
+  // under direct_only)
+  const float* state_importance;
+  const float* ox; const float* oy; const float* oz;
+  const float* dx; const float* dy; const float* dz;
+  const float* bounce; const float* last_specular;
+  const float* accum_r; const float* accum_g; const float* accum_b;
+  const float* sq;
+  // the texels the NEE stage fetched for these lanes, each null where it
+  // did not: fetched here then
+  const float* diffuse_r; const float* diffuse_g; const float* diffuse_b;
+  const float* roughness; const float* metalness;
+  // chains (width C; lane i reads entry i / lanes_per_chain): the roulette
+  // draw and the BSDF sample's three (null under direct_only)
+  const float* r_rr; const float* r_a; const float* r_b; const float* r_c;
+  // tables, read in place
+  const int32_t* lights_no;     // ()
+  const float* mat_scalars;     // (M, 10)
+  const int32_t* mat_tex;       // (M, 5)
+  const float* metal_ior;       // (M, 16)
+  const float* metal_fresnel;   // (M, 16)
+  const int32_t* texels;        // (T, 4)
+  const int32_t* tex_offset; const int32_t* tex_width;
+  const int32_t* tex_height; const float* tex_srgb;
+  const float* consts;          // kConsts
+  // outputs, the new state: importance (16, P), origin and direction
+  // (written unless direct_only), bounce, last_specular, accum, sq
+  float* out_importance;
+  float* out_ox; float* out_oy; float* out_oz;
+  float* out_dx; float* out_dy; float* out_dz;
+  float* out_bounce; float* out_last_specular;
+  float* out_accum_r; float* out_accum_g; float* out_accum_b;
+  float* out_sq;
+  // sizes and modes
+  int n_lanes;
+  int lanes_per_chain;
+  int tex_flags;
+  int families;      // bit f: family f follows the first in the scene's list
+  int first_family;  // the scene's first family: any other lane samples it
+  int direct_only;
+};
+
+constexpr float kRoulette = 3.0f;  // integrator.RUSSIAN_ROULETTE
+constexpr float kSteps = 6.0f;     // integrator.PT_STEPS
+
+// spectra.luminance_t of one lane's 16 bins (strided by ``stride``), summed
+// as the torch of the device that runs this code sums them (header note)
+GLAZE_HD float luminance(const float* K, const float* sp, int64_t stride) {
+#ifdef __CUDA_ARCH__
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < kBins; ++k)
+    acc[k % 4] = acc[k % 4] + sp[k * stride] * K[kCieY + k];
+  const float sum = ((acc[0] + acc[1]) + acc[2]) + acc[3];
+#else
+  float sum = 0.0f;
+  for (int k = 0; k < kBins; ++k) sum = sum + sp[k * stride] * K[kCieY + k];
+#endif
+  return sum * K[kInvYSum];
+}
+
+GLAZE_HD V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
+// GLSL reflect and refract (ops/vec.py); refract gives the zero vector on
+// total internal reflection
+GLAZE_HD V3 reflect(V3 i, V3 n) { return sub(i, scale(n, 2.0f * dot(n, i))); }
+GLAZE_HD V3 refract(V3 i, V3 n, float eta) {
+  const float ndi = dot(n, i);
+  const float k = 1.0f - eta * eta * (1.0f - ndi * ndi);
+  if (!(k >= 0.0f)) return {0.0f, 0.0f, 0.0f};
+  const float coef = eta * ndi + sqrtf(clamp_min(k, 0.0f));
+  return sub(scale(i, eta), scale(n, coef));
+}
+// shading -> world space (ops/shading.py to_world_space_v)
+GLAZE_HD V3 to_world(V3 w, V3 s, V3 t, V3 n) {
+  return normalize({s.x * w.x + t.x * w.y + n.x * w.z,
+                    s.y * w.x + t.y * w.y + n.y * w.z,
+                    s.z * w.x + t.z * w.y + n.z * w.z});
+}
+
+// bsdf.py _cosine_hemisphere
+GLAZE_HD V3 cosine_hemisphere(float r0, float r1, float woz) {
+  const float t = kTwoPi * r0;
+  const float r = sqrtf(r1);
+  const float x = r * cosf(t), y = r * sinf(t);
+  return {x, y, sqrtf(clamp_min(1.0f - x * x - y * y, 0.0f)) * sign(woz)};
+}
+
+// microfacet.py _sample_p22_v: the isotropic visible-slope sample
+GLAZE_HD void sample_p22(float cost, float r0, float r1, float& sx_out,
+                         float& sy_out) {
+  if (cost > F32(0.999)) {
+    const float r = sqrtf(r0 / (1.0f - r0));
+    const float phi = kTwoPi * r1;
+    sx_out = r * cosf(phi);
+    sy_out = r * sinf(phi);
+    return;
+  }
+  const float cos2t = cost * cost;
+  const float sin2t = clamp_min(1.0f - cos2t, 0.0f);
+  float tan2t = sin2t / cos2t;
+  if (is_inf(tan2t)) tan2t = 0.0f;
+  const float tant = sqrtf(tan2t);
+  const float a2 = 1.0f / clamp_min(tan2t, kTiny);
+  const float g1 = rdiv(2.0f, 1.0f + sqrtf(1.0f + 1.0f / a2));
+  const float A = 2.0f * r0 / g1 - 1.0f;
+  const float B = tant;
+  const float inv = 1.0f / (A * A - 1.0f);
+  const float sqrt_term =
+      sqrtf(clamp_min(B * B * inv * inv - (A * A - B * B) * inv, 0.0f));
+  const float sx1 = B * inv - sqrt_term, sx2 = B * inv + sqrt_term;
+  const float sx =
+      (A < 0.0f || sx2 > 1.0f / clamp_min(tant, kTiny)) ? sx1 : sx2;
+  const float stepval = step(r1 >= 0.5f);
+  const float s = 1.0f - 2.0f * stepval;
+  const float u = stepval > 0.5f ? 2.0f * (0.5f - r1) : 2.0f * (r1 - 0.5f);
+  const float z =
+      (u * (u * (u * F32(-0.3657289) + F32(0.7902350)) - F32(0.4249658)) +
+       F32(0.0001529)) /
+      (u * (u * (u * (u * F32(0.1695078) - F32(0.3972035)) -
+                 F32(0.2325005)) +
+            1.0f) -
+       F32(0.5398259));
+  sx_out = sx;
+  sy_out = s * z * sqrtf(1.0f + sx * sx);
+}
+
+// microfacet.py ggx_sample_wh_v: the visible-normal sample
+GLAZE_HD V3 ggx_sample_wh(V3 wo, float r0, float r1, float ax, float ay) {
+  const float flip = sign(wo.z);
+  const V3 w = scale(wo, flip);
+  const V3 st = normalize({w.x * ax, w.y * ay, w.z});
+  const float cost = st.z;
+  float sx0, sy0;
+  sample_p22(cost, r0, r1, sx0, sy0);
+  const float cos2t = cost * cost;
+  const float sin2t = clamp_min(1.0f - cos2t, 0.0f);
+  const float cosp = sqrtf(st.x * st.x / sin2t);
+  const float sinp = sqrtf(st.y * st.y / sin2t);
+  const float sx = cosp * sx0 - sinp * sy0;
+  const float sy = sinp * sx0 + cosp * sy0;
+  return scale(normalize({-ax * sx, -ay * sy, 1.0f}), flip);
+}
+
+// the bounce samples (bsdf.py _*_sample): wi in shading space and the
+// value; returns the pdf
+
+GLAZE_HD float lambert_sample(const float* K, const Material& m, V3 wo,
+                              float r0, float r1, V3& wi, float* val) {
+  wi = cosine_hemisphere(r0, r1, wo.z);
+  from_rgb(K, m.diffuse[0] * kInvPi, m.diffuse[1] * kInvPi,
+           m.diffuse[2] * kInvPi, false, val);
+  return fabsf(wi.z) * kInvPi;
+}
+
+GLAZE_HD float mirror_sample(const Material& m, V3 wo, V3& wi, float* val) {
+  wi = {-wo.x, -wo.y, wo.z};
+  const float c = clamp_min(fabsf(wo.z), kTiny);
+#pragma unroll
+  for (int k = 0; k < kBins; ++k)
+    val[k] = fresnel_conductor(wo.z, m.ior[k], m.fres[k]) / c;
+  return 1.0f;
+}
+
+GLAZE_HD float glass_sample(const Material& m, V3 wo, float rc, V3& wi,
+                            float* val) {
+  const float woz = wo.z;
+  float etai, etat;
+  dielectric_etas(m, woz, etai, etat);
+  const float f = fresnel_dielectric(woz >= 0.0f ? woz : fabsf(woz), etai,
+                                     etat);
+  float e, pdf;
+  if (rc < f) {
+    wi = {-wo.x, -wo.y, woz};
+    e = f / clamp_min(fabsf(woz), kTiny);
+    pdf = f;
+  } else {
+    wi = refract(wo, {0.0f, 0.0f, sign(woz)}, etai / etat);
+    e = (1.0f - f) * (etai * etai) /
+        clamp_min(etat * etat * fabsf(wi.z), kTiny);
+    pdf = 1.0f - f;
+  }
+#pragma unroll
+  for (int k = 0; k < kBins; ++k) val[k] = e;
+  return pdf;
+}
+
+GLAZE_HD float metal_sample(const Material& m, V3 wo, float r0, float r1,
+                            V3& wi, float* val) {
+  const float ax = m.rough * (1.0f + m.s[3]), ay = m.rough * (1.0f - m.s[3]);
+  const V3 wh = ggx_sample_wh(wo, r0, r1, ax, ay);
+  wi = normalize(neg(reflect(wo, wh)));
+  const bool same = wo.z * wi.z > 0.0f;
+  const float cosin = dot(wi, wh);
+  // bsdf.py _ggx_reflect_terms
+  const float dotwowh = dot(wo, wh);
+  const float d = ggx_d(wh, ax, ay);
+  const float g = ggx_g(wo, wi, ax, ay);
+  const float pdf = ggx_pdf(d, ax, ay, wo, wh) / (4.0f * dotwowh);
+  const float term = d * g / (4.0f * fabsf(wo.z) * fabsf(wi.z));
+  const float t = same ? nan0(term) : 0.0f;
+#pragma unroll
+  for (int k = 0; k < kBins; ++k)
+    val[k] = fresnel_conductor(cosin, m.ior[k], m.fres[k]) * t;
+  return same ? nan0(pdf) : 0.0f;
+}
+
+GLAZE_HD float frosted_sample(const Material& m, V3 wo, float r0, float r1,
+                              float rc, V3& wi, float* val) {
+  const float ax = m.rough * (1.0f + m.s[3]), ay = m.rough * (1.0f - m.s[3]);
+  const V3 wh = ggx_sample_wh(wo, r0, r1, ax, ay);
+  const float woz = wo.z;
+  float etai, etat;
+  dielectric_etas(m, woz, etai, etat);
+  const float eta = etai / etat;
+  const float costwo = fabsf(woz);
+  const float dotwowh = dot(wo, wh);
+  float term, pdf;
+  if (rc < 0.5f) {
+    // reflect branch (mat_frosted_sample_value.rcall:31-50)
+    wi = normalize(neg(reflect(wo, wh)));
+    const float dotwiwh = dot(wi, wh);
+    const float costi = dot(wi, scale(wh, sign(wh.z)));
+    const float f = fresnel_dielectric(costi, etai, etat);
+    const float d = step(woz >= 0.0f) * ggx_d(wh, ax, ay);
+    const float g =
+        step(dotwowh >= 0.0f) * step(dotwiwh >= 0.0f) * ggx_g(wo, wi, ax, ay);
+    pdf = nan0(0.5f * ggx_pdf(d, ax, ay, wo, wh) / (4.0f * dotwowh));
+    term = d * g * f / (4.0f * costwo * fabsf(wi.z));
+  } else {
+    // refract branch (:51-70)
+    wi = normalize(refract(wo, wh, eta));
+    const float dotwiwh = dot(wi, wh);
+    const float f = fresnel_dielectric(dotwowh, etai, etat);
+    const float denom = dotwowh + eta * dotwiwh;
+    const float d = ggx_d(wh, ax, ay);
+    const float g = ggx_g(wo, wi, ax, ay);
+    const float p = nan0(0.5f * ggx_pdf(d, ax, ay, wo, wh) *
+                         fabsf(eta * eta * dotwiwh) / (denom * denom));
+    pdf = dotwowh * dotwiwh < 0.0f ? p : 0.0f;
+    term = d * g * (1.0f - f) * fabsf(dotwiwh) * fabsf(dotwowh) /
+           (denom * denom * costwo * fabsf(wi.z));
+  }
+  const float t = nan0(term);
+#pragma unroll
+  for (int k = 0; k < kBins; ++k) val[k] = t;
+  return pdf;
+}
+
+GLAZE_HD float uber_sample(const float* K, const Material& m, V3 wo,
+                           float r0, float r1, float rc, V3& wi, float* val) {
+  const float woz = wo.z;
+  if (rc < 0.5f) {
+    // specular branch (mat_uber_sample_value.rcall:28-56), with the
+    // reference's roughness * roughness_mul^2 quirk
+    const float r2 = m.rough * m.s[1];
+    const float ax = r2 * (1.0f + m.s[3]), ay = r2 * (1.0f - m.s[3]);
+    const V3 wh = ggx_sample_wh(wo, r0, r1, ax, ay);
+    wi = normalize(neg(reflect(wo, wh)));
+    float etai, etat;
+    dielectric_etas(m, woz, etai, etat);
+    const float dotwowh = dot(wo, wh), dotwiwh = dot(wi, wh);
+    const float costi = dot(wi, scale(wh, sign(wh.z)));
+    const float fd = fresnel_dielectric(costi, etai, etat);
+    const float d = step(woz >= 0.0f) * ggx_d(wh, ax, ay);
+    const float g =
+        step(dotwowh >= 0.0f) * step(dotwiwh >= 0.0f) * ggx_g(wo, wi, ax, ay);
+    const float pdf =
+        nan0(0.5f * ggx_pdf(d, ax, ay, wo, wh) / (4.0f * dotwowh));
+    const float term = nan0(d * g / (4.0f * fabsf(woz) * fabsf(wi.z)));
+#pragma unroll
+    for (int k = 0; k < kBins; ++k) {
+      const float fc = fresnel_conductor(costi, m.ior[k], m.fres[k]);
+      val[k] = (fd + (fc - fd) * m.metal) * term;
+    }
+    return pdf;
+  }
+  // diffuse branch: Oren-Nayar (:57-83)
+  wi = cosine_hemisphere(r0, r1, woz);
+  const float on = oren_nayar(wo, wi, m.rough);
+  from_rgb(K, m.diffuse[0] * on, m.diffuse[1] * on, m.diffuse[2] * on, false,
+           val);
+  return 0.5f * fabsf(wi.z) * kInvPi;
+}
+
+// ---- one lane of the BSDF stage --------------------------------------------
+
+GLAZE_HD void bsdf_lane(const BsdfArgs& a, const float* K, int i) {
+  const int64_t n = a.n_lanes;
+  const bool enabled = *a.lights_no > 0;
+
+  // the accumulation (path_trace.rgen update_result) and the launch's
+  // squared luminance
+  const float en = step(enabled);
+  const float cr = a.miss_r[i] + a.nee_r[i], cg = a.miss_g[i] + a.nee_g[i],
+              cb = a.miss_b[i] + a.nee_b[i];
+  a.out_accum_r[i] = a.accum_r[i] + en * cr;
+  a.out_accum_g[i] = a.accum_g[i] + en * cg;
+  a.out_accum_b[i] = a.accum_b[i] + en * cb;
+  const float c_lum =
+      en * (cr * F32(0.2126) + cg * F32(0.7152) + cb * F32(0.0722));
+  a.out_sq[i] = a.sq[i] + c_lum * c_lum;
+
+  const bool missed = a.missed[i] != 0;
+  const float* ms = a.mat_scalars + 10 * static_cast<int64_t>(a.mat_id[i]);
+  const float last = a.last_specular[i];
+  const float new_specular = missed ? last : step(ms[4] > 0.5f);
+  a.out_last_specular[i] = enabled ? new_specular : last;
+  const float bounce = a.bounce[i];
+  if (a.direct_only) {
+    a.out_bounce[i] = 0.0f;
+    return;
+  }
+
+  // a lane whose path ends here keeps its state (as do all lanes with the
+  // lights off), so only the others draw the roulette and sample
+  const int chain = i / a.lanes_per_chain;
+  const float* imp = a.importance + i;
+  bool dead = missed;
+  float rr_scale = 1.0f;
+  if (enabled && !dead && bounce > kRoulette) {
+    // Russian roulette (path_trace.rgen:196-211)
+    const float kill_prob =
+        clamp_min(1.0f - luminance(K, imp, n), F32(0.05));
+    dead = a.r_rr[chain] < kill_prob;
+    rr_scale = rdiv(1.0f, 1.0f - kill_prob);
+  }
+  if (enabled && !dead) {
+    // the BSDF sample of the lane's own family (path_trace.rgen:212-228)
+    const V3 s = {a.sx[i], a.sy[i], a.sz[i]}, t = {a.tx[i], a.ty[i], a.tz[i]},
+             nn = {a.nx[i], a.ny[i], a.nz[i]};
+    const V3 wo = to_shading({a.wox[i], a.woy[i], a.woz[i]}, s, t, nn);
+    const float ra = a.r_a[chain], rb = a.r_b[chain], rc = a.r_c[chain];
+    const int fam = static_cast<int>(ms[8]);
+    const int family =
+        (fam >= 0 && fam < 6 && ((a.families >> fam) & 1)) ? fam
+                                                           : a.first_family;
+    Material m;
+    m.s = ms;
+    m.ior = a.metal_ior + kBins * static_cast<int64_t>(a.mat_id[i]);
+    m.fres = a.metal_fresnel + kBins * static_cast<int64_t>(a.mat_id[i]);
+    const int32_t* mt = a.mat_tex + 5 * static_cast<int64_t>(a.mat_id[i]);
+    const float u = a.u[i], v = a.v[i];
+    if (family == kLambert || family == kUber) {
+      if (a.diffuse_r) {
+        m.diffuse[0] = a.diffuse_r[i];
+        m.diffuse[1] = a.diffuse_g[i];
+        m.diffuse[2] = a.diffuse_b[i];
+      } else if (a.tex_flags & kTexDiffuse) {
+        float rgb[3];
+        sample_tex(a, mt[0], u, v, 3, rgb);
+        m.diffuse[0] = rgb[0] * ms[5];
+        m.diffuse[1] = rgb[1] * ms[6];
+        m.diffuse[2] = rgb[2] * ms[7];
+      } else {
+        m.diffuse[0] = ms[5];
+        m.diffuse[1] = ms[6];
+        m.diffuse[2] = ms[7];
+      }
+    }
+    if (family == kMetal || family == kFrosted || family == kUber) {
+      if (a.roughness) {
+        m.rough = a.roughness[i];
+      } else if (a.tex_flags & kTexRoughness) {
+        float r;
+        sample_tex(a, mt[1], u, v, 1, &r);
+        m.rough = r * ms[1];
+      } else {
+        m.rough = ms[1];
+      }
+    }
+    if (family == kUber) {
+      if (a.metalness) {
+        m.metal = a.metalness[i];
+      } else if (a.tex_flags & kTexMetalness) {
+        float r;
+        sample_tex(a, mt[2], u, v, 1, &r);
+        m.metal = r * ms[2];
+      } else {
+        m.metal = ms[2];
+      }
+    }
+    V3 wi;
+    float val[kBins];
+    float pdf;
+    switch (family) {
+      case kMirror: pdf = mirror_sample(m, wo, wi, val); break;
+      case kGlass: pdf = glass_sample(m, wo, rc, wi, val); break;
+      case kMetal: pdf = metal_sample(m, wo, ra, rb, wi, val); break;
+      case kFrosted: pdf = frosted_sample(m, wo, ra, rb, rc, wi, val); break;
+      case kUber: pdf = uber_sample(K, m, wo, ra, rb, rc, wi, val); break;
+      default: pdf = lambert_sample(K, m, wo, ra, rb, wi, val); break;
+    }
+    const V3 wiw = to_world(wi, s, t, nn);
+    dead = pdf <= 0.0f;
+    if (!dead) {
+      const float weight = fabsf(dot(wiw, nn)) / clamp_min(pdf, kTiny);
+#pragma unroll
+      for (int k = 0; k < kBins; ++k)
+        a.out_importance[k * n + i] = imp[k * n] * rr_scale * val[k] * weight;
+      a.out_ox[i] = a.px[i];
+      a.out_oy[i] = a.py[i];
+      a.out_oz[i] = a.pz[i];
+      a.out_dx[i] = wiw.x;
+      a.out_dy[i] = wiw.y;
+      a.out_dz[i] = wiw.z;
+    }
+  }
+  if (!enabled || dead) {
+    const float* old = a.state_importance + i;
+#pragma unroll
+    for (int k = 0; k < kBins; ++k) a.out_importance[k * n + i] = old[k * n];
+    a.out_ox[i] = a.ox[i];
+    a.out_oy[i] = a.oy[i];
+    a.out_oz[i] = a.oz[i];
+    a.out_dx[i] = a.dx[i];
+    a.out_dy[i] = a.dy[i];
+    a.out_dz[i] = a.dz[i];
+  }
+  // "if bounce < PT_STEPS inc else reset"
+  const bool at_max = bounce >= kSteps;
+  a.out_bounce[i] =
+      enabled ? ((dead || at_max) ? 0.0f : bounce + 1.0f) : bounce;
 }
 
 }  // namespace glaze_nee

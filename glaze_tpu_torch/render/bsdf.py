@@ -5,9 +5,11 @@ Port of :mod:`glaze_tpu.render.bsdf` (the ``mat_*_value`` /
 in the scene is evaluated over the whole batch and the material's family
 id selects the result. Directions are (x, y, z) tuples of (R,) tensors in
 shading space; spectra are (16, R); uv is a (u, v) tuple. On the card,
-the NEE stage runs :mod:`glaze_tpu_torch.render.nee_cuda`'s kernel, one
-family a lane, in place of :func:`bsdf_value`, which stays its plain
-version; the kernel files the texels it fetched in the same memo.
+the NEE stage runs :mod:`glaze_tpu_torch.render.nee_cuda`'s kernel and
+the BSDF stage :mod:`glaze_tpu_torch.render.bsdf_cuda`'s, one family a
+lane, in place of :func:`bsdf_value` and :func:`bsdf_sample`, which stay
+their plain versions; the NEE kernel files the texels it fetched in the
+same memo, where the BSDF kernel takes them.
 """
 
 from __future__ import annotations

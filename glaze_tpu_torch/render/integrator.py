@@ -21,8 +21,10 @@ the scene lives on the card. The closest hit walks ``scene.bvh`` (a
 fat-leaf tree under ``GLAZE_TREE=fat|hybrid``), the shadow rays the
 classic ``scene.bvh_any`` of a hybrid scene, else ``scene.bvh``. The
 NEE stage before its shadow rays (the light sample, the BSDF value, the
-weight and the contribution) is :mod:`glaze_tpu_torch.render.nee_cuda`:
-one kernel on the card, the plain torch version on the CPU.
+weight and the contribution) is :mod:`glaze_tpu_torch.render.nee_cuda`,
+and the BSDF stage (the accumulation, Russian roulette, the BSDF sample
+and the new path state) :mod:`glaze_tpu_torch.render.bsdf_cuda`: one
+kernel each on the card, the plain torch versions on the CPU.
 
 Opacity maps (``alpha_rounds > 0``; raytrace_hit.rahit semantics: a hit
 whose opacity sample is < 0.5 is skipped) take one of three branches,
@@ -77,13 +79,12 @@ from glaze_tpu_torch.ops import spectra
 from glaze_tpu_torch.ops import texture as tx
 from glaze_tpu_torch.ops import vec
 from glaze_tpu_torch.render import bsdf as bsdf_mod
-from glaze_tpu_torch.render import nee_cuda
+from glaze_tpu_torch.render import bsdf_cuda, nee_cuda
 from glaze_tpu_torch.scene import flatten as fl
 from glaze_tpu_torch.utils import runtime
 from glaze_tpu_torch.utils.runtime import span, traced
 
-PT_STEPS = 6  # raytrace_structures.rs:87
-RUSSIAN_ROULETTE = PT_STEPS // 2  # path_trace.rgen:11
+PT_STEPS = bsdf_cuda.PT_STEPS  # raytrace_structures.rs:87
 INV_2PI = float(np.float32(0.1591549))
 INV_PI = float(np.float32(0.3183099))
 
@@ -990,17 +991,6 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
             draws=None if ld_draws is None else ld_draws[:5])
 
     with span("integrator.bsdf"):
-        new_specular = torch.where(missed, state.last_specular,
-                                   mat_specular.to(torch.float32))
-
-        en = enabled.to(torch.float32)
-        accum = tuple(state.accum[i] + en * (miss_contrib[i] + nee_contrib[i])
-                      for i in range(3))
-        c_lum = en * (0.2126 * (miss_contrib[0] + nee_contrib[0])
-                      + 0.7152 * (miss_contrib[1] + nee_contrib[1])
-                      + 0.0722 * (miss_contrib[2] + nee_contrib[2]))
-        sq = state.sq + c_lum * c_lum
-
         fh = None
         if want_first_hit:
             fh = {"missed": missed, "t": hit["t"], "origin": origin,
@@ -1008,60 +998,23 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
                   "shading_normal": surf["shading_normal"],
                   "material_id": surf["material_id"], "uv": surf["uv"]}
 
+        # the roulette's draw, then the BSDF sample's three
+        draws = None
         if direct_only:
-            st = PathState(
-                importance=state.importance,
-                origin=state.origin,
-                direction=state.direction,
-                bounce=torch.zeros_like(state.bounce),
-                last_specular=torch.where(enabled, new_specular,
-                                          state.last_specular),
-                accum=accum, count=count, path_no=new_path_no, sq=sq)
-            return (st, fh) if want_first_hit else st
-
-        # ---- Russian roulette (path_trace.rgen:196-211)
-        rng, rr_roll = rng_mod.next_f32(rng)
-        if ld_draws is not None:
-            rr_roll = ld_draws[5]
-        rr_active = state.bounce > RUSSIAN_ROULETTE
-        kill_prob = torch.clamp(1.0 - spectra.luminance_t(importance),
-                                min=0.05)
-        rr_kill = rr_active & (ex(rr_roll) < kill_prob)
-        rr_scale = torch.where(rr_active, 1.0 / (1.0 - kill_prob),
-                               torch.ones_like(kill_prob))
-        importance = importance * rr_scale
-
-        # ---- BSDF sampling (path_trace.rgen:212-228)
-        rng, sa = rng_mod.next_f32(rng)
-        rng, sb_ = rng_mod.next_f32(rng)
-        rng, sc = rng_mod.next_f32(rng)
-        if ld_draws is not None:
-            sa, sb_, sc = ld_draws[6], ld_draws[7], ld_draws[8]
-        wo = shading.to_shading_space_v(wo_w, frame)
-        wi, value, pdf = bsdf_mod.bsdf_sample(scene, mat, wo, surf["uv"],
-                                              (ex(sa), ex(sb_), ex(sc)))
-        wi_w = shading.to_world_space_v(wi, frame)
-        sample_dead = pdf <= 0.0
-        weight = (torch.abs(vec.dot(wi_w, surf["shading_normal"]))
-                  / torch.clamp(pdf, min=1e-20))
-        next_importance = importance * value * weight
-
-        path_dead = missed | rr_kill | sample_dead
-        # "if bounce < PT_STEPS inc else reset"
-        at_max = state.bounce >= PT_STEPS
-        new_bounce = torch.where(path_dead | at_max,
-                                 torch.zeros_like(state.bounce),
-                                 state.bounce + 1.0)
-
-        upd = enabled & ~path_dead
-        st = PathState(
-            importance=torch.where(upd, next_importance, state.importance),
-            origin=vec.where(upd, surf["point"], state.origin),
-            direction=vec.where(upd, wi_w, state.direction),
-            bounce=torch.where(enabled, new_bounce, state.bounce),
-            last_specular=torch.where(enabled, new_specular,
-                                      state.last_specular),
-            accum=accum, count=count, path_no=new_path_no, sq=sq)
+            pass
+        elif ld_draws is not None:
+            draws = ld_draws[5:9]
+        else:
+            draws = []
+            for _ in range(4):
+                rng, r = rng_mod.next_f32(rng)
+                draws.append(r)
+        # a mesh slot's state may be a lane slice of the whole state's
+        state = state._replace(importance=state.importance.contiguous())
+        new = bsdf_cuda.bsdf(scene, state, surf, missed, wo_w, frame, mat,
+                             importance, miss_contrib, nee_contrib, draws, ex,
+                             direct_only)
+        st = PathState(count=count, path_no=new_path_no, **new)
         return (st, fh) if want_first_hit else st
 
 

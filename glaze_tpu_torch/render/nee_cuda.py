@@ -154,6 +154,9 @@ def build() -> str:
 
 
 def _load():
+    """The shading library, built if need be and loaded once a process,
+    with the entry points of both its kernels declared (the BSDF kernel's
+    take a ``bsdf_cuda.BsdfArgs`` by reference)."""
     global _lib
     if _lib is None:
         # the span ``setup.kernels``: the build (or the check that the
@@ -166,6 +169,10 @@ def _load():
         lib.glaze_nee_launch.restype = i
         lib.glaze_nee_attrs.argtypes = [ctypes.POINTER(i)] * 5
         lib.glaze_nee_attrs.restype = i
+        lib.glaze_bsdf_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.glaze_bsdf_launch.restype = i
+        lib.glaze_bsdf_attrs.argtypes = [ctypes.POINTER(i)] * 5
+        lib.glaze_bsdf_attrs.restype = i
         lib.glaze_nee_error_string.argtypes = [i]
         lib.glaze_nee_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -191,19 +198,19 @@ def kernel_attrs() -> dict:
             "occupancy": blocks.value * threads.value / most.value}
 
 
-def _check_form(t, name, dtype, shape):
+def _check_form(t, name, dtype, shape, who="nee"):
     """Raises unless ``t`` has ``dtype`` and ``shape`` (None matches any
-    length) and is contiguous."""
+    length) and is contiguous; ``who`` heads the message."""
     if not isinstance(t, torch.Tensor) or t.dtype != dtype:
-        raise ValueError(f"nee: {name} must be a {dtype} tensor, not "
+        raise ValueError(f"{who}: {name} must be a {dtype} tensor, not "
                          f"{getattr(t, 'dtype', type(t).__name__)}")
     got = t.shape
     if (got != shape if None not in shape else len(got) != len(shape) or any(
             w is not None and g != w for g, w in zip(got, shape))):
-        raise ValueError(f"nee: {name} has shape {tuple(t.shape)}, not "
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, not "
                          f"{tuple('*' if s is None else s for s in shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"nee: {name} must be contiguous")
+        raise ValueError(f"{who}: {name} must be contiguous")
 
 
 def _scene_table(scene, attr):
