@@ -145,8 +145,8 @@ BYTES_PER_COEF_ROW = 76
 # on the opaque tree and K2 twice on the alpha tree (_alpha_walk_refined),
 # and the occlusion (_occlusion_sorted's candidate path) K3 on the opaque
 # tree and K2 twice on the alpha tree.
-# Every path launches the NEE kernel (render/nee_cuda.py) and the BSDF
-# kernel (render/bsdf_cuda.py) once a launch.
+# Every path launches the NEE kernel and the BSDF kernel
+# (render/shade_cuda.py) once a launch.
 LAUNCHES = SPP * 6
 KERNELS = ("closest_hit", "any_hit", "closest_hit_masked", "any_hit_masked",
            "closest_hit_fat", "any_hit_fat", "nee", "bsdf")
@@ -275,13 +275,12 @@ def phase_build():
 
     from glaze_tpu_torch import native
     from glaze_tpu_torch.accel import traverse_cuda as tc
-    from glaze_tpu_torch.render import bsdf_cuda as bc
-    from glaze_tpu_torch.render import nee_cuda as nc
+    from glaze_tpu_torch.render import shade_cuda as shade
     from glaze_tpu_torch.tools import probes_cuda as pc
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(5) as pool:
-        jobs = [pool.submit(f) for f in (tc.build, pc.build, nc.build,
+        jobs = [pool.submit(f) for f in (tc.build, pc.build, shade.build,
                                          native.get_lib,
                                          _script("issue_rates").build)]
         for job in jobs:
@@ -289,13 +288,13 @@ def phase_build():
     log(f"[build] traverse.cu + probes.cu + shade.cu + issue_rates.cu + "
         f"native host library in {time.perf_counter() - t0:.2f} s")
     for lib, text in (("traverse", tc.build_log), ("probes", pc.build_log),
-                      ("shade", nc.build_log)):
+                      ("shade", shade.build_log)):
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"[build] {lib} ptxas: {line.strip()}")
     attrs = tc.kernel_attrs()
-    attrs["nee"] = nc.kernel_attrs()
-    attrs["bsdf"] = bc.kernel_attrs()
+    attrs["nee"] = shade.kernel_attrs("nee")
+    attrs["bsdf"] = shade.kernel_attrs("bsdf")
     at = {"drain": ", at T = 128", "chain": ", at W = 512"}
     for name, a in (*attrs.items(), *pc.kernel_attrs().items()):
         where = (", at W = 2048" if name.endswith("w2048")
@@ -1255,21 +1254,19 @@ def _nee_bytes(args, out):
 
 
 def phase_nee(path):
-    """The NEE kernel (render/nee_cuda.py, csrc/shade.cu) against its plain
+    """The NEE kernel (render/shade_cuda.py, csrc/shade.cu) against its plain
     version on the card, on the inputs of the first two launches of a
     1920x1080 render of the full scene (camera hits, then bounce hits):
     wiw, cap, the shadow rays' active lanes and sort key, and the texels
     bit for bit; the contribution within 1e-5 of the lane's largest
     channel (the 16-bin sums run in another order). Times the kernel
     (CUDA events over 20 launches), the plain version and the bound."""
-    import ctypes
-
     from glaze_tpu_torch.render import bsdf as bsdf_mod
     from glaze_tpu_torch.render import integrator as ti
-    from glaze_tpu_torch.render import nee_cuda as nc
+    from glaze_tpu_torch.render import shade_cuda as shade
 
     sets = []
-    orig = nc.nee
+    orig = shade.nee
 
     def capture(scene, hit, wo_w, frame, mat, importance, nee_active, draws,
                 expand):
@@ -1285,11 +1282,11 @@ def phase_nee(path):
         return orig(scene, hit, wo_w, frame, mat, importance, nee_active,
                     draws, expand)
 
-    nc.nee = capture
+    shade.nee = capture
     try:
         r, _ = _capture_sample(path)
     finally:
-        nc.nee = orig
+        shade.nee = orig
     scene = r.scene
     p = sets[0]["importance"].shape[1]
     entry = dict(name="nee", route="cuda", source="glaze_tpu_torch/csrc/shade.cu",
@@ -1299,15 +1296,16 @@ def phase_nee(path):
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     for label, a in zip(("camera_hits", "bounce_hits"), sets):
         def plain(mat):
-            return nc.nee_plain(scene, a["hit"], a["wo_w"], a["frame"], mat,
-                                a["importance"], a["nee_active"], a["draws"],
-                                lambda x: ti._expand_block(x, p))
+            return shade.nee_plain(scene, a["hit"], a["wo_w"], a["frame"],
+                                   mat, a["importance"], a["nee_active"],
+                                   a["draws"],
+                                   lambda x: ti._expand_block(x, p))
 
         mat_p = bsdf_mod.gather_material(scene, a["hit"]["material_id"])
         want = plain(mat_p)
         mat_k = bsdf_mod.gather_material(scene, a["hit"]["material_id"])
-        got = nc.nee_kernel(scene, a["hit"], a["wo_w"], a["frame"], mat_k,
-                            a["importance"], a["nee_active"], a["draws"])
+        got = shade.nee_kernel(scene, a["hit"], a["wo_w"], a["frame"], mat_k,
+                               a["importance"], a["nee_active"], a["draws"])
         torch.cuda.synchronize()
         bad = {}
         for k in ("cap", "active", "key"):
@@ -1316,8 +1314,10 @@ def phase_nee(path):
             bad[k] = int((got[k] != w).sum())
         bad["wiw"] = int(sum((g != w).sum() for g, w in zip(got["wiw"],
                                                             want["wiw"])))
+        # the texels it returns for the BSDF stage against those the plain
+        # version kept in its memo
         for key, (_, val) in mat_p.get("_texmemo", {}).items():
-            mine = mat_k["_texmemo"][key][1]
+            mine = got["texels"][key]
             for g, w in zip(mine if isinstance(mine, tuple) else (mine,),
                             val if isinstance(val, tuple) else (val,)):
                 bad[f"texel_{key}"] = bad.get(f"texel_{key}", 0) + int(
@@ -1334,15 +1334,15 @@ def phase_nee(path):
         if any(bad.values()):
             raise RuntimeError(f"[nee] {label}: the kernel disagrees with "
                                f"its plain version: {bad}")
-        args, out = nc.prepare(scene, a["hit"], a["wo_w"], a["frame"],
-                               a["importance"], a["nee_active"], a["draws"])
-        lib = nc._load()
-        stream = torch.cuda.current_stream().cuda_stream
+        args, out = shade.nee_prepare(scene, a["hit"], a["wo_w"], a["frame"],
+                                      a["importance"], a["nee_active"],
+                                      a["draws"])
+        dev = a["importance"].device
         for _ in range(3):
-            lib.glaze_nee_launch(ctypes.byref(args), stream)
+            shade.launch("nee", args, dev)
         ev[0].record()
         for _ in range(20):
-            lib.glaze_nee_launch(ctypes.byref(args), stream)
+            shade.launch("nee", args, dev)
         ev[1].record()
         torch.cuda.synchronize()
         ms = ev[0].elapsed_time(ev[1]) / 20
@@ -1380,10 +1380,10 @@ def _bsdf_bytes(scene, a):
     reads its miss flag, material row index, bounce, last_specular, accum,
     sq and the two contributions and writes the 29 floats of its new state;
     a lane that hit reads the frame, wo, the hit point, uv, the launch's
-    importance and its draws (at their chain width), and the memo's texels
-    that its family reads; a lane that missed reads the old importance,
-    origin and direction. The scene's rows come from L2 and are not
-    counted."""
+    importance and its draws (at their chain width), and the NEE stage's
+    texels that its family reads; a lane that missed reads the old
+    importance, origin and direction. The scene's rows come from L2 and
+    are not counted."""
     p = a["importance"].shape[1]
     c = a["draws"][0].shape[0]
     hit = ~a["missed"]
@@ -1391,7 +1391,7 @@ def _bsdf_bytes(scene, a):
     fam = scene.mat_scalars[a["hit"]["material_id"].long(), 8]
     readers = {"diffuse": (0, 5), "rough": (3, 4, 5), "metal": (5,)}
     texels = 0
-    for key, val in a["memo"].items():
+    for key, val in a["texels"].items():
         rows = len(val) if isinstance(val, tuple) else 1
         reads = hit & sum((fam == f) for f in readers[key]).bool()
         texels += 4 * rows * int(reads.sum())
@@ -1402,21 +1402,19 @@ def _bsdf_bytes(scene, a):
 
 
 def phase_bsdf(path):
-    """The BSDF kernel (render/bsdf_cuda.py, csrc/shade.cu) against its
+    """The BSDF kernel (render/shade_cuda.py, csrc/shade.cu) against its
     plain version on the card, on the inputs of the first two launches of
     a 1920x1080 render of the full scene (camera hits, then bounce hits),
-    with the texels the NEE stage filed and without them: every leaf of the
-    new state bit for bit. Times the kernel (CUDA events over 20 launches)
-    and the plain version, and gives the bound by bytes (_bsdf_bytes)."""
-    import ctypes
-
+    given the texels the NEE kernel returned and fetching its own: every
+    leaf of the new state bit for bit. Times the kernel (CUDA events over
+    20 launches) and the plain version, and gives the bound by bytes
+    (_bsdf_bytes)."""
     from glaze_tpu_torch.render import bsdf as bsdf_mod
-    from glaze_tpu_torch.render import bsdf_cuda as bc
     from glaze_tpu_torch.render import integrator as ti
-    from glaze_tpu_torch.render import nee_cuda as nc
+    from glaze_tpu_torch.render import shade_cuda as shade
 
     sets = []
-    orig = bc.bsdf
+    orig = shade.bsdf
 
     def cl(x):
         if isinstance(x, tuple):
@@ -1425,9 +1423,9 @@ def phase_bsdf(path):
         return x.clone() if isinstance(x, torch.Tensor) else x
 
     def capture(scene, state, hit, missed, wo_w, frame, mat, importance,
-                miss_rgb, nee_rgb, draws, expand, direct_only=False):
+                miss_rgb, nee_rgb, draws, expand, direct_only=False,
+                texels=None):
         if len(sets) < 2:
-            memo = mat.get("_texmemo", {})
             sets.append({
                 "state": cl(state), "hit": {k: cl(hit[k]) for k in (
                     "point", "shading_normal", "uv", "material_id")},
@@ -1435,16 +1433,15 @@ def phase_bsdf(path):
                 "frame": cl(frame), "importance": importance.clone(),
                 "miss_rgb": cl(miss_rgb), "nee_rgb": nee_rgb.clone(),
                 "draws": cl(tuple(draws)),
-                "memo": {k: cl(v[1]) for k, v in memo.items()
-                         if v[0] is hit["uv"]}})
+                "texels": {k: cl(v) for k, v in texels.items()}})
         return orig(scene, state, hit, missed, wo_w, frame, mat, importance,
-                    miss_rgb, nee_rgb, draws, expand, direct_only)
+                    miss_rgb, nee_rgb, draws, expand, direct_only, texels)
 
-    bc.bsdf = capture
+    shade.bsdf = capture
     try:
         r, _ = _capture_sample(path)
     finally:
-        bc.bsdf = orig
+        shade.bsdf = orig
     scene = r.scene
     p = sets[0]["importance"].shape[1]
     entry = dict(name="bsdf", route="cuda", source="glaze_tpu_torch/csrc/shade.cu",
@@ -1455,24 +1452,23 @@ def phase_bsdf(path):
     for label, a in zip(("camera_hits", "bounce_hits"), sets):
         hit = a["hit"]
 
-        def mat(with_memo):
-            m = bsdf_mod.gather_material(scene, hit["material_id"])
-            if with_memo:
-                bsdf_mod.memo_texels(m, hit["uv"], **a["memo"])
-            return m
-
-        def call(fn, m, *extra):
+        def call(fn, m, *extra, **kw):
             return fn(scene, a["state"], hit, a["missed"], a["wo_w"],
                       a["frame"], m, a["importance"], a["miss_rgb"],
-                      a["nee_rgb"], a["draws"], *extra)
+                      a["nee_rgb"], a["draws"], *extra, **kw)
 
         def ex(x):
             return ti._expand_block(x, p)
 
-        want = call(bc.bsdf_plain, mat(True), ex)
+        # the plain version fetches its own texels into mat_p, which the
+        # timed calls below reuse, as the plain stage reuses the NEE stage's
+        mat_p = bsdf_mod.gather_material(scene, hit["material_id"])
+        want = call(shade.bsdf_plain, mat_p, ex)
         bad = {}
-        for memo in (True, False):
-            got = call(bc.bsdf_kernel, mat(memo))
+        for given in (True, False):
+            got = call(shade.bsdf_kernel,
+                       bsdf_mod.gather_material(scene, hit["material_id"]),
+                       texels=a["texels"] if given else None)
             torch.cuda.synchronize()
             for k, w in want.items():
                 g = got[k]
@@ -1481,7 +1477,7 @@ def phase_bsdf(path):
                 same = (g == w) | (torch.isnan(g) & torch.isnan(w))
                 n_bad = int((~same).sum())
                 if n_bad:
-                    bad[f"{k}{'' if memo else '_no_memo'}"] = n_bad
+                    bad[f"{k}{'' if given else '_fetched'}"] = n_bad
         missed = int(a["missed"].sum())
         killed = int(((a["state"].bounce > 3) & ~a["missed"]
                       & (want["bounce"] == 0)).sum())
@@ -1492,24 +1488,24 @@ def phase_bsdf(path):
         if bad:
             raise RuntimeError(f"[bsdf] {label}: the kernel disagrees with "
                                f"its plain version: {bad}")
-        args, out = bc.prepare(scene, a["state"], hit, a["missed"], a["wo_w"],
-                               a["frame"], mat(True), a["importance"],
-                               a["miss_rgb"], a["nee_rgb"], a["draws"])
-        lib = nc._load()
-        stream = torch.cuda.current_stream().cuda_stream
+        args, out = shade.bsdf_prepare(
+            scene, a["state"], hit, a["missed"], a["wo_w"], a["frame"],
+            a["importance"], a["miss_rgb"], a["nee_rgb"], a["draws"],
+            texels=a["texels"])
+        dev = a["importance"].device
         for _ in range(3):
-            lib.glaze_bsdf_launch(ctypes.byref(args), stream)
+            shade.launch("bsdf", args, dev)
         ev[0].record()
         for _ in range(20):
-            lib.glaze_bsdf_launch(ctypes.byref(args), stream)
+            shade.launch("bsdf", args, dev)
         ev[1].record()
         torch.cuda.synchronize()
         ms = ev[0].elapsed_time(ev[1]) / 20
-        call(bc.bsdf_plain, mat(True), ex)
+        call(shade.bsdf_plain, mat_p, ex)
         torch.cuda.synchronize()
         ev[0].record()
         for _ in range(3):
-            call(bc.bsdf_plain, mat(True), ex)
+            call(shade.bsdf_plain, mat_p, ex)
         ev[1].record()
         torch.cuda.synchronize()
         plain_ms = ev[0].elapsed_time(ev[1]) / 3
@@ -1532,26 +1528,23 @@ def _launch_counts():
     """Every traversal kernel's, the NEE kernel's and the BSDF kernel's
     launch count, by KERNELS name, and every probe kernel's."""
     from glaze_tpu_torch.accel import traverse_cuda as tc
-    from glaze_tpu_torch.render import bsdf_cuda as bc
-    from glaze_tpu_torch.render import nee_cuda as nc
+    from glaze_tpu_torch.render import shade_cuda as shade
     from glaze_tpu_torch.tools import probes_cuda as pc
 
     wrappers = (tc.closest_hit_soa, tc.any_hit_soa, tc.closest_hit_soa_masked,
                 tc.any_hit_soa_masked, tc.closest_hit_fat_soa,
-                tc.any_hit_fat_soa, nc.nee_kernel, bc.bsdf_kernel)
+                tc.any_hit_fat_soa, shade.nee_kernel, shade.bsdf_kernel)
     return ({name: fn.launches for name, fn in zip(KERNELS, wrappers)},
             {fn.__name__: fn.launches for fn in pc.KERNEL_WRAPPERS})
 
 
 def _reset_counts():
     from glaze_tpu_torch.accel import traverse_cuda as tc
-    from glaze_tpu_torch.render import bsdf_cuda as bc
-    from glaze_tpu_torch.render import nee_cuda as nc
+    from glaze_tpu_torch.render import shade_cuda as shade
     from glaze_tpu_torch.tools import probes_cuda as pc
 
     tc.reset_launch_counts()
-    nc.reset_launch_counts()
-    bc.reset_launch_counts()
+    shade.reset_launch_counts()
     pc.reset_launch_counts()
 
 
@@ -1996,8 +1989,7 @@ RESUME_CHILD = """
 import json, sys
 from glaze_tpu_torch import cli
 from glaze_tpu_torch.accel import traverse_cuda as tc
-from glaze_tpu_torch.render import bsdf_cuda as bc
-from glaze_tpu_torch.render import nee_cuda as nc
+from glaze_tpu_torch.render import shade_cuda as shade
 code, r, t = cli.run(sys.argv[1:])
 print(json.dumps({"code": code, "times": t, "completed_spp": r.completed_spp,
                   "launches": [tc.closest_hit_soa.launches,
@@ -2006,8 +1998,8 @@ print(json.dumps({"code": code, "times": t, "completed_spp": r.completed_spp,
                                tc.any_hit_soa_masked.launches,
                                tc.closest_hit_fat_soa.launches,
                                tc.any_hit_fat_soa.launches,
-                               nc.nee_kernel.launches,
-                               bc.bsdf_kernel.launches]}))
+                               shade.nee_kernel.launches,
+                               shade.bsdf_kernel.launches]}))
 """
 
 
@@ -3565,18 +3557,16 @@ import json, os, sys
 sys.path.insert(0, os.getcwd())
 import torch
 from glaze_tpu_torch.accel import traverse_cuda as tc
-from glaze_tpu_torch.render import bsdf_cuda as bc
-from glaze_tpu_torch.render import nee_cuda as nc
+from glaze_tpu_torch.render import shade_cuda as shade
 from glaze_tpu_torch.tools import pod_launch
 tc.reset_launch_counts()
-nc.reset_launch_counts()
-bc.reset_launch_counts()
+shade.reset_launch_counts()
 code = pod_launch.main(sys.argv[2:])
 torch.cuda.synchronize()
 launches = [tc.closest_hit_soa.launches, tc.any_hit_soa.launches,
             tc.closest_hit_soa_masked.launches, tc.any_hit_soa_masked.launches,
             tc.closest_hit_fat_soa.launches, tc.any_hit_fat_soa.launches,
-            nc.nee_kernel.launches, bc.bsdf_kernel.launches]
+            shade.nee_kernel.launches, shade.bsdf_kernel.launches]
 with open(os.path.join(sys.argv[1], "rank%s.json" % os.environ["RANK"]),
           "w") as f:
     json.dump({"code": code, "launches": launches}, f)

@@ -7,7 +7,7 @@
 // nee_kernel replaces no Pallas kernel. The JAX package leaves this stage to
 // XLA, which fuses the elementwise work of glaze_tpu/render/integrator.py
 // direct_light on the TPU; the port ran it as eager PyTorch
-// (render/nee_cuda.py nee_plain: lights.sample_light, bsdf.bsdf_value, the
+// (render/shade_cuda.py nee_plain: lights.sample_light, bsdf.bsdf_value, the
 // weight and spectra.to_rgb_t), some 1,500 small kernels a launch, each of
 // which runs every light type and every BSDF family present in the scene
 // over every lane and selects with torch.where, and reads and writes
@@ -19,9 +19,9 @@
 // nee_kernel's outputs, one a lane: the shadow ray's direction wiw and cap
 // (distance - 1e-3), its active flag (nee_active and a usable sample), the
 // unshadowed RGB contribution, the shadow ray's coherence sort key
-// (integrator._trace_key) and the texels bsdf.bsdf_value memoizes for the
-// BSDF stage (the diffuse rgb, roughness and metalness, written for every
-// lane where the caller asks for them).
+// (integrator._trace_key) and the texels bsdf.bsdf_value fetches, which
+// the BSDF stage takes as an argument (the diffuse rgb, roughness and
+// metalness, written for every lane where the caller asks for them).
 //
 // What bounds nee_kernel on an H100: bytes. A lane reads ~40 floats (the
 // hit point, the shading frame, wo, uv, the material row index, 16 bins of
@@ -33,7 +33,7 @@
 //
 // bsdf_kernel replaces no Pallas kernel either: the JAX package's
 // path_trace step leaves the bounce to XLA as well. The port ran it as
-// ~1,150 eager kernels a launch (render/bsdf_cuda.py bsdf_plain: the
+// ~1,150 eager kernels a launch (render/shade_cuda.py bsdf_plain: the
 // accumulation, the roulette, bsdf.bsdf_sample, which samples every family
 // present over every lane and selects, and the masked writes of the new
 // PathState), each reading and writing whole (16, P) or (3, P) planes. Here
@@ -62,23 +62,23 @@ namespace {
 constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
-nee_kernel(const glaze_nee::NeeArgs a) {
-  __shared__ float K[glaze_nee::kConsts];
-  for (int k = threadIdx.x; k < glaze_nee::kConsts; k += blockDim.x)
+nee_kernel(const glaze_shade::NeeArgs a) {
+  __shared__ float K[glaze_shade::kConsts];
+  for (int k = threadIdx.x; k < glaze_shade::kConsts; k += blockDim.x)
     K[k] = a.consts[k];
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.n_lanes) glaze_nee::nee_lane(a, K, i);
+  if (i < a.n_lanes) glaze_shade::nee_lane(a, K, i);
 }
 
 __global__ void __launch_bounds__(kThreads)
-bsdf_kernel(const glaze_nee::BsdfArgs a) {
-  __shared__ float K[glaze_nee::kConsts];
-  for (int k = threadIdx.x; k < glaze_nee::kConsts; k += blockDim.x)
+bsdf_kernel(const glaze_shade::BsdfArgs a) {
+  __shared__ float K[glaze_shade::kConsts];
+  for (int k = threadIdx.x; k < glaze_shade::kConsts; k += blockDim.x)
     K[k] = a.consts[k];
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.n_lanes) glaze_nee::bsdf_lane(a, K, i);
+  if (i < a.n_lanes) glaze_shade::bsdf_lane(a, K, i);
 }
 
 // a kernel's registers and local (spill) bytes per thread, its threads per
@@ -109,7 +109,7 @@ extern "C" {
 
 // Launches nee_kernel over args->n_lanes lanes on ``stream`` and returns
 // cudaGetLastError() (0 = ok).
-int glaze_nee_launch(const glaze_nee::NeeArgs* args, void* stream) {
+int glaze_nee_launch(const glaze_shade::NeeArgs* args, void* stream) {
   const int n = args->n_lanes;
   if (n > 0)
     nee_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
@@ -128,7 +128,7 @@ int glaze_nee_attrs(int* regs, int* local_bytes, int* threads_per_block,
 
 // Launches bsdf_kernel over args->n_lanes lanes on ``stream`` and returns
 // cudaGetLastError() (0 = ok).
-int glaze_bsdf_launch(const glaze_nee::BsdfArgs* args, void* stream) {
+int glaze_bsdf_launch(const glaze_shade::BsdfArgs* args, void* stream) {
   const int n = args->n_lanes;
   if (n > 0)
     bsdf_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
@@ -143,7 +143,7 @@ int glaze_bsdf_attrs(int* regs, int* local_bytes, int* threads_per_block,
                       blocks_per_sm, max_threads_per_sm);
 }
 
-const char* glaze_nee_error_string(int code) {
+const char* glaze_shade_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

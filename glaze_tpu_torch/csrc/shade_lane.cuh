@@ -1,12 +1,12 @@
 // The lane arithmetic of the integrator's two shading kernels:
 //   * nee_lane, the NEE stage of one lane before its shadow ray: the light
 //     sample, the BSDF value, the weight and the unshadowed RGB
-//     contribution, as glaze_tpu_torch.render.nee_cuda.nee_plain computes
+//     contribution, as glaze_tpu_torch.render.shade_cuda.nee_plain computes
 //     them with render/lights.py (sample_light) and render/bsdf.py
 //     (bsdf_value);
 //   * bsdf_lane, the BSDF stage of one lane: the accumulation, Russian
 //     roulette, the BSDF sample of the lane's own family and the path-state
-//     update, as glaze_tpu_torch.render.bsdf_cuda.bsdf_plain computes them
+//     update, as glaze_tpu_torch.render.shade_cuda.bsdf_plain computes them
 //     with render/bsdf.py (bsdf_sample).
 //
 // Host-and-device code: csrc/shade.cu runs each once per thread, and a
@@ -50,10 +50,10 @@
 
 #define F32(x) static_cast<float>(x)
 
-namespace glaze_nee {
+namespace glaze_shade {
 
 constexpr int kBins = 16;
-// the constants table (render/nee_cuda.py _consts): Smits bases (white,
+// the constants table (render/shade_cuda.py CONSTS): Smits bases (white,
 // cyan, magenta, yellow, red, green, blue rows of 16), surface then
 // illuminant; CIE x, y, z; the XYZ -> linear sRGB matrix by rows; the two
 // basis scales and 1 / (sum of CIE y)
@@ -713,7 +713,7 @@ GLAZE_HD void nee_lane(const NeeArgs& a, const float* K, int i) {
   a.key[i] = trace_key(a, p, L.wiw, active);
 }
 
-// ---- the BSDF stage (render/bsdf_cuda.py bsdf_plain) ----------------------
+// ---- the BSDF stage (render/shade_cuda.py bsdf_plain) ---------------------
 
 struct BsdfArgs {
   // lanes: the hit point (the new origin), the shading frame (s, t, n = the
@@ -1155,4 +1155,4 @@ GLAZE_HD void bsdf_lane(const BsdfArgs& a, const float* K, int i) {
       enabled ? ((dead || at_max) ? 0.0f : bounce + 1.0f) : bounce;
 }
 
-}  // namespace glaze_nee
+}  // namespace glaze_shade

@@ -5,11 +5,10 @@ Port of :mod:`glaze_tpu.render.bsdf` (the ``mat_*_value`` /
 in the scene is evaluated over the whole batch and the material's family
 id selects the result. Directions are (x, y, z) tuples of (R,) tensors in
 shading space; spectra are (16, R); uv is a (u, v) tuple. On the card,
-the NEE stage runs :mod:`glaze_tpu_torch.render.nee_cuda`'s kernel and
-the BSDF stage :mod:`glaze_tpu_torch.render.bsdf_cuda`'s, one family a
-lane, in place of :func:`bsdf_value` and :func:`bsdf_sample`, which stay
-their plain versions; the NEE kernel files the texels it fetched in the
-same memo, where the BSDF kernel takes them.
+the NEE and BSDF stages run :mod:`glaze_tpu_torch.render.shade_cuda`'s
+kernels, one family a lane, in place of :func:`bsdf_value` and
+:func:`bsdf_sample`, which stay their plain versions; the NEE kernel
+hands the texels it fetched to the BSDF kernel as an argument.
 """
 
 from __future__ import annotations
@@ -93,7 +92,9 @@ def _dielectric_etas(mat, woz):
 def _tex_memo(mat, uv, key, fn):
     """Memo of a texture fetch inside the per-launch ``mat`` dict, keyed on
     the uv tuple's identity: bsdf_value (NEE) and bsdf_sample (bounce)
-    fetch the same texels for the same hit."""
+    fetch the same texels for the same hit. Only this module's plain
+    versions read and write it (``_texmemo``); the kernels pass theirs as
+    an argument."""
     cache = mat.setdefault("_texmemo", {})
     hit = cache.get(key)
     if hit is not None and hit[0] is uv:
@@ -101,15 +102,6 @@ def _tex_memo(mat, uv, key, fn):
     val = fn()
     cache[key] = (uv, val)
     return val
-
-
-def memo_texels(mat, uv, **texels):
-    """Files texels fetched elsewhere (the NEE kernel, render/nee_cuda.py)
-    in ``mat``'s memo under ``uv``, as :func:`_tex_memo` files its own:
-    ``diffuse`` an (r, g, b) tuple, ``rough`` and ``metal`` tensors."""
-    cache = mat.setdefault("_texmemo", {})
-    for key, val in texels.items():
-        cache[key] = (uv, val)
 
 
 def _diffuse_texel(scene, mat, uv):

@@ -21,10 +21,11 @@ the scene lives on the card. The closest hit walks ``scene.bvh`` (a
 fat-leaf tree under ``GLAZE_TREE=fat|hybrid``), the shadow rays the
 classic ``scene.bvh_any`` of a hybrid scene, else ``scene.bvh``. The
 NEE stage before its shadow rays (the light sample, the BSDF value, the
-weight and the contribution) is :mod:`glaze_tpu_torch.render.nee_cuda`,
-and the BSDF stage (the accumulation, Russian roulette, the BSDF sample
-and the new path state) :mod:`glaze_tpu_torch.render.bsdf_cuda`: one
-kernel each on the card, the plain torch versions on the CPU.
+weight and the contribution) and the BSDF stage (the accumulation,
+Russian roulette, the BSDF sample and the new path state) are
+:mod:`glaze_tpu_torch.render.shade_cuda`: one kernel each on the card,
+the NEE kernel handing its texels to the BSDF kernel, and the plain torch
+versions on the CPU.
 
 Opacity maps (``alpha_rounds > 0``; raytrace_hit.rahit semantics: a hit
 whose opacity sample is < 0.5 is skipped) take one of three branches,
@@ -79,12 +80,12 @@ from glaze_tpu_torch.ops import spectra
 from glaze_tpu_torch.ops import texture as tx
 from glaze_tpu_torch.ops import vec
 from glaze_tpu_torch.render import bsdf as bsdf_mod
-from glaze_tpu_torch.render import bsdf_cuda, nee_cuda
+from glaze_tpu_torch.render import shade_cuda
 from glaze_tpu_torch.scene import flatten as fl
 from glaze_tpu_torch.utils import runtime
 from glaze_tpu_torch.utils.runtime import span, traced
 
-PT_STEPS = bsdf_cuda.PT_STEPS  # raytrace_structures.rs:87
+PT_STEPS = shade_cuda.PT_STEPS  # raytrace_structures.rs:87
 INV_2PI = float(np.float32(0.1591549))
 INV_PI = float(np.float32(0.3183099))
 
@@ -775,12 +776,13 @@ def _expand_block(a, p: int):
 def _direct_light(scene, state_rng, wo_w, frame, hit, mat, importance,
                   active, alpha_rounds=0, expand=None, draws=None):
     """NEE (path_trace.rgen direct_light, :87-117). Advances the rng by 5
-    draws unconditionally. Returns (rng, rgb (3, R)): the linear RGB
-    contribution of the lanes of ``active`` whose shadow ray is not
-    blocked, 0 elsewhere.
+    draws unconditionally. Returns (rng, rgb (3, R), texels): the linear
+    RGB contribution of the lanes of ``active`` whose shadow ray is not
+    blocked, 0 elsewhere, and the texels the NEE kernel fetched for the
+    BSDF stage (None on the CPU).
 
     The light sample, the BSDF value, the weight and the contribution come
-    from :func:`glaze_tpu_torch.render.nee_cuda.nee` (one kernel on the
+    from :func:`glaze_tpu_torch.render.shade_cuda.nee` (one kernel on the
     card), the shadow test from the coherence-sorted walks.
 
     ``draws``: optional 5-tuple of lane-width uniforms (pick, a, b, c,
@@ -792,8 +794,8 @@ def _direct_light(scene, state_rng, wo_w, frame, hit, mat, importance,
     for _ in range(5):
         rng, r = rng_mod.next_f32(rng)
         chain.append(r)
-    out = nee_cuda.nee(scene, hit, wo_w, frame, mat, importance, active,
-                       tuple(chain) if draws is None else tuple(draws), ex)
+    out = shade_cuda.nee(scene, hit, wo_w, frame, mat, importance, active,
+                         tuple(chain) if draws is None else tuple(draws), ex)
     if alpha_rounds > 0:
         # transparent surfaces do not shadow (occlusion_tester + rahit)
         blocked = _occlusion_sorted(scene, hit["point"], out["wiw"],
@@ -802,7 +804,8 @@ def _direct_light(scene, state_rng, wo_w, frame, hit, mat, importance,
     else:
         blocked = _any_hit_sorted(scene, hit["point"], out["wiw"], out["cap"],
                                   out["active"], key=out["key"])
-    return rng, torch.where(active & ~blocked, out["rgb"], 0.0)
+    return (rng, torch.where(active & ~blocked, out["rgb"], 0.0),
+            out["texels"])
 
 
 @traced("integrator.launch")
@@ -985,7 +988,7 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
             nee_active = nee_active & ~parked
     ex = lambda a: _expand_block(a, p)  # noqa: E731
     with span("integrator.nee"):
-        rng, nee_contrib = _direct_light(
+        rng, nee_contrib, texels = _direct_light(
             scene, rng, wo_w, frame, surf, mat, importance, nee_active,
             alpha_rounds=alpha_rounds, expand=ex,
             draws=None if ld_draws is None else ld_draws[:5])
@@ -1011,9 +1014,9 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
                 draws.append(r)
         # a mesh slot's state may be a lane slice of the whole state's
         state = state._replace(importance=state.importance.contiguous())
-        new = bsdf_cuda.bsdf(scene, state, surf, missed, wo_w, frame, mat,
-                             importance, miss_contrib, nee_contrib, draws, ex,
-                             direct_only)
+        new = shade_cuda.bsdf(scene, state, surf, missed, wo_w, frame, mat,
+                              importance, miss_contrib, nee_contrib, draws,
+                              ex, direct_only, texels)
         st = PathState(count=count, path_no=new_path_no, **new)
         return (st, fh) if want_first_hit else st
 

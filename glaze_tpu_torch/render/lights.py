@@ -7,7 +7,7 @@ Positions/directions are (x, y, z) tuples of (R,) tensors; emissions are
 (16, R) spectra. Draw-driven table lookups run at CHAIN width C (C < R
 when coherent sampling shares RNG chains across lanes) and ``expand``
 broadcasts chain-width results to lane width where per-lane data mixes in.
-On the card, the NEE stage runs :mod:`glaze_tpu_torch.render.nee_cuda`'s
+On the card, the NEE stage runs :mod:`glaze_tpu_torch.render.shade_cuda`'s
 kernel, one light type a lane, in place of :func:`sample_light`, which
 stays its plain version.
 

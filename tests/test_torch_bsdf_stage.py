@@ -1,12 +1,15 @@
-"""The BSDF stage of a launch (glaze_tpu_torch/render/bsdf_cuda.py).
+"""The BSDF stage of a launch (glaze_tpu_torch/render/shade_cuda.py
+``bsdf``).
 
 On the CPU: the plain path of the new stage against the stage as it was
 before the kernel (a frozen copy below), bit for bit, on random lanes and
 inside real launches; the kernel's lane arithmetic (csrc/shade_lane.cuh
 bsdf_lane, built for the host with the system C++ compiler) against the
-plain version; and the wrapper's refusals. On a card (``cuda``-marked,
-skipped without one; this file imports no JAX): the kernel against the
-plain version on the card, and launches on the card against the CPU's.
+plain version, with the texels fetched, given, and given by the NEE
+lane code; the wrapper's refusals; and the one library of both kernels.
+On a card (``cuda``-marked, skipped without one; this file imports no
+JAX): the kernel against the plain version on the card, and launches on
+the card against the CPU's.
 
 The scene is test_torch_nee's: all six BSDF families, textured diffuse,
 roughness and metalness slots beside untextured materials. The random
@@ -24,6 +27,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -36,9 +40,8 @@ from test_torch_nee import _NeeScene, _unit  # noqa: E402
 from glaze_tpu_torch.ops import rng as rng_mod  # noqa: E402
 from glaze_tpu_torch.ops import shading, spectra, vec  # noqa: E402
 from glaze_tpu_torch.render import bsdf as bsdf_mod  # noqa: E402
-from glaze_tpu_torch.render import bsdf_cuda  # noqa: E402
 from glaze_tpu_torch.render import integrator as ti  # noqa: E402
-from glaze_tpu_torch.render import nee_cuda  # noqa: E402
+from glaze_tpu_torch.render import shade_cuda  # noqa: E402
 from glaze_tpu_torch.scene import flatten as fl  # noqa: E402
 
 R = 4096  # two 2048-lane tiles
@@ -238,7 +241,7 @@ def test_plain_path_matches_before(scene, width, enabled):
     lanes = _lanes(s, 11, width)
     hit = lanes[1]
     want = _run(_stage_before, s, lanes, _mat(s, hit))
-    got = _run(bsdf_cuda.bsdf_plain, s, lanes, _mat(s, hit))
+    got = _run(shade_cuda.bsdf_plain, s, lanes, _mat(s, hit))
     _equal(got, want)
     if enabled:
         rr_active, alive, pdf0 = _dead_lanes(s, lanes, got)
@@ -255,7 +258,7 @@ def test_direct_only_matches_before(scene):
     hit = lanes[1]
     want = _run(_stage_before, scene, lanes, _mat(scene, hit),
                 direct_only=True)
-    got = _run(bsdf_cuda.bsdf_plain, scene, lanes, _mat(scene, hit),
+    got = _run(shade_cuda.bsdf_plain, scene, lanes, _mat(scene, hit),
                direct_only=True)
     _equal(got, want)
     assert got["importance"] is lanes[0].importance
@@ -277,14 +280,16 @@ def test_stage_inside_launches_matches_before(scene, case, monkeypatch):
     stage gives what the frozen copy gives on the same inputs, bit for
     bit: one and two samples in flight, both samplers, parked lanes
     (adaptive stopping) and DIRECT."""
-    orig = bsdf_cuda.bsdf
+    orig = shade_cuda.bsdf
     calls = []
 
     def spy(scene, state, hit, missed, wo_w, frame, mat, importance,
-            miss_rgb, nee_rgb, draws, expand, direct_only=False):
+            miss_rgb, nee_rgb, draws, expand, direct_only=False,
+            texels=None):
+        assert texels is None  # the plain NEE stage keeps its memo
         memo = {k: v for k, v in mat.get("_texmemo", {}).items()}
         got = orig(scene, state, hit, missed, wo_w, frame, mat, importance,
-                   miss_rgb, nee_rgb, draws, expand, direct_only)
+                   miss_rgb, nee_rgb, draws, expand, direct_only, texels)
         want = _stage_before(scene, state, hit, missed, wo_w, frame,
                              {**mat, "_texmemo": memo}, importance, miss_rgb,
                              nee_rgb, draws, expand, direct_only)
@@ -292,7 +297,7 @@ def test_stage_inside_launches_matches_before(scene, case, monkeypatch):
         calls.append(int(missed.sum()))
         return got
 
-    monkeypatch.setattr(bsdf_cuda, "bsdf", spy)
+    monkeypatch.setattr(shade_cuda, "bsdf", spy)
     w, h, sif = 64, 32, case["sif"]
     cam = _NeeScene().cameras()[0]
     c2w, s2c = ti.camera_matrices(cam, w, h)
@@ -322,9 +327,9 @@ def test_stage_inside_launches_matches_before(scene, case, monkeypatch):
 
 @pytest.fixture(scope="module")
 def host_lanes(tmp_path_factory):
-    """csrc/shade_lane.cuh's bsdf_lane in a loop over lanes, compiled with
-    the host's C++ compiler (no contraction of products and sums into
-    fused multiply-adds)."""
+    """csrc/shade_lane.cuh's bsdf_lane and nee_lane, each in a loop over
+    lanes, compiled with the host's C++ compiler (no contraction of
+    products and sums into fused multiply-adds)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -332,36 +337,55 @@ def host_lanes(tmp_path_factory):
     src = d / "bsdf_host.cpp"
     src.write_text(
         '#include "shade_lane.cuh"\n'
-        'extern "C" void bsdf_host(const glaze_nee::BsdfArgs* a) {\n'
+        'extern "C" void bsdf_host(const glaze_shade::BsdfArgs* a) {\n'
         '  for (int i = 0; i < a->n_lanes; ++i)\n'
-        '    glaze_nee::bsdf_lane(*a, a->consts, i);\n'
+        '    glaze_shade::bsdf_lane(*a, a->consts, i);\n'
+        '}\n'
+        'extern "C" void nee_host(const glaze_shade::NeeArgs* a) {\n'
+        '  for (int i = 0; i < a->n_lanes; ++i)\n'
+        '    glaze_shade::nee_lane(*a, a->consts, i);\n'
         '}\n')
     so = d / "libbsdf_host.so"
     subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
                     "-fPIC", "-I", CSRC, "-o", str(so), str(src)],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
-    lib.bsdf_host.argtypes = [ctypes.POINTER(bsdf_cuda.BsdfArgs)]
+    lib.bsdf_host.argtypes = [ctypes.POINTER(shade_cuda.BsdfArgs)]
     lib.bsdf_host.restype = None
+    lib.nee_host.argtypes = [ctypes.POINTER(shade_cuda.NeeArgs)]
+    lib.nee_host.restype = None
     return lib
 
 
-def _host(scene, host_lanes, lanes, mat, direct_only=False):
+def _host(scene, host_lanes, lanes, direct_only=False, texels=None):
     (state, hit, missed, wo_w, frame), (imp, miss, nee, draws) = \
         _stage_args(lanes)
-    args, out = bsdf_cuda.prepare(scene, state, hit, missed, wo_w, frame,
-                                  mat, imp, miss, nee, draws, direct_only,
-                                  device_type="cpu")
+    args, out = shade_cuda.bsdf_prepare(scene, state, hit, missed, wo_w,
+                                        frame, imp, miss, nee, draws,
+                                        direct_only, texels,
+                                        device_type="cpu")
     host_lanes.bsdf_host(ctypes.byref(args))
-    return bsdf_cuda._result(out, state, direct_only)
+    return shade_cuda._bsdf_result(out, state, direct_only)
 
 
-@pytest.mark.parametrize("memo", [False, True])
+def _memo(mat):
+    """The texels in the plain version's memo, by key."""
+    return {k: v[1] for k, v in mat["_texmemo"].items()}
+
+
+def _exact_share(got, want):
+    """The share of lanes whose every leaf equals the plain version's."""
+    a, b = _flat(got), _flat(want)
+    exact = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return exact.all(dim=0).float().mean().item()
+
+
+@pytest.mark.parametrize("given", [False, True])
 @pytest.mark.parametrize("width", WIDTHS)
-def test_lane_code_matches_plain_on_cpu(scene, host_lanes, width, memo):
+def test_lane_code_matches_plain_on_cpu(scene, host_lanes, width, given):
     """The kernel's arithmetic, run on the host, against the plain version
-    on the same lanes, with the texels fetched by the lane code or taken
-    from the NEE stage's memo. torch's CPU sqrt, sin, cos and pow round
+    on the same lanes, with the texels fetched by the lane code or given
+    (the plain version's memo). torch's CPU sqrt, sin, cos and pow round
     apart from the host's sqrtf/sinf/cosf/powf by an ulp here and there
     (and the sRGB decode divides on the CPU where the card's torch
     multiplies by the reciprocal), which a sample carries on; the card test
@@ -369,16 +393,12 @@ def test_lane_code_matches_plain_on_cpu(scene, host_lanes, width, memo):
     lanes = _lanes(scene, 23, width)
     hit = lanes[1]
     mat_p = _mat(scene, hit)
-    want = _run(bsdf_cuda.bsdf_plain, scene, lanes, mat_p)
-    mat_k = _mat(scene, hit)
-    if memo:
-        mat_k["_texmemo"] = dict(mat_p["_texmemo"])
-    got = _host(scene, host_lanes, lanes, mat_k)
+    want = _run(shade_cuda.bsdf_plain, scene, lanes, mat_p)
+    got = _host(scene, host_lanes, lanes,
+                texels=_memo(mat_p) if given else None)
     a, b = _flat(got), _flat(want)
-    exact = (a == b) | (torch.isnan(a) & torch.isnan(b))
-    lane_exact = exact.all(dim=0)
-    # without the memo the lambert and uber lanes decode their texels here
-    assert lane_exact.float().mean().item() > (0.95 if memo else 0.6)
+    # without texels the lambert and uber lanes decode their own here
+    assert _exact_share(got, want) > (0.95 if given else 0.6)
     # the roulette, the pdf-0 test and the bounce agree on every lane
     assert torch.equal(got["bounce"], want["bounce"])
     assert torch.equal(torch.stack(got["accum"]), torch.stack(want["accum"]))
@@ -392,10 +412,39 @@ def test_lane_code_matches_plain_on_cpu(scene, host_lanes, width, memo):
 def test_lane_code_direct_only(scene, host_lanes):
     lanes = _lanes(scene, 29, "frame")
     hit = lanes[1]
-    want = _run(bsdf_cuda.bsdf_plain, scene, lanes, _mat(scene, hit),
+    want = _run(shade_cuda.bsdf_plain, scene, lanes, _mat(scene, hit),
                 direct_only=True)
-    got = _host(scene, host_lanes, lanes, _mat(scene, hit), direct_only=True)
+    got = _host(scene, host_lanes, lanes, direct_only=True)
     _equal(got, want)
+
+
+def test_nee_texels_into_bsdf_lane_code(scene, host_lanes):
+    """The NEE lane code's texels, handed to the BSDF lane code as
+    ``texels`` (both built for the host): the BSDF lane code gives what
+    it gives when it fetches them itself, bit for bit, and the plain
+    version's new state, the same texels in its memo, on the share of
+    lanes that the plain memo's own texels give."""
+    lanes = _lanes(scene, 31, "frame")
+    (state, hit, missed, wo_w, frame), rest = _stage_args(lanes)
+    draws = tuple(torch.full((1,), d) for d in (0.3, 0.6, 0.2, 0.7, 0.4))
+    args, out = shade_cuda.nee_prepare(scene, hit, wo_w, frame, rest[0],
+                                       ~missed, draws, device_type="cpu")
+    host_lanes.nee_host(ctypes.byref(args))
+    texels = shade_cuda._nee_result(out)["texels"]
+    assert texels.keys() == {"diffuse", "rough", "metal"}
+    got = _host(scene, host_lanes, lanes, texels=texels)
+    _equal(got, _host(scene, host_lanes, lanes))
+    # the BSDF lanes read the NEE lanes' outputs in place
+    args, _ = shade_cuda.bsdf_prepare(scene, state, hit, missed, wo_w, frame,
+                                      *rest, texels=texels, device_type="cpu")
+    fields = ("diffuse_r", "diffuse_g", "diffuse_b", "roughness", "metalness")
+    given = (*texels["diffuse"], texels["rough"], texels["metal"])
+    assert [getattr(args, f) for f in fields] == [t.data_ptr() for t in given]
+    mat = _mat(scene, hit)
+    mat["_texmemo"] = {k: (hit["uv"], v) for k, v in texels.items()}
+    want = _run(shade_cuda.bsdf_plain, scene, lanes, mat)
+    assert _exact_share(got, want) > 0.95
+    assert torch.equal(got["bounce"], want["bounce"])
 
 
 # ---- the wrapper's refusals -------------------------------------------------
@@ -429,40 +478,61 @@ def test_kernel_wrapper_refuses(scene, case, match):
     lanes = _bad(case, _lanes(scene, 3, "ld"))
     (state, hit, missed, wo_w, frame), (imp, miss, nee, draws) = \
         _stage_args(lanes)
-    before = bsdf_cuda.bsdf_kernel.launches
+    before = shade_cuda.bsdf_kernel.launches
     with pytest.raises(ValueError, match=f"^bsdf: .*{match}"):
-        bsdf_cuda.bsdf_kernel(scene, state, hit, missed, wo_w, frame,
-                              _mat(scene, hit), imp, miss, nee, draws)
-    assert bsdf_cuda.bsdf_kernel.launches == before
+        shade_cuda.bsdf_kernel(scene, state, hit, missed, wo_w, frame,
+                               _mat(scene, hit), imp, miss, nee, draws)
+    assert shade_cuda.bsdf_kernel.launches == before
 
 
 def test_cpu_tensors_take_the_plain_path(scene):
     """``bsdf`` on CPU tensors runs the plain version and no kernel."""
     lanes = _lanes(scene, 5, "tile")
     hit = lanes[1]
-    before = bsdf_cuda.bsdf_kernel.launches
-    got = _run(bsdf_cuda.bsdf, scene, lanes, _mat(scene, hit))
-    want = _run(bsdf_cuda.bsdf_plain, scene, lanes, _mat(scene, hit))
-    assert bsdf_cuda.bsdf_kernel.launches == before
+    before = shade_cuda.bsdf_kernel.launches
+    got = _run(shade_cuda.bsdf, scene, lanes, _mat(scene, hit))
+    want = _run(shade_cuda.bsdf_plain, scene, lanes, _mat(scene, hit))
+    assert shade_cuda.bsdf_kernel.launches == before
     _equal(got, want)
 
 
 def test_one_library_for_both_kernels(monkeypatch):
-    """The BSDF kernel lives in the NEE kernel's source and library: its
-    wrapper builds and loads nothing of its own (here the one loader fails
-    for want of nvcc, and so does the BSDF kernel's attribute query)."""
+    """Both kernels live in one source and one library, which the module
+    loads once a process and declares with each kernel's own argument
+    structure (here a stand-in records the declarations); without nvcc
+    neither kernel's attribute query gets a library."""
     from glaze_tpu_torch import cuda_build
 
-    src = open(os.path.join(CSRC, nee_cuda.SOURCE)).read()
+    src = open(os.path.join(CSRC, shade_cuda.SOURCE)).read()
     assert "bsdf_kernel" in src and "nee_kernel" in src
-    assert "LIBRARY" not in vars(bsdf_cuda) and "SOURCE" not in vars(
-        bsdf_cuda)
-    monkeypatch.setattr(nee_cuda, "_lib", None)
+    loads = []
+
+    class StandIn:
+        def __init__(self, path):
+            loads.append(path)
+
+        def __getattr__(self, name):
+            entry = types.SimpleNamespace()
+            setattr(self, name, entry)
+            return entry
+
+    with monkeypatch.context() as m:
+        m.setattr(shade_cuda, "_lib", None)
+        m.setattr(shade_cuda, "build", lambda: "stand-in.so")
+        m.setattr(ctypes, "CDLL", StandIn)
+        lib = shade_cuda._load()
+        assert shade_cuda._load() is lib and loads == ["stand-in.so"]
+    for kernel, args in (("nee", shade_cuda.NeeArgs),
+                         ("bsdf", shade_cuda.BsdfArgs)):
+        entry = getattr(lib, f"glaze_{kernel}_launch")
+        assert entry.argtypes == [ctypes.POINTER(args), ctypes.c_void_p]
+    monkeypatch.setattr(shade_cuda, "_lib", None)
     monkeypatch.setattr(cuda_build, "nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
-    monkeypatch.setattr(nee_cuda, "LIBRARY", "absent.so")
-    with pytest.raises(RuntimeError, match="nvcc"):
-        bsdf_cuda.kernel_attrs()
+    monkeypatch.setattr(shade_cuda, "LIBRARY", "absent.so")
+    for kernel in ("nee", "bsdf"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            shade_cuda.kernel_attrs(kernel)
 
 
 # ---- on a card --------------------------------------------------------------
@@ -476,24 +546,22 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("memo", [False, True])
+@pytest.mark.parametrize("given", [False, True])
 @pytest.mark.parametrize("width", WIDTHS)
-def test_kernel_matches_plain_on_cuda(scene, card, width, memo):
+def test_kernel_matches_plain_on_cuda(scene, card, width, given):
     """The kernel against the plain version, both on the card: every leaf
     of the new state bit for bit, with the texels fetched by the kernel or
-    taken from the memo."""
+    given (the plain version's memo)."""
     cs = scene.to(card)
     lanes = _lanes(cs, 37, width, card)
     hit = lanes[1]
     mat_p = _mat(cs, hit)
-    want = _run(bsdf_cuda.bsdf_plain, cs, lanes, mat_p)
-    mat_k = _mat(cs, hit)
-    if memo:
-        mat_k["_texmemo"] = dict(mat_p["_texmemo"])
-    before = bsdf_cuda.bsdf_kernel.launches
-    got = _run(bsdf_cuda.bsdf, cs, lanes, mat_k)
+    want = _run(shade_cuda.bsdf_plain, cs, lanes, mat_p)
+    before = shade_cuda.bsdf_kernel.launches
+    got = _run(shade_cuda.bsdf, cs, lanes, _mat(cs, hit),
+               texels=_memo(mat_p) if given else None)
     torch.cuda.synchronize()
-    assert bsdf_cuda.bsdf_kernel.launches == before + 1
+    assert shade_cuda.bsdf_kernel.launches == before + 1
     _equal(got, want)
 
 
@@ -502,9 +570,9 @@ def test_kernel_direct_only_on_cuda(scene, card):
     cs = scene.to(card)
     lanes = _lanes(cs, 41, "frame", card)
     hit = lanes[1]
-    want = _run(bsdf_cuda.bsdf_plain, cs, lanes, _mat(cs, hit),
+    want = _run(shade_cuda.bsdf_plain, cs, lanes, _mat(cs, hit),
                 direct_only=True)
-    got = _run(bsdf_cuda.bsdf, cs, lanes, _mat(cs, hit), direct_only=True)
+    got = _run(shade_cuda.bsdf, cs, lanes, _mat(cs, hit), direct_only=True)
     torch.cuda.synchronize()
     _equal(got, want)
 
@@ -525,13 +593,13 @@ def test_launch_step_on_cuda_matches_cpu(scene, card, coherent, sampler,
     offsets = np.full((6, sif, 2) if sif > 1 else (6, 2), 0.5, np.float32)
     states = {}
     for dev, s in (("cpu", scene), ("cuda", scene.to(card))):
-        before = bsdf_cuda.bsdf_kernel.launches
+        before = shade_cuda.bsdf_kernel.launches
         st = ti.render_steps(
             s, ti.init_state(w, h, dev, sif=sif), seeds, offsets, c2w, s2c,
             width=w, height=h, is_persp=True, direct_only=False, steps=6,
             alpha_rounds=1, sif=sif, coherent=coherent, sampler=sampler,
             sampler_seed=7)
-        launched = bsdf_cuda.bsdf_kernel.launches - before
+        launched = shade_cuda.bsdf_kernel.launches - before
         assert launched == (6 if dev == "cuda" else 0)
         states[dev] = st
     cpu, gpu = states["cpu"], states["cuda"]

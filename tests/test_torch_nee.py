@@ -1,4 +1,5 @@
-"""The NEE stage before its shadow ray (glaze_tpu_torch/render/nee_cuda.py).
+"""The NEE stage before its shadow ray
+(glaze_tpu_torch/render/shade_cuda.py ``nee``).
 
 On the CPU: the plain path of the new NEE stage against the stage as it
 was before the kernel (a frozen copy below), bit for bit, the texel memo
@@ -46,7 +47,7 @@ from glaze_tpu_torch.ops import shading, spectra, vec  # noqa: E402
 from glaze_tpu_torch.render import bsdf as bsdf_mod  # noqa: E402
 from glaze_tpu_torch.render import integrator as ti  # noqa: E402
 from glaze_tpu_torch.render import lights as lights_mod  # noqa: E402
-from glaze_tpu_torch.render import nee_cuda  # noqa: E402
+from glaze_tpu_torch.render import shade_cuda  # noqa: E402
 from glaze_tpu_torch.scene import flatten as fl  # noqa: E402
 
 R = 4096  # two 2048-lane tiles
@@ -206,9 +207,10 @@ def test_plain_path_matches_before(scene, width, alpha_rounds):
     want = torch.stack([torch.where(nee_active, c, zero)
                         for c in spectra.to_rgb_t(rad)])
     mat_b = bsdf_mod.gather_material(scene, hit["material_id"])
-    rng_b, got = ti._direct_light(scene, chain, wo_w, frame, hit, mat_b,
-                                  importance, nee_active, alpha_rounds,
-                                  _expand, ld)
+    rng_b, got, texels = ti._direct_light(scene, chain, wo_w, frame, hit,
+                                          mat_b, importance, nee_active,
+                                          alpha_rounds, _expand, ld)
+    assert texels is None  # the plain version keeps them in the memo
     assert torch.equal(rng_a, rng_b)
     assert torch.equal(got, want)
     assert (want != 0).any(dim=0).sum() > R // 10
@@ -235,16 +237,16 @@ def host_lanes(tmp_path_factory):
     src = d / "nee_host.cpp"
     src.write_text(
         '#include "shade_lane.cuh"\n'
-        'extern "C" void nee_host(const glaze_nee::NeeArgs* a) {\n'
+        'extern "C" void nee_host(const glaze_shade::NeeArgs* a) {\n'
         '  for (int i = 0; i < a->n_lanes; ++i)\n'
-        '    glaze_nee::nee_lane(*a, a->consts, i);\n'
+        '    glaze_shade::nee_lane(*a, a->consts, i);\n'
         '}\n')
     so = d / "libnee_host.so"
     subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
                     "-fPIC", "-I", CSRC, "-o", str(so), str(src)],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
-    lib.nee_host.argtypes = [ctypes.POINTER(nee_cuda.NeeArgs)]
+    lib.nee_host.argtypes = [ctypes.POINTER(shade_cuda.NeeArgs)]
     lib.nee_host.restype = None
     return lib
 
@@ -278,12 +280,12 @@ def test_lane_code_matches_plain_on_cpu(scene, host_lanes, width):
         scene, 23, width)
     draws = _draws(chain, ld)
     mat = bsdf_mod.gather_material(scene, hit["material_id"])
-    want = nee_cuda.nee_plain(scene, hit, wo_w, frame, mat, importance,
-                              nee_active, draws, _expand)
-    args, out = nee_cuda.prepare(scene, hit, wo_w, frame, importance,
-                                 nee_active, draws, device_type="cpu")
+    want = shade_cuda.nee_plain(scene, hit, wo_w, frame, mat, importance,
+                                nee_active, draws, _expand)
+    args, out = shade_cuda.nee_prepare(scene, hit, wo_w, frame, importance,
+                                       nee_active, draws, device_type="cpu")
     host_lanes.nee_host(ctypes.byref(args))
-    got = nee_cuda._result(out, hit, {})
+    got = shade_cuda._nee_result(out)
 
     def share(ok):
         return ok.float().mean().item()
@@ -297,9 +299,10 @@ def test_lane_code_matches_plain_on_cpu(scene, host_lanes, width):
     assert share(_rgb_close(got["rgb"], want["rgb"], 1e-4)) > 0.999
     assert share(_rgb_close(got["rgb"], want["rgb"], 1e-2)) == 1.0
     memo = _memo(mat)
+    assert got["texels"].keys() == memo.keys()
     for k, w in memo.items():
-        g = out[k]
-        w = torch.stack(w) if isinstance(w, tuple) else w
+        g = got["texels"][k]
+        g, w = (torch.stack(x) if isinstance(x, tuple) else x for x in (g, w))
         assert torch.allclose(g, w, rtol=1e-5, atol=1e-7), k
     assert (want["rgb"] != 0).any(dim=0).sum() > R // 10
 
@@ -329,11 +332,11 @@ def test_kernel_wrapper_refuses(scene, case, match):
     lanes = _lanes(scene, 3, "ld")
     hit, wo_w, frame, importance, nee_active, ld = _bad(case, lanes)
     mat = bsdf_mod.gather_material(scene, hit["material_id"])
-    before = nee_cuda.nee_kernel.launches
+    before = shade_cuda.nee_kernel.launches
     with pytest.raises(ValueError, match=match):
-        nee_cuda.nee_kernel(scene, hit, wo_w, frame, mat, importance,
-                            nee_active, ld)
-    assert nee_cuda.nee_kernel.launches == before
+        shade_cuda.nee_kernel(scene, hit, wo_w, frame, mat, importance,
+                              nee_active, ld)
+    assert shade_cuda.nee_kernel.launches == before
     assert "_texmemo" not in mat
 
 
@@ -342,14 +345,14 @@ def test_cpu_tensors_take_the_plain_path(scene):
     hit, wo_w, frame, importance, nee_active, chain, ld = _lanes(
         scene, 5, "tile")
     draws = _draws(chain, None)
-    before = nee_cuda.nee_kernel.launches
+    before = shade_cuda.nee_kernel.launches
     mat = bsdf_mod.gather_material(scene, hit["material_id"])
-    got = nee_cuda.nee(scene, hit, wo_w, frame, mat, importance, nee_active,
-                       draws, _expand)
-    want = nee_cuda.nee_plain(scene, hit, wo_w, frame, {**mat}, importance,
-                              nee_active, draws, _expand)
-    assert nee_cuda.nee_kernel.launches == before
-    assert got["key"] is None
+    got = shade_cuda.nee(scene, hit, wo_w, frame, mat, importance, nee_active,
+                         draws, _expand)
+    want = shade_cuda.nee_plain(scene, hit, wo_w, frame, {**mat}, importance,
+                                nee_active, draws, _expand)
+    assert shade_cuda.nee_kernel.launches == before
+    assert got["key"] is None and got["texels"] is None
     assert torch.equal(got["rgb"], want["rgb"])
 
 
@@ -358,13 +361,13 @@ def test_library_builds_from_its_sources(monkeypatch):
     build raises (here nvcc is missing): the wrapper never falls back."""
     from glaze_tpu_torch import cuda_build
 
-    assert cuda_build.local_headers(nee_cuda.SOURCE) == ["shade_lane.cuh"]
-    monkeypatch.setattr(nee_cuda, "_lib", None)
+    assert cuda_build.local_headers(shade_cuda.SOURCE) == ["shade_lane.cuh"]
+    monkeypatch.setattr(shade_cuda, "_lib", None)
     monkeypatch.setattr(cuda_build, "nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
-    monkeypatch.setattr(nee_cuda, "LIBRARY", "absent.so")
+    monkeypatch.setattr(shade_cuda, "LIBRARY", "absent.so")
     with pytest.raises(RuntimeError, match="nvcc"):
-        nee_cuda._load()
+        shade_cuda._load()
 
 
 # ---- on a card --------------------------------------------------------------
@@ -381,30 +384,31 @@ def card():
 @pytest.mark.parametrize("width", WIDTHS)
 def test_kernel_matches_plain_on_cuda(scene, card, width):
     """The kernel against the plain version, both on the card: wiw, cap,
-    the shadow rays' active lanes and key, and the texels bit for bit;
-    RGB within 1e-5 of the lane's scale (the 16-bin sums run in another
-    order)."""
+    the shadow rays' active lanes and key, and the texels it returns
+    against the plain memo's, bit for bit; RGB within 1e-5 of the lane's
+    scale (the 16-bin sums run in another order)."""
     cs = scene.to(card)
     hit, wo_w, frame, importance, nee_active, chain, ld = _lanes(
         cs, 37, width, card)
     draws = _draws(chain, ld)
     mat_p = bsdf_mod.gather_material(cs, hit["material_id"])
-    want = nee_cuda.nee_plain(cs, hit, wo_w, frame, mat_p, importance,
-                              nee_active, draws, _expand)
+    want = shade_cuda.nee_plain(cs, hit, wo_w, frame, mat_p, importance,
+                                nee_active, draws, _expand)
     mat_k = bsdf_mod.gather_material(cs, hit["material_id"])
-    before = nee_cuda.nee_kernel.launches
-    got = nee_cuda.nee(cs, hit, wo_w, frame, mat_k, importance, nee_active,
-                       draws, _expand)
+    before = shade_cuda.nee_kernel.launches
+    got = shade_cuda.nee(cs, hit, wo_w, frame, mat_k, importance, nee_active,
+                         draws, _expand)
     torch.cuda.synchronize()
-    assert nee_cuda.nee_kernel.launches == before + 1
+    assert shade_cuda.nee_kernel.launches == before + 1
     for g, w in zip(got["wiw"] + (got["cap"],), want["wiw"] + (want["cap"],)):
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
     assert torch.equal(got["active"], want["active"])
     key = ti._trace_key(cs, hit["point"], want["wiw"], want["active"])
     assert torch.equal(got["key"], key)
     assert bool(_rgb_close(got["rgb"], want["rgb"], 1e-5).all())
-    a, b = _memo(mat_p), _memo(mat_k)
+    a, b = _memo(mat_p), got["texels"]
     assert a.keys() == b.keys() == {"diffuse", "rough", "metal"}
+    assert "_texmemo" not in mat_k
     for k in a:
         w = torch.stack(a[k]) if isinstance(a[k], tuple) else a[k]
         g = torch.stack(b[k]) if isinstance(b[k], tuple) else b[k]
@@ -432,13 +436,13 @@ def test_launch_step_on_cuda_matches_cpu(scene, card, coherent, sampler,
     offsets = np.full((6, 2), 0.5, np.float32)
     states = {}
     for dev, s in (("cpu", scene), ("cuda", scene.to(card))):
-        before = nee_cuda.nee_kernel.launches
+        before = shade_cuda.nee_kernel.launches
         st = ti.render_steps(
             s, ti.init_state(w, h, dev), seeds, offsets, c2w, s2c, width=w,
             height=h, is_persp=True, direct_only=False, steps=6,
             alpha_rounds=alpha_rounds, coherent=coherent, sampler=sampler,
             sampler_seed=7)
-        launched = nee_cuda.nee_kernel.launches - before
+        launched = shade_cuda.nee_kernel.launches - before
         assert launched == (6 if dev == "cuda" else 0)
         states[dev] = st
     cpu, gpu = states["cpu"], states["cuda"]
