@@ -18,11 +18,11 @@ the closest-hit and any-hit walks (K1, K3) on the Sponza-class scene
 (262k triangles) with its curtain's opacity map removed, the masked
 walks (K2 on the full tree and on the alpha subset tree, K4) on the whole
 scene, lace curtains included, and the fat-leaf walks (K7c, K7a) on the
-opaque scene uploaded with GLAZE_TREE=fat, and the NEE and BSDF kernels
-(csrc/shade.cu) against their plain versions on the inputs of the full
-scene's first two 1080p launches, with their times and bounds ([nee],
-[bsdf]). Every render below must launch the NEE kernel and the BSDF
-kernel once a launch each, beside the walks it expects. It renders
+opaque scene uploaded with GLAZE_TREE=fat, and the shade, NEE and BSDF
+kernels (csrc/shade.cu) against their plain versions on the inputs of the
+full scene's first two 1080p launches, with their times and bounds
+([surface], [nee], [bsdf]). Every render below must launch the shade, NEE
+and BSDF kernels once a launch each, beside the walks it expects. It renders
 the scenes through the port's CLI at 1920x1080, 2 spp (full and opaque
 on the classic tree, then opaque with GLAZE_TREE=fat and =hybrid, and
 full with GLAZE_TREE=fat), checks that exactly the expected kernels
@@ -145,18 +145,18 @@ BYTES_PER_COEF_ROW = 76
 # on the opaque tree and K2 twice on the alpha tree (_alpha_walk_refined),
 # and the occlusion (_occlusion_sorted's candidate path) K3 on the opaque
 # tree and K2 twice on the alpha tree.
-# Every path launches the NEE kernel and the BSDF kernel
-# (render/shade_cuda.py) once a launch.
+# Every path launches the shade, NEE and BSDF kernels (render/shade_cuda.py)
+# once a launch.
 LAUNCHES = SPP * 6
 KERNELS = ("closest_hit", "any_hit", "closest_hit_masked", "any_hit_masked",
-           "closest_hit_fat", "any_hit_fat", "nee", "bsdf")
-SHADE_KERNELS = ("nee", "bsdf")
+           "closest_hit_fat", "any_hit_fat", "nee", "bsdf", "surface")
+SHADE_KERNELS = ("nee", "bsdf", "surface")
 
 
 def _expected(launches, **walks):
-    """Launch counts by KERNELS name: ``launches`` NEE and BSDF kernel
-    launches (one each a launch) and the walks named in ``walks``, the
-    others 0."""
+    """Launch counts by KERNELS name: ``launches`` shade, NEE and BSDF
+    kernel launches (one each a launch) and the walks named in ``walks``,
+    the others 0."""
     return {k: launches if k in SHADE_KERNELS else walks.get(k, 0)
             for k in KERNELS}
 
@@ -293,8 +293,8 @@ def phase_build():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"[build] {lib} ptxas: {line.strip()}")
     attrs = tc.kernel_attrs()
-    attrs["nee"] = shade.kernel_attrs("nee")
-    attrs["bsdf"] = shade.kernel_attrs("bsdf")
+    for name in SHADE_KERNELS:
+        attrs[name] = shade.kernel_attrs(name)
     at = {"drain": ", at T = 128", "chain": ", at W = 512"}
     for name, a in (*attrs.items(), *pc.kernel_attrs().items()):
         where = (", at W = 2048" if name.endswith("w2048")
@@ -1375,6 +1375,149 @@ def phase_nee(path):
     return {"nee": entry}
 
 
+def _surface_bytes(a, out):
+    """Bytes a launch of the shade kernel must move, at least: every lane
+    reads its hit's row index and barycentrics, its direction, bounce and
+    last_specular and the parked mask where there is one, and writes the
+    20 floats of the output buffer, its material row and two flags; a lane
+    that adds the sky reads 16 bins of importance; each distinct 34-float
+    attribute row the lanes hit is read once (``distinct_rows``, the bound;
+    ``per_lane`` counts each lane's row, which overstates it: lanes share
+    rows, and the table fits in L2). The material rows, texels and the
+    sky's table come from L2 and are not counted."""
+    p = a["importance"].shape[1]
+    sky = int(((out["miss_rgb"][0] != 0) | (out["miss_rgb"][1] != 0)
+               | (out["miss_rgb"][2] != 0)).sum())
+    rows = int(torch.unique(torch.clamp(a["hit"]["tri"], min=0)).numel())
+    lane = 4 * 3 + 4 * 3 + 4 * 2 + (1 if a["parked"] is not None else 0)
+    lane += 4 * 20 + 4 + 2
+    rest = lane * p + 4 * 16 * sky
+    row = 4 * 34
+    return {"per_lane": rest + row * p, "distinct_rows": rest + row * rows,
+            "sky_lanes": sky, "rows": rows}
+
+
+def phase_surface(path):
+    """The shade kernel (render/shade_cuda.py, csrc/shade.cu) against its
+    plain version on the card, on the inputs of the first two launches of
+    a 1920x1080 render of the full scene (camera rays, then bounce rays):
+    every lane float (the hit point, the frame, wo, uv, the sky's RGB), the
+    material rows and both flags bit for bit. Times the kernel (CUDA
+    events over 20 launches) and the plain version, and gives the bound by
+    bytes (_surface_bytes: each distinct attribute row once)."""
+    from glaze_tpu_torch.render import shade_cuda as shade
+
+    sets = []
+    orig = shade.surface
+
+    def cl(x):
+        if isinstance(x, tuple):
+            return type(x)(*(cl(y) for y in x)) if hasattr(x, "_replace") \
+                else tuple(cl(y) for y in x)
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def capture(scene, hit, direction, state, importance, parked=None):
+        if len(sets) < 2:
+            sets.append({"hit": {k: hit[k].clone() for k in ("tri", "u",
+                                                             "v")},
+                         "direction": cl(direction), "state": cl(state),
+                         "importance": importance.clone(),
+                         "parked": cl(parked)})
+        return orig(scene, hit, direction, state, importance, parked)
+
+    shade.surface = capture
+    try:
+        r, _ = _capture_sample(path)
+    finally:
+        shade.surface = orig
+    scene = r.scene
+    p = sets[0]["importance"].shape[1]
+    entry = dict(name="surface", route="cuda",
+                 source="glaze_tpu_torch/csrc/shade.cu",
+                 replaces="none (glaze_tpu/render/integrator.py closest-hit "
+                 "and miss shading, left to XLA's fusion)", library_ms=None,
+                 launches=0, launches_by_path={}, sets={})
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for label, a in zip(("camera_hits", "bounce_hits"), sets):
+        def call(fn):
+            return fn(scene, a["hit"], a["direction"], a["state"],
+                      a["importance"], a["parked"])
+
+        want = call(shade.surface_plain)
+        got = call(shade.surface_kernel)
+        torch.cuda.synchronize()
+        names = ("px", "py", "pz", "sx", "sy", "sz", "tx", "ty", "tz", "nx",
+                 "ny", "nz", "wox", "woy", "woz", "u", "v", "sky_r", "sky_g",
+                 "sky_b")
+        bad = {}
+        for name, g, w in zip(names, _surface_floats(got),
+                              _surface_floats(want)):
+            n_bad = int((~((g == w) | (torch.isnan(g) & torch.isnan(w))))
+                        .sum())
+            if n_bad:
+                bad[name] = n_bad
+        for k, g, w in (("material_id", got["surf"]["material_id"],
+                         want["surf"]["material_id"]),
+                        ("missed", got["missed"], want["missed"]),
+                        ("nee_active", got["nee_active"],
+                         want["nee_active"])):
+            if int((g != w).sum()):
+                bad[k] = int((g != w).sum())
+        nb = _surface_bytes(a, want)
+        log(f"[surface] {label}: {p} lanes, {int(want['missed'].sum())} "
+            f"missed, {nb['sky_lanes']} add the sky, "
+            f"{int(want['nee_active'].sum())} NEE lanes, {nb['rows']} "
+            f"distinct rows; elements apart from the plain version "
+            f"{bad or 0}")
+        if bad:
+            raise RuntimeError(f"[surface] {label}: the kernel disagrees "
+                               f"with its plain version: {bad}")
+        args, _ = shade.surface_prepare(scene, a["hit"], a["direction"],
+                                        a["state"], a["importance"],
+                                        a["parked"])
+        dev = a["importance"].device
+        for _ in range(3):
+            shade.launch("surface", args, dev)
+        ev[0].record()
+        for _ in range(20):
+            shade.launch("surface", args, dev)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1]) / 20
+        call(shade.surface_plain)
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(3):
+            call(shade.surface_plain)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain_ms = ev[0].elapsed_time(ev[1]) / 3
+        bound = nb["distinct_rows"] / PEAK_BYTES * 1e3
+        entry["sets"][label] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+            bytes_ms=bound, bytes=nb["distinct_rows"],
+            per_lane_bytes=nb["per_lane"], max_abs_err=0.0, mismatches=bad,
+            warp={})
+        log(f"[surface] {label}: kernel {ms:.4f} ms, plain {plain_ms:.2f} "
+            f"ms, bound {bound:.4f} ms (bytes "
+            f"{nb['distinct_rows'] / 1e9:.3f} GB, each distinct row once), "
+            f"{ms / bound:.2f}x the bound; each lane's row "
+            f"{nb['per_lane'] / 1e9:.3f} GB")
+    _summarize(entry, ("camera_hits", "bounce_hits"))
+    del r, sets
+    torch.cuda.empty_cache()
+    return {"surface": entry}
+
+
+def _surface_floats(res):
+    """The 20 lane floats of a shade stage's result, as (P,) rows in the
+    kernel's order."""
+    s, t, n = res["frame"]
+    surf = res["surf"]
+    return (*surf["point"], *s, *t, *n, *res["wo_w"], *surf["uv"],
+            *res["miss_rgb"])
+
+
 def _bsdf_bytes(scene, a):
     """Bytes a launch of the BSDF kernel must move, at least: every lane
     reads its miss flag, material row index, bounce, last_specular, accum,
@@ -1525,15 +1668,16 @@ def phase_bsdf(path):
 
 
 def _launch_counts():
-    """Every traversal kernel's, the NEE kernel's and the BSDF kernel's
-    launch count, by KERNELS name, and every probe kernel's."""
+    """Every traversal kernel's and shading kernel's launch count, by
+    KERNELS name, and every probe kernel's."""
     from glaze_tpu_torch.accel import traverse_cuda as tc
     from glaze_tpu_torch.render import shade_cuda as shade
     from glaze_tpu_torch.tools import probes_cuda as pc
 
     wrappers = (tc.closest_hit_soa, tc.any_hit_soa, tc.closest_hit_soa_masked,
                 tc.any_hit_soa_masked, tc.closest_hit_fat_soa,
-                tc.any_hit_fat_soa, shade.nee_kernel, shade.bsdf_kernel)
+                tc.any_hit_fat_soa, shade.nee_kernel, shade.bsdf_kernel,
+                shade.surface_kernel)
     return ({name: fn.launches for name, fn in zip(KERNELS, wrappers)},
             {fn.__name__: fn.launches for fn in pc.KERNEL_WRAPPERS})
 
@@ -1664,7 +1808,8 @@ def profile_sample(renderer, label):
         f"traversal kernels {trav:.2f} ms ({100 * trav / busy_ms:.1f}% of busy), "
         f"{sum(v[1] for v in kernels.values())} kernel launches")
     per_launch = {name: ms / n for name, (ms, n) in walks.items()}
-    for name, what in (("nee", "NEE"), ("bsdf", "BSDF")):
+    for name, what in (("surface", "shade"), ("nee", "NEE"),
+                       ("bsdf", "BSDF")):
         mine = [v for k, v in kernels.items() if f"{name}_kernel" in k]
         if mine:
             per_launch[name] = (sum(v[0] for v in mine)
@@ -1999,7 +2144,8 @@ print(json.dumps({"code": code, "times": t, "completed_spp": r.completed_spp,
                                tc.closest_hit_fat_soa.launches,
                                tc.any_hit_fat_soa.launches,
                                shade.nee_kernel.launches,
-                               shade.bsdf_kernel.launches]}))
+                               shade.bsdf_kernel.launches,
+                               shade.surface_kernel.launches]}))
 """
 
 
@@ -3566,7 +3712,8 @@ torch.cuda.synchronize()
 launches = [tc.closest_hit_soa.launches, tc.any_hit_soa.launches,
             tc.closest_hit_soa_masked.launches, tc.any_hit_soa_masked.launches,
             tc.closest_hit_fat_soa.launches, tc.any_hit_fat_soa.launches,
-            shade.nee_kernel.launches, shade.bsdf_kernel.launches]
+            shade.nee_kernel.launches, shade.bsdf_kernel.launches,
+            shade.surface_kernel.launches]
 with open(os.path.join(sys.argv[1], "rank%s.json" % os.environ["RANK"]),
           "w") as f:
     json.dump({"code": code, "launches": launches}, f)
@@ -3715,6 +3862,7 @@ def main():
     report = run("kernels", phase_kernels, paths["opaque"])
     report.update(run("masked_kernels", phase_masked_kernels, paths["full"]))
     report.update(run("fat_kernels", phase_fat_kernels, paths["opaque"]))
+    report.update(run("surface", phase_surface, paths["full"]))
     report.update(run("nee", phase_nee, paths["full"]))
     report.update(run("bsdf", phase_bsdf, paths["full"]))
     main_numbers = {}

@@ -1,8 +1,30 @@
-// The integrator's two shading stages, one thread a lane, for Hopper
-// (sm_90a): nee_kernel (the NEE stage before its shadow ray) and
-// bsdf_kernel (the BSDF stage). Their lane arithmetic is
-// csrc/shade_lane.cuh (nee_lane, bsdf_lane), which says how it keeps the
-// plain versions' operations, in order, one rounding each.
+// The integrator's three shading stages, one thread a lane, for Hopper
+// (sm_90a): surface_kernel (the shade stage), nee_kernel (the NEE stage
+// before its shadow ray) and bsdf_kernel (the BSDF stage). Their lane
+// arithmetic is csrc/shade_lane.cuh (surface_lane, nee_lane, bsdf_lane),
+// which says how it keeps the plain versions' operations, in order, one
+// rounding each.
+//
+// surface_kernel replaces no Pallas kernel: the JAX package leaves the
+// closest-hit shader and the miss shader to XLA's fusion. The port ran the
+// stage as ~445 eager kernels a launch (render/shade_cuda.py surface_plain:
+// interpolate_hit over strided columns of a gathered (P, 34) copy of the
+// hits' attribute rows, the shading frame, bsdf.gather_material's four
+// material gathers, and sky_radiance with its Smits upsampling and to_rgb_t
+// over every lane, a torch.where keeping the missed ones), each reading and
+// writing whole planes. Here one thread reads its hit, gathers its
+// attribute row once, interpolates, normal-maps where the scene has a
+// normal map, builds the frame, reads its material's specular flag and, on
+// a missed lane that sees the sky, evaluates the sky alone; it writes the
+// lane floats the NEE and BSDF kernels take, as the rows of one buffer.
+// What bounds it: bytes. A lane reads its hit (row index, barycentrics),
+// direction, bounce and last_specular, and writes 20 floats, its material
+// row and two flags; a lane that adds the sky also reads 16 bins of
+// importance; the lanes read each attribute row they hit (34 floats), and
+// neighbouring lanes share rows, which stay in L2. At a 1080p launch of the
+// Sponza-class scene, about 0.25 GB with each distinct row read once,
+// 0.076 ms at 3.35 TB/s (chip_smoke.py _surface_bytes; 0.53 GB if each
+// lane's row were read from memory).
 //
 // nee_kernel replaces no Pallas kernel. The JAX package leaves this stage to
 // XLA, which fuses the elementwise work of glaze_tpu/render/integrator.py
@@ -47,7 +69,7 @@
 // direction: about 0.65 GB at a 1080p launch, 0.19 ms at 3.35 TB/s
 // (chip_smoke.py _bsdf_bytes).
 //
-// The design of both: structure-of-arrays inputs, so the 32 lanes of a
+// The design of all three: structure-of-arrays inputs, so the 32 lanes of a
 // warp read 32 neighbouring words of each; the importance bins strided by
 // the lane count, so each bin is one coalesced read; the constants table
 // copied into shared memory once a block; 256 threads a block. Lanes of
@@ -60,6 +82,16 @@
 namespace {
 
 constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+surface_kernel(const glaze_shade::SurfaceArgs a) {
+  __shared__ float K[glaze_shade::kConsts];
+  for (int k = threadIdx.x; k < glaze_shade::kConsts; k += blockDim.x)
+    K[k] = a.consts[k];
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < a.n_lanes) glaze_shade::surface_lane(a, K, i);
+}
 
 __global__ void __launch_bounds__(kThreads)
 nee_kernel(const glaze_shade::NeeArgs a) {
@@ -107,6 +139,25 @@ int kernel_attrs(Kernel kernel, int* regs, int* local_bytes,
 
 extern "C" {
 
+// Launches surface_kernel over args->n_lanes lanes on ``stream`` and
+// returns cudaGetLastError() (0 = ok).
+int glaze_surface_launch(const glaze_shade::SurfaceArgs* args, void* stream) {
+  const int n = args->n_lanes;
+  if (n > 0)
+    surface_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(*args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// surface_kernel's registers and local (spill) bytes per thread, its
+// threads per block and resident blocks per SM, and the most threads an SM
+// of the current card holds. Returns a cudaError_t (0 = ok).
+int glaze_surface_attrs(int* regs, int* local_bytes, int* threads_per_block,
+                        int* blocks_per_sm, int* max_threads_per_sm) {
+  return kernel_attrs(surface_kernel, regs, local_bytes, threads_per_block,
+                      blocks_per_sm, max_threads_per_sm);
+}
+
 // Launches nee_kernel over args->n_lanes lanes on ``stream`` and returns
 // cudaGetLastError() (0 = ok).
 int glaze_nee_launch(const glaze_shade::NeeArgs* args, void* stream) {
@@ -117,9 +168,7 @@ int glaze_nee_launch(const glaze_shade::NeeArgs* args, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// nee_kernel's registers and local (spill) bytes per thread, its threads
-// per block and resident blocks per SM, and the most threads an SM of the
-// current card holds. Returns a cudaError_t (0 = ok).
+// nee_kernel's numbers, as glaze_surface_attrs gives surface_kernel's.
 int glaze_nee_attrs(int* regs, int* local_bytes, int* threads_per_block,
                     int* blocks_per_sm, int* max_threads_per_sm) {
   return kernel_attrs(nee_kernel, regs, local_bytes, threads_per_block,

@@ -1,4 +1,8 @@
-// The lane arithmetic of the integrator's two shading kernels:
+// The lane arithmetic of the integrator's three shading kernels:
+//   * surface_lane, the shade stage of one lane: the hit's attributes, normal
+//     mapping, the shading frame, wo, the material's specular flag and the
+//     sky on a missed lane, as glaze_tpu_torch.render.shade_cuda.surface_plain
+//     computes them (interpolate_hit, sky_radiance, spectra.to_rgb_t);
 //   * nee_lane, the NEE stage of one lane before its shadow ray: the light
 //     sample, the BSDF value, the weight and the unshadowed RGB
 //     contribution, as glaze_tpu_torch.render.shade_cuda.nee_plain computes
@@ -11,8 +15,9 @@
 //
 // Host-and-device code: csrc/shade.cu runs each once per thread, and a
 // host compiler can build the same functions for a loop over lanes
-// (tests/test_torch_nee.py and tests/test_torch_bsdf_stage.py hold those
-// loops against the plain versions on the CPU). Every operation is the
+// (tests/test_torch_nee.py, tests/test_torch_bsdf_stage.py and
+// tests/test_torch_shade_stage.py hold those loops against the plain
+// versions on the CPU). Every operation is the
 // plain version's, in its order, one
 // rounding each (nvcc --fmad=false, no fast math): a torch elementwise op
 // on (R,) or (16, R) tensors is one scalar operation of a lane here, a
@@ -34,7 +39,8 @@
 //   * torch.sum over the 16 bins of a (16, R) tensor: on the card four
 //     accumulators, bin k into k % 4, joined in order (PyTorch's CUDA
 //     reduction, four loads in flight a thread); on the host one
-//     accumulator, bins ascending, as PyTorch's CPU sum (luminance below).
+//     accumulator, bins ascending, as PyTorch's CPU sum (bin_sum below);
+//   * torch.atan2, acos and ``**`` on the card are atan2f, acosf and powf.
 // Only nee_lane's 16-bin sums of the XYZ integral run in another order
 // than the plain version's torch.sum (bins ascending here).
 #pragma once
@@ -81,8 +87,8 @@ enum { kOmni = 0, kSun = 1, kArea = 2, kSky = 3 };
 enum { kLambert = 0, kMirror = 1, kGlass = 2, kMetal = 3, kFrosted = 4,
        kUber = 5 };
 // tex_flags bits: the slot is textured somewhere in the scene
-// (scene.tex_slots holds MT_DIFFUSE, MT_ROUGHNESS, MT_METALNESS)
-enum { kTexDiffuse = 1, kTexRoughness = 2, kTexMetalness = 4 };
+// (scene.tex_slots holds MT_DIFFUSE, MT_ROUGHNESS, MT_METALNESS, MT_NORMAL)
+enum { kTexDiffuse = 1, kTexRoughness = 2, kTexMetalness = 4, kTexNormal = 8 };
 
 struct NeeArgs {
   // lanes: hit point, shading frame (s, t, n = the shading normal), wo in
@@ -776,20 +782,27 @@ struct BsdfArgs {
 constexpr float kRoulette = 3.0f;  // integrator.RUSSIAN_ROULETTE
 constexpr float kSteps = 6.0f;     // integrator.PT_STEPS
 
-// spectra.luminance_t of one lane's 16 bins (strided by ``stride``), summed
-// as the torch of the device that runs this code sums them (header note)
-GLAZE_HD float luminance(const float* K, const float* sp, int64_t stride) {
+// torch.sum(sp * w, dim=0) of one lane's 16 bins (strided by ``stride``)
+// against the 16 weights at K[table], summed as the torch of the device
+// that runs this code sums them (header note)
+GLAZE_HD float bin_sum(const float* K, int table, const float* sp,
+                       int64_t stride) {
 #ifdef __CUDA_ARCH__
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int k = 0; k < kBins; ++k)
-    acc[k % 4] = acc[k % 4] + sp[k * stride] * K[kCieY + k];
-  const float sum = ((acc[0] + acc[1]) + acc[2]) + acc[3];
+    acc[k % 4] = acc[k % 4] + sp[k * stride] * K[table + k];
+  return ((acc[0] + acc[1]) + acc[2]) + acc[3];
 #else
   float sum = 0.0f;
-  for (int k = 0; k < kBins; ++k) sum = sum + sp[k * stride] * K[kCieY + k];
+  for (int k = 0; k < kBins; ++k) sum = sum + sp[k * stride] * K[table + k];
+  return sum;
 #endif
-  return sum * K[kInvYSum];
+}
+
+// spectra.luminance_t of one lane's 16 bins
+GLAZE_HD float luminance(const float* K, const float* sp, int64_t stride) {
+  return bin_sum(K, kCieY, sp, stride) * K[kInvYSum];
 }
 
 GLAZE_HD V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
@@ -1153,6 +1166,146 @@ GLAZE_HD void bsdf_lane(const BsdfArgs& a, const float* K, int i) {
   const bool at_max = bounce >= kSteps;
   a.out_bounce[i] =
       enabled ? ((dead || at_max) ? 0.0f : bounce + 1.0f) : bounce;
+}
+
+// ---- the shade stage (render/shade_cuda.py surface_plain) -------------------
+
+struct SurfaceArgs {
+  // lanes: the closest hit (attribute row, -1 on a miss, and barycentrics),
+  // the ray's direction, the path's bounce and last_specular, the parked
+  // lanes (null without adaptive stopping) and the launch's importance
+  // (16, P)
+  const int32_t* tri;
+  const float* hit_u; const float* hit_v;
+  const float* dx; const float* dy; const float* dz;
+  const float* bounce; const float* last_specular;
+  const uint8_t* parked;
+  const float* importance;
+  // tables, read in place
+  const float* tri_attr;        // (N, 34)
+  const float* mat_scalars;     // (M, 10)
+  const int32_t* mat_tex;       // (M, 5)
+  const int32_t* texels;        // (T, 4)
+  const int32_t* tex_offset; const int32_t* tex_width;
+  const int32_t* tex_height; const float* tex_srgb;
+  const float* sky_world2obj;   // (3, 3)
+  const int32_t* sky_tex;       // ()
+  const float* consts;          // kConsts
+  // outputs: (20, P) floats, the 17 lane floats that NeeArgs and BsdfArgs
+  // take first, in their order (the hit point, s, t, n, wo, u, v), then the
+  // sky's RGB; the material row, the miss flag and nee_active, (P,) each
+  float* out;
+  int32_t* mat_id;
+  uint8_t* missed;
+  uint8_t* nee_active;
+  // sizes and modes (tex_flags: kTexNormal where some material has a
+  // normal map)
+  int n_lanes;
+  int tex_flags;
+};
+
+// columns of tri_attr (scene/flatten.py ATTR_*) and of mat_tex (MT_*)
+enum { kAttrV0 = 0, kAttrE1 = 3, kAttrE2 = 6, kAttrN0 = 9, kAttrN1 = 12,
+       kAttrN2 = 15, kAttrUv0 = 18, kAttrUv1 = 20, kAttrUv2 = 22,
+       kAttrGn = 24, kAttrDpdu = 27, kAttrMat = 33, kAttrRows = 34 };
+constexpr int kMtNormal = 4;
+constexpr float kInv2Pi = F32(0.1591549);  // shade_cuda.INV_2PI
+constexpr int kSurfaceRows = 20;
+
+GLAZE_HD V3 attr3(const float* row, int col) {
+  return {row[col], row[col + 1], row[col + 2]};
+}
+
+// the sky's linear RGB along d, times the lane's importance (shade_cuda
+// sky_radiance, spectra.from_illuminant_color_t, spectra.to_rgb_t)
+GLAZE_HD void sky_rgb(const SurfaceArgs& a, const float* K, V3 d, int i,
+                      float* rgb) {
+  const float* m = a.sky_world2obj;
+  const V3 w = normalize({m[0] * d.x + m[1] * d.y + m[2] * d.z,
+                          m[3] * d.x + m[4] * d.y + m[5] * d.z,
+                          m[6] * d.x + m[7] * d.y + m[8] * d.z});
+  const float phi = atan2f(w.y, w.x);
+  const float theta = acosf(clamp2(w.z, -1.0f, 1.0f));
+  float tex[3];
+  sample_tex(a, *a.sky_tex, phi * kInv2Pi, theta * kInvPi, 3, tex);
+  float sp[kBins];
+  from_rgb(K, tex[0], tex[1], tex[2], true, sp);
+  const float* imp = a.importance + i;
+#pragma unroll
+  for (int k = 0; k < kBins; ++k)
+    sp[k] = imp[static_cast<int64_t>(k) * a.n_lanes] * sp[k];
+  const float x = bin_sum(K, kCieX, sp, 1) * K[kInvYSum];
+  const float y = bin_sum(K, kCieY, sp, 1) * K[kInvYSum];
+  const float z = bin_sum(K, kCieZ, sp, 1) * K[kInvYSum];
+  const float* M = K + kXyzToRgb;
+  rgb[0] = M[0] * x + M[1] * y + M[2] * z;
+  rgb[1] = M[3] * x + M[4] * y + M[5] * z;
+  rgb[2] = M[6] * x + M[7] * y + M[8] * z;
+}
+
+GLAZE_HD void surface_lane(const SurfaceArgs& a, const float* K, int i) {
+  // the closest-hit shader (raytrace_hit.rchit): barycentric attributes
+  // from the lane's row; a missed lane reads row 0, as interpolate_hit does
+  const int32_t tri = a.tri[i];
+  const float* row = a.tri_attr + kAttrRows * static_cast<int64_t>(
+                                      tri > 0 ? tri : 0);
+  const float bu = a.hit_u[i], bv = a.hit_v[i];
+  const float bw = 1.0f - bu - bv;
+  const V3 point = add(attr3(row, kAttrV0),
+                       add(scale(attr3(row, kAttrE1), bu),
+                           scale(attr3(row, kAttrE2), bv)));
+  V3 n = normalize(add(scale(attr3(row, kAttrN0), bw),
+                       add(scale(attr3(row, kAttrN1), bu),
+                           scale(attr3(row, kAttrN2), bv))));
+  const float u = bw * row[kAttrUv0] + bu * row[kAttrUv1] + bv * row[kAttrUv2];
+  const float v = bw * row[kAttrUv0 + 1] + bu * row[kAttrUv1 + 1] +
+                  bv * row[kAttrUv2 + 1];
+  const V3 dpdu = attr3(row, kAttrDpdu);
+  const int mat = static_cast<int>(row[kAttrMat]);
+
+  // normal mapping (rchit:55-64), where the lane's material has a map
+  if (a.tex_flags & kTexNormal) {
+    const int normal_tex = a.mat_tex[5 * static_cast<int64_t>(mat) + kMtNormal];
+    if (normal_tex != 0) {
+      float c[3];
+      sample_tex(a, normal_tex, u, v, 3, c);
+      const V3 s_old = normalize(dpdu);
+      const V3 t_old = normalize(cross(n, s_old));
+      const float nx = c[0] * 2.0f - 1.0f, ny = c[1] * 2.0f - 1.0f,
+                  nz = c[2] * 2.0f - 1.0f;
+      const V3 mapped = normalize({s_old.x * nx + t_old.x * ny + n.x * nz,
+                                   s_old.y * nx + t_old.y * ny + n.y * nz,
+                                   s_old.z * nx + t_old.z * ny + n.z * nz});
+      n = scale(mapped, sign(dot(attr3(row, kAttrGn), mapped)));
+    }
+  }
+
+  // the shading frame (ops/shading.py new_shading_space_v) and wo
+  const V3 s = normalize(sub(dpdu, scale(n, dot(n, dpdu))));
+  const V3 t = cross(n, s);
+  const float wo[3] = {-a.dx[i], -a.dy[i], -a.dz[i]};
+
+  // the miss flag, NEE's lanes and the sky on camera rays and after
+  // specular bounces (path_trace.rgen:76-84)
+  const bool missed = tri < 0;
+  const bool parked = a.parked != nullptr && a.parked[i] != 0;
+  const bool specular = a.mat_scalars[10 * static_cast<int64_t>(mat) + 4] >
+                        0.5f;
+  float sky[3] = {0.0f, 0.0f, 0.0f};
+  if (missed && !parked && *a.sky_tex > 0 &&
+      (a.bounce[i] == 0.0f || a.last_specular[i] == 1.0f))
+    sky_rgb(a, K, {a.dx[i], a.dy[i], a.dz[i]}, i, sky);
+
+  const float lane[kSurfaceRows] = {
+      point.x, point.y, point.z, s.x, s.y, s.z, t.x, t.y, t.z,
+      n.x, n.y, n.z, wo[0], wo[1], wo[2], u, v, sky[0], sky[1], sky[2]};
+  float* o = a.out + i;
+#pragma unroll
+  for (int r = 0; r < kSurfaceRows; ++r)
+    o[static_cast<int64_t>(r) * a.n_lanes] = lane[r];
+  a.mat_id[i] = mat;
+  a.missed[i] = missed;
+  a.nee_active[i] = !missed && !specular && !parked;
 }
 
 }  // namespace glaze_shade

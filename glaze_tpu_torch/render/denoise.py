@@ -39,6 +39,7 @@ from glaze_tpu_torch.ops import texture as tx
 from glaze_tpu_torch.ops import vec
 from glaze_tpu_torch.render import bsdf as bsdf_mod
 from glaze_tpu_torch.render import integrator as integ
+from glaze_tpu_torch.render import shade_cuda
 from glaze_tpu_torch.scene import flatten as fl
 from glaze_tpu_torch.utils.runtime import count, traced
 
@@ -79,7 +80,7 @@ def gbuffer_pass(scene, cam2world, screen2cam, *, width: int, height: int,
                                 alpha_rounds=alpha_rounds)
     else:
         hit = accel.closest_hit_soa_auto(scene.bvh, origin, direction)
-    surf = integ._interpolate_hit(scene, hit)
+    surf = shade_cuda.interpolate_hit(scene, hit)
     return _guides(scene, origin, direction, hit["tri"] < 0, hit["t"],
                    surf["shading_normal"], surf["material_id"], surf["uv"])
 

@@ -20,12 +20,14 @@ maps), both Morton-sorted for coherence and both on the CUDA kernels when
 the scene lives on the card. The closest hit walks ``scene.bvh`` (a
 fat-leaf tree under ``GLAZE_TREE=fat|hybrid``), the shadow rays the
 classic ``scene.bvh_any`` of a hybrid scene, else ``scene.bvh``. The
-NEE stage before its shadow rays (the light sample, the BSDF value, the
-weight and the contribution) and the BSDF stage (the accumulation,
-Russian roulette, the BSDF sample and the new path state) are
-:mod:`glaze_tpu_torch.render.shade_cuda`: one kernel each on the card,
-the NEE kernel handing its texels to the BSDF kernel, and the plain torch
-versions on the CPU.
+shade stage (the hit's attributes, the shading frame, the NEE lanes and
+the sky on missed lanes), the NEE stage before its shadow rays (the light
+sample, the BSDF value, the weight and the contribution) and the BSDF
+stage (the accumulation, Russian roulette, the BSDF sample and the new
+path state) are :mod:`glaze_tpu_torch.render.shade_cuda`: one kernel
+each on the card, the shade kernel's lane floats and the NEE kernel's
+texels handed on to the kernels after them, and the plain torch versions
+on the CPU.
 
 Opacity maps (``alpha_rounds > 0``; raytrace_hit.rahit semantics: a hit
 whose opacity sample is < 0.5 is skipped) take one of three branches,
@@ -74,20 +76,16 @@ import torch
 
 from glaze_tpu_torch import accel
 from glaze_tpu_torch.ops import rng as rng_mod
-from glaze_tpu_torch.ops import shading
 from glaze_tpu_torch.ops import sobol as sobol_mod
 from glaze_tpu_torch.ops import spectra
 from glaze_tpu_torch.ops import texture as tx
 from glaze_tpu_torch.ops import vec
-from glaze_tpu_torch.render import bsdf as bsdf_mod
 from glaze_tpu_torch.render import shade_cuda
 from glaze_tpu_torch.scene import flatten as fl
 from glaze_tpu_torch.utils import runtime
 from glaze_tpu_torch.utils.runtime import span, traced
 
 PT_STEPS = shade_cuda.PT_STEPS  # raytrace_structures.rs:87
-INV_2PI = float(np.float32(0.1591549))
-INV_PI = float(np.float32(0.3183099))
 
 
 def tile_from_env():
@@ -266,78 +264,6 @@ def camera_rays(ndc_x, ndc_y, cam2world, screen2cam, is_persp: bool):
         c[2][0] * tgt[0] + c[2][1] * tgt[1] + c[2][2] * tgt[2],
     ))
     return origin, direction
-
-
-def _sky_radiance(scene, direction):
-    """Environment lookup on a miss (path_trace.rgen:76-84) -> (r, g, b)."""
-    m = scene.sky_world2obj
-    w = vec.normalize((
-        m[0, 0] * direction[0] + m[0, 1] * direction[1] + m[0, 2] * direction[2],
-        m[1, 0] * direction[0] + m[1, 1] * direction[1] + m[1, 2] * direction[2],
-        m[2, 0] * direction[0] + m[2, 1] * direction[1] + m[2, 2] * direction[2],
-    ))
-    phi = torch.atan2(w[1], w[0])
-    theta = torch.acos(torch.clamp(w[2], -1.0, 1.0))
-    u = phi * INV_2PI
-    v = theta * INV_PI
-    tex = torch.broadcast_to(scene.sky_tex, phi.shape)
-    return tx.sample_rgb_v(scene.atlas, tex, u, v)
-
-
-def _interpolate_hit(scene, hit):
-    """The closest-hit shader (raytrace_hit.rchit): barycentric attribute
-    interpolation + normal mapping, from one fused row gather."""
-    tri = torch.clamp(hit["tri"], min=0).long()
-    bu = hit["u"]
-    bv = hit["v"]
-    bw = 1.0 - bu - bv
-    a = scene.tri_attr[tri]  # (R, 34)
-
-    def v3_at(col):
-        return (a[:, col], a[:, col + 1], a[:, col + 2])
-
-    v0 = v3_at(fl.ATTR_V0)
-    e1 = v3_at(fl.ATTR_E1)
-    e2 = v3_at(fl.ATTR_E2)
-    point = vec.add(v0, vec.add(vec.scale(e1, bu), vec.scale(e2, bv)))
-
-    n0 = v3_at(fl.ATTR_N0)
-    n1 = v3_at(fl.ATTR_N1)
-    n2 = v3_at(fl.ATTR_N2)
-    shading_n = vec.normalize(vec.add(
-        vec.scale(n0, bw), vec.add(vec.scale(n1, bu), vec.scale(n2, bv))))
-    u = bw * a[:, fl.ATTR_UV0] + bu * a[:, fl.ATTR_UV1] + bv * a[:, fl.ATTR_UV2]
-    v = (bw * a[:, fl.ATTR_UV0 + 1] + bu * a[:, fl.ATTR_UV1 + 1]
-         + bv * a[:, fl.ATTR_UV2 + 1])
-
-    geom_n = v3_at(fl.ATTR_GN)
-    dpdu = v3_at(fl.ATTR_DPDU)
-    mat_id = a[:, fl.ATTR_MAT].to(torch.int32)
-
-    # normal mapping (rchit:55-64), only when some material has a map
-    if fl.MT_NORMAL in scene.tex_slots:
-        normal_tex = scene.mat_tex[mat_id.long()][:, fl.MT_NORMAL]
-        has_nm = normal_tex != 0
-        tr, tg, tb = tx.sample_rgb_v(scene.atlas, normal_tex, u, v)
-        s_old = vec.normalize(dpdu)
-        t_old = vec.normalize(vec.cross(shading_n, s_old))
-        nx, ny, nz = tr * 2.0 - 1.0, tg * 2.0 - 1.0, tb * 2.0 - 1.0
-        mapped = vec.normalize((
-            s_old[0] * nx + t_old[0] * ny + shading_n[0] * nz,
-            s_old[1] * nx + t_old[1] * ny + shading_n[1] * nz,
-            s_old[2] * nx + t_old[2] * ny + shading_n[2] * nz,
-        ))
-        mapped = vec.scale(mapped, torch.sign(vec.dot(geom_n, mapped)))
-        shading_n = vec.where(has_nm, mapped, shading_n)
-
-    return {
-        "point": point,
-        "shading_normal": shading_n,
-        "geom_normal": geom_n,
-        "dpdu": dpdu,
-        "uv": (u, v),
-        "material_id": mat_id,
-    }
 
 
 def _spread3(x):
@@ -846,9 +772,10 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
     The span ``integrator.launch`` (the counter ``integrator.launches``)
     and its stages: ``integrator.camera`` (the chains, the jitter, the
     camera rays and the regeneration), ``.trace`` (the path rays' closest
-    hits), ``.shade`` (the sky, the hit's attributes and material),
-    ``.nee`` (direct light with its shadow rays, the contribution) and
-    ``.bsdf`` (roulette, the BSDF sample, the new state)."""
+    hits), ``.shade`` (the sky, the hit's attributes and frame, the NEE
+    lanes), ``.nee`` (direct light with its shadow rays, the
+    contribution) and ``.bsdf`` (roulette, the BSDF sample, the new
+    state)."""
     runtime.count("integrator.launches")
     with span("integrator.camera"):
         dev = px.device
@@ -960,37 +887,15 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
                 t_max=torch.where(parked, -1.0, float("inf")),
             alpha_rounds=alpha_rounds)
     with span("integrator.shade"):
-        missed = hit["tri"] < 0
-
-        # ---- miss: sky radiance only on camera rays / after specular bounces
-        sky_visible = (state.bounce == 0.0) | (state.last_specular == 1.0)
-        add_sky = missed & sky_visible & (scene.sky_tex > 0)
-        if parked is not None:
-            add_sky = add_sky & ~parked
-        sr, sg, sb = _sky_radiance(scene, direction)
-        sky_spec = importance * spectra.from_illuminant_color_t(sr, sg, sb)
-        mr, mg, mb = spectra.to_rgb_t(sky_spec)
-        zero = torch.zeros_like(mr)
-        miss_contrib = (torch.where(add_sky, mr, zero),
-                        torch.where(add_sky, mg, zero),
-                        torch.where(add_sky, mb, zero))
-
-        # ---- hit shading
-        surf = _interpolate_hit(scene, hit)
-        wo_w = vec.neg(direction)
-        frame = shading.new_shading_space_v(surf["dpdu"],
-                                            surf["shading_normal"])
-        mat = bsdf_mod.gather_material(scene, surf["material_id"])
-        mat_specular = mat["scalars"][fl.MS_IS_SPECULAR] > 0.5
-
-        nee_active = ~missed & ~mat_specular
-        if parked is not None:
-            nee_active = nee_active & ~parked
+        shaded = shade_cuda.surface(scene, hit, direction, state, importance,
+                                    parked)
+        surf, wo_w, frame = shaded["surf"], shaded["wo_w"], shaded["frame"]
+        mat, missed = shaded["mat"], shaded["missed"]
     ex = lambda a: _expand_block(a, p)  # noqa: E731
     with span("integrator.nee"):
         rng, nee_contrib, texels = _direct_light(
-            scene, rng, wo_w, frame, surf, mat, importance, nee_active,
-            alpha_rounds=alpha_rounds, expand=ex,
+            scene, rng, wo_w, frame, surf, mat, importance,
+            shaded["nee_active"], alpha_rounds=alpha_rounds, expand=ex,
             draws=None if ld_draws is None else ld_draws[:5])
 
     with span("integrator.bsdf"):
@@ -1015,8 +920,8 @@ def launch_step(scene, state: PathState, seed, pixel_offset, cam2world,
         # a mesh slot's state may be a lane slice of the whole state's
         state = state._replace(importance=state.importance.contiguous())
         new = shade_cuda.bsdf(scene, state, surf, missed, wo_w, frame, mat,
-                              importance, miss_contrib, nee_contrib, draws,
-                              ex, direct_only, texels)
+                              importance, shaded["miss_rgb"], nee_contrib,
+                              draws, ex, direct_only, texels)
         st = PathState(count=count, path_no=new_path_no, **new)
         return (st, fh) if want_first_hit else st
 

@@ -24,6 +24,7 @@ from glaze_tpu_torch.ops import spectra
 from glaze_tpu_torch.ops import texture as tx
 from glaze_tpu_torch.ops import vec
 from glaze_tpu_torch.render import integrator as integ
+from glaze_tpu_torch.render import shade_cuda
 from glaze_tpu_torch.scene import flatten as fl
 
 # alpha re-test rounds of the preview when some material has an opacity
@@ -56,7 +57,7 @@ def flat_pass(scene, cam2world, screen2cam, exposure, cone_scale, *, width,
         hit = accel.closest_hit_soa_auto(scene.bvh, origin, direction)
     missed = hit["tri"] < 0
 
-    surf = integ._interpolate_hit(scene, hit)
+    surf = shade_cuda.interpolate_hit(scene, hit)
     mat_id = surf["material_id"].long()
     tex = scene.mat_tex[mat_id][:, fl.MT_DIFFUSE]
     # the isotropic LOD: log2 of the pixel's world footprint over the
@@ -103,7 +104,7 @@ def flat_pass(scene, cam2world, screen2cam, exposure, cone_scale, *, width,
     has_sky = scene.sky_tex > 0
     sky = tuple(torch.where(has_sky, c * scene.sky_intensity,
                             torch.zeros_like(c))
-                for c in integ._sky_radiance(scene, direction))
+                for c in shade_cuda.sky_radiance(scene, direction))
     chans = []
     for surf_c, sky_c in zip(surf_rgb, sky):
         c = torch.where(missed, sky_c, surf_c) * exposure

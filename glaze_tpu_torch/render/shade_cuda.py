@@ -1,27 +1,33 @@
-"""The integrator's two shading stages, and the library of their kernels:
-:func:`nee` (the NEE stage before its shadow ray: the light sample, the
-BSDF value, the weight and the unshadowed RGB contribution) and
-:func:`bsdf` (the accumulation, Russian roulette, the BSDF sample and the
-path-state update), both called by
+"""The integrator's three shading stages, and the library of their
+kernels: :func:`surface` (the shade stage: the hit's attributes, the
+shading frame, wo, the material's specular flag and the sky on missed
+lanes), :func:`nee` (the NEE stage before its shadow ray: the light
+sample, the BSDF value, the weight and the unshadowed RGB contribution)
+and :func:`bsdf` (the accumulation, Russian roulette, the BSDF sample and
+the path-state update), all called by
 :func:`glaze_tpu_torch.render.integrator.launch_step`.
 
-On CPU tensors each runs its plain PyTorch version, :func:`nee_plain` or
-:func:`bsdf_plain`, which evaluate every light type and BSDF family
-present over every lane and select. On CUDA tensors each launches one
-hand-written kernel, :func:`nee_kernel` or :func:`bsdf_kernel`
+On CPU tensors each runs its plain PyTorch version, :func:`surface_plain`,
+:func:`nee_plain` or :func:`bsdf_plain`, which evaluate the sky, every
+light type and every BSDF family present over every lane and select. On
+CUDA tensors each launches one hand-written kernel,
+:func:`surface_kernel`, :func:`nee_kernel` or :func:`bsdf_kernel`
 (``csrc/shade.cu``, whose header note says what they replace and what
 bounds them; the lane's arithmetic is ``csrc/shade_lane.cuh``), compiled
 with ``nvcc`` at first use into ``build/libglaze_shade.so``
 (:mod:`glaze_tpu_torch.cuda_build`) and loaded through ctypes once a
 process. A missing ``nvcc``, a failed build, an input a kernel does not
 take or a failed launch raises; nothing falls back to the plain version.
-Both kernels read the scene's tables in place at every call, so edits are
-seen at once. The NEE kernel returns the texels it fetched, which the
-BSDF kernel takes as its ``texels`` argument; the plain versions share
-theirs through ``mat``'s memo (:mod:`glaze_tpu_torch.render.bsdf`). Each
-kernel counts its launches in ``nee_kernel.launches`` or
-``bsdf_kernel.launches`` and, inside a recording, in the counter
-``integrator.nee_kernels`` or ``integrator.bsdf_kernels``.
+The kernels read the scene's tables in place at every call, so edits are
+seen at once. The shade kernel writes the lane floats the other two take
+as the rows of one buffer; the NEE kernel returns the texels it fetched,
+which the BSDF kernel takes as its ``texels`` argument. The plain versions
+share the material record of :func:`surface_plain` (``mat``) and their
+texels through its memo (:mod:`glaze_tpu_torch.render.bsdf`); the kernels
+take no ``mat``. Each kernel counts its launches in its wrapper's
+``.launches`` and, inside a recording, in the counter
+``integrator.surface_kernels``, ``integrator.nee_kernels`` or
+``integrator.bsdf_kernels``.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 
 from glaze_tpu_torch import cuda_build
 from glaze_tpu_torch.ops import const, shading, spectra, vec
+from glaze_tpu_torch.ops import texture as tx
 from glaze_tpu_torch.render import bsdf as bsdf_mod
 from glaze_tpu_torch.render import lights as lights_mod
 from glaze_tpu_torch.scene import flatten as fl
@@ -45,6 +52,8 @@ LIBRARY = "libglaze_shade.so"
 
 PT_STEPS = 6  # raytrace_structures.rs:87
 RUSSIAN_ROULETTE = PT_STEPS // 2  # path_trace.rgen:11
+INV_2PI = float(np.float32(0.1591549))
+INV_PI = float(np.float32(0.3183099))
 
 # csrc/shade_lane.cuh's constants table: Smits bases (surface, then
 # illuminant), CIE x, y, z, the XYZ -> RGB matrix, the basis scales and
@@ -56,8 +65,9 @@ CONSTS = np.concatenate([
     np.asarray([spectra.SURFACE_SCALE, spectra.ILLUMINANT_SCALE,
                 spectra.INVY_SUM])]).astype(np.float32)
 
-# the lane floats both stages take first, in the order of both structures:
-# the hit point, the shading frame (s, t, n), wo in world space, uv
+# the lane floats the NEE and BSDF stages take first, in the order of both
+# structures, and the first rows of the shade kernel's output: the hit
+# point, the shading frame (s, t, n), wo in world space, uv
 _LANE_FLOATS = ("px", "py", "pz", "sx", "sy", "sz", "tx", "ty", "tz",
                 "nx", "ny", "nz", "wox", "woy", "woz", "u", "v")
 # the scene's tables: (field, scene attribute, dtype, shape: None = any
@@ -90,7 +100,8 @@ _TABLES = (
 )
 _TABLE_GETTERS = tuple(operator.attrgetter(t[1]) for t in _TABLES)
 # tex_flags bits (shade_lane.cuh kTex*), the texels' key and the fields
-# that hold them, and the BSDF families that read each
+# that hold them, and the BSDF families that read each; the normal map's
+# bit, which only the shade kernel reads, is _TEX_NORMAL
 _TEX_SLOTS = (
     (fl.MT_DIFFUSE, 1, "diffuse", ("diffuse_r", "diffuse_g", "diffuse_b"),
      (bsdf_mod.FAMILY_LAMBERT, bsdf_mod.FAMILY_UBER)),
@@ -98,6 +109,30 @@ _TEX_SLOTS = (
      (bsdf_mod.FAMILY_METAL, bsdf_mod.FAMILY_FROSTED, bsdf_mod.FAMILY_UBER)),
     (fl.MT_METALNESS, 4, "metal", ("metalness",), (bsdf_mod.FAMILY_UBER,)))
 _TEXELS = tuple(f for slot in _TEX_SLOTS for f in slot[3])
+_TEX_NORMAL = 8
+
+# csrc/shade_lane.cuh SurfaceArgs, field by field: the lane inputs, the
+# tables (as _TABLES has them, and the two only it reads), the outputs
+_SURFACE_INPUTS = ("tri", "hit_u", "hit_v", "dx", "dy", "dz", "bounce",
+                   "last_specular", "parked", "importance")
+_TABLE_BY_FIELD = {t[0]: t for t in _TABLES}
+_SURFACE_TABLES = (
+    ("tri_attr", "tri_attr", torch.float32, (None, fl.ATTR_ROWS)),
+    *(_TABLE_BY_FIELD[f] for f in (
+        "mat_scalars", "mat_tex", "texels", "tex_offset", "tex_width",
+        "tex_height", "tex_srgb")),
+    ("sky_world2obj", "sky_world2obj", torch.float32, (3, 3)),
+    _TABLE_BY_FIELD["sky_tex"])
+_SURFACE_GETTERS = tuple(operator.attrgetter(t[1]) for t in _SURFACE_TABLES)
+# the output buffer's rows: _LANE_FLOATS, then the sky's RGB
+_SURFACE_ROWS = len(_LANE_FLOATS) + 3
+
+
+class SurfaceArgs(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        *_SURFACE_INPUTS, *(t[0] for t in _SURFACE_TABLES), "consts", "out",
+        "mat_id", "missed", "nee_active")]
+        + [(n, ctypes.c_int) for n in ("n_lanes", "tex_flags")])
 
 # csrc/shade_lane.cuh NeeArgs, field by field
 _NEE_DRAWS = ("r_pick", "r_a", "r_b", "r_c", "r_bsdf")
@@ -166,7 +201,8 @@ def _load():
         with span("setup.kernels"):
             lib = ctypes.CDLL(build())
         i = ctypes.c_int
-        for kernel, args in (("nee", NeeArgs), ("bsdf", BsdfArgs)):
+        for kernel, args in (("surface", SurfaceArgs), ("nee", NeeArgs),
+                             ("bsdf", BsdfArgs)):
             launch_fn = getattr(lib, f"glaze_{kernel}_launch")
             launch_fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
             launch_fn.restype = i
@@ -186,9 +222,10 @@ def _check(code: int, what: str):
 
 
 def kernel_attrs(kernel: str) -> dict:
-    """``kernel``'s (``"nee"`` or ``"bsdf"``) registers and local (spill)
-    bytes per thread, threads per block, resident blocks per SM and the
-    occupancy they give, as the CUDA runtime reports them on this card."""
+    """``kernel``'s (``"surface"``, ``"nee"`` or ``"bsdf"``) registers and
+    local (spill) bytes per thread, threads per block, resident blocks per
+    SM and the occupancy they give, as the CUDA runtime reports them on
+    this card."""
     regs, local, threads, blocks, most = (ctypes.c_int() for _ in range(5))
     _check(getattr(_load(), f"glaze_{kernel}_attrs")(*(
         ctypes.byref(x) for x in (regs, local, threads, blocks, most))),
@@ -199,23 +236,25 @@ def kernel_attrs(kernel: str) -> dict:
 
 
 def launch(kernel: str, args, device):
-    """Launches ``kernel`` (``"nee"`` or ``"bsdf"``) on ``args``' lanes, if
-    any, on the current stream of ``device``; raises if the launch failed,
-    and counts it in the kernel's ``.launches`` and recording counter."""
+    """Launches ``kernel`` (``"surface"``, ``"nee"`` or ``"bsdf"``) on
+    ``args``' lanes, if any, on the current stream of ``device``; raises if
+    the launch failed, and counts it in the kernel's ``.launches`` and
+    recording counter."""
     if not args.n_lanes:
         return
     stream = torch.cuda.current_stream(device).cuda_stream
     fn = getattr(_load(), f"glaze_{kernel}_launch")
     _check(fn(ctypes.byref(args), stream), f"the {kernel}_kernel launch")
-    (nee_kernel if kernel == "nee" else bsdf_kernel).launches += 1
+    _WRAPPERS[kernel].launches += 1
     runtime.count(f"integrator.{kernel}_kernels")
 
 
 def reset_launch_counts():
-    nee_kernel.launches = bsdf_kernel.launches = 0
+    for wrapper in _WRAPPERS.values():
+        wrapper.launches = 0
 
 
-# ---- the arguments both kernels share ---------------------------------------
+# ---- the arguments the kernels share ----------------------------------------
 
 
 def _check_form(t, name, dtype, shape, who):
@@ -268,28 +307,29 @@ def _check_inputs(who, ins, forms, p, c, device_type):
                              f"{device_type} device")
 
 
-def _bind(args, who, scene, ins, p, c, device_type):
-    """Points ``args`` at the checked inputs and at the scene's tables,
-    each checked for its form and device at every call, and sets the rest
-    both kernels share."""
+def _bind(args, who, scene, ins, p, device_type, tables=_TABLES,
+          getters=_TABLE_GETTERS):
+    """Points ``args`` at the checked inputs and at the scene's ``tables``
+    (``getters`` reads each), each checked for its form and device at every
+    call, and sets the rest the kernels share."""
     for name, x in ins.items():
         setattr(args, name, x.data_ptr())
-    tables = tuple(get(scene) for get in _TABLE_GETTERS)
-    for (_, attr, dtype, shape), x in zip(_TABLES, tables):
+    values = tuple(get(scene) for get in getters)
+    for (_, attr, dtype, shape), x in zip(tables, values):
         _check_form(x, attr, dtype, shape, who)
-    for (_, attr, _, _), x in zip(_TABLES, tables):
+    for (_, attr, _, _), x in zip(tables, values):
         if x.device.type != device_type:
             raise ValueError(f"{who}: {attr} lies on {x.device}, not on a "
                              f"{device_type} device")
-    for (field, _, _, _), x in zip(_TABLES, tables):
+    for (field, _, _, _), x in zip(tables, values):
         if hasattr(args, field):
             setattr(args, field, x.data_ptr())
     args.consts = const(CONSTS, ins["importance"].device).data_ptr()
     args.n_lanes = p
-    args.lanes_per_chain = p // c
     # a bit for each texel slot the scene textures somewhere
     args.tex_flags = sum(bit for slot, bit, _, _, _ in _TEX_SLOTS
-                         if slot in scene.tex_slots)
+                         if slot in scene.tex_slots) + (
+        _TEX_NORMAL if fl.MT_NORMAL in scene.tex_slots else 0)
 
 
 def _rows(args, t, p, *fields):
@@ -299,6 +339,191 @@ def _rows(args, t, p, *fields):
     for k, field in enumerate(fields):
         setattr(args, field, base + 4 * k * p)
     return t
+
+
+# ---- the shade stage --------------------------------------------------------
+
+
+def sky_radiance(scene, direction):
+    """Environment lookup on a miss (path_trace.rgen:76-84) -> (r, g, b)."""
+    m = scene.sky_world2obj
+    w = vec.normalize((
+        m[0, 0] * direction[0] + m[0, 1] * direction[1] + m[0, 2] * direction[2],
+        m[1, 0] * direction[0] + m[1, 1] * direction[1] + m[1, 2] * direction[2],
+        m[2, 0] * direction[0] + m[2, 1] * direction[1] + m[2, 2] * direction[2],
+    ))
+    phi = torch.atan2(w[1], w[0])
+    theta = torch.acos(torch.clamp(w[2], -1.0, 1.0))
+    u = phi * INV_2PI
+    v = theta * INV_PI
+    tex = torch.broadcast_to(scene.sky_tex, phi.shape)
+    return tx.sample_rgb_v(scene.atlas, tex, u, v)
+
+
+def interpolate_hit(scene, hit):
+    """The closest-hit shader (raytrace_hit.rchit): barycentric attribute
+    interpolation + normal mapping, from one fused row gather."""
+    tri = torch.clamp(hit["tri"], min=0).long()
+    bu = hit["u"]
+    bv = hit["v"]
+    bw = 1.0 - bu - bv
+    a = scene.tri_attr[tri]  # (R, 34)
+
+    def v3_at(col):
+        return (a[:, col], a[:, col + 1], a[:, col + 2])
+
+    v0 = v3_at(fl.ATTR_V0)
+    e1 = v3_at(fl.ATTR_E1)
+    e2 = v3_at(fl.ATTR_E2)
+    point = vec.add(v0, vec.add(vec.scale(e1, bu), vec.scale(e2, bv)))
+
+    n0 = v3_at(fl.ATTR_N0)
+    n1 = v3_at(fl.ATTR_N1)
+    n2 = v3_at(fl.ATTR_N2)
+    shading_n = vec.normalize(vec.add(
+        vec.scale(n0, bw), vec.add(vec.scale(n1, bu), vec.scale(n2, bv))))
+    u = bw * a[:, fl.ATTR_UV0] + bu * a[:, fl.ATTR_UV1] + bv * a[:, fl.ATTR_UV2]
+    v = (bw * a[:, fl.ATTR_UV0 + 1] + bu * a[:, fl.ATTR_UV1 + 1]
+         + bv * a[:, fl.ATTR_UV2 + 1])
+
+    geom_n = v3_at(fl.ATTR_GN)
+    dpdu = v3_at(fl.ATTR_DPDU)
+    mat_id = a[:, fl.ATTR_MAT].to(torch.int32)
+
+    # normal mapping (rchit:55-64), only when some material has a map
+    if fl.MT_NORMAL in scene.tex_slots:
+        normal_tex = scene.mat_tex[mat_id.long()][:, fl.MT_NORMAL]
+        has_nm = normal_tex != 0
+        tr, tg, tb = tx.sample_rgb_v(scene.atlas, normal_tex, u, v)
+        s_old = vec.normalize(dpdu)
+        t_old = vec.normalize(vec.cross(shading_n, s_old))
+        nx, ny, nz = tr * 2.0 - 1.0, tg * 2.0 - 1.0, tb * 2.0 - 1.0
+        mapped = vec.normalize((
+            s_old[0] * nx + t_old[0] * ny + shading_n[0] * nz,
+            s_old[1] * nx + t_old[1] * ny + shading_n[1] * nz,
+            s_old[2] * nx + t_old[2] * ny + shading_n[2] * nz,
+        ))
+        mapped = vec.scale(mapped, torch.sign(vec.dot(geom_n, mapped)))
+        shading_n = vec.where(has_nm, mapped, shading_n)
+
+    return {
+        "point": point,
+        "shading_normal": shading_n,
+        "geom_normal": geom_n,
+        "dpdu": dpdu,
+        "uv": (u, v),
+        "material_id": mat_id,
+    }
+
+
+def surface_plain(scene, hit, direction, state, importance, parked=None):
+    """The plain version (path_trace.rgen:76-84 and the closest-hit
+    shader). ``hit``: the closest hit (``tri``, -1 on a miss, ``u``,
+    ``v``); ``direction``: the rays' (x, y, z); ``state``: the PathState
+    before the launch (its ``bounce`` and ``last_specular``);
+    ``importance``: the launch's (16, P); ``parked``: the lanes adaptive
+    stopping parked, or None. Returns a dict: ``surf``
+    (:func:`interpolate_hit`'s), ``wo_w``, ``frame`` (the shading frame),
+    ``mat`` (:func:`glaze_tpu_torch.render.bsdf.gather_material`'s record,
+    which the plain NEE and BSDF stages read), ``missed``, ``nee_active``
+    (the hits off specular materials, parked lanes out) and ``miss_rgb``
+    (the sky's RGB on the missed lanes of camera rays and specular
+    bounces, 0 elsewhere)."""
+    missed = hit["tri"] < 0
+
+    # ---- miss: sky radiance only on camera rays / after specular bounces
+    sky_visible = (state.bounce == 0.0) | (state.last_specular == 1.0)
+    add_sky = missed & sky_visible & (scene.sky_tex > 0)
+    if parked is not None:
+        add_sky = add_sky & ~parked
+    sr, sg, sb = sky_radiance(scene, direction)
+    sky_spec = importance * spectra.from_illuminant_color_t(sr, sg, sb)
+    mr, mg, mb = spectra.to_rgb_t(sky_spec)
+    zero = torch.zeros_like(mr)
+    miss_rgb = (torch.where(add_sky, mr, zero),
+                torch.where(add_sky, mg, zero),
+                torch.where(add_sky, mb, zero))
+
+    # ---- hit shading
+    surf = interpolate_hit(scene, hit)
+    wo_w = vec.neg(direction)
+    frame = shading.new_shading_space_v(surf["dpdu"], surf["shading_normal"])
+    mat = bsdf_mod.gather_material(scene, surf["material_id"])
+    mat_specular = mat["scalars"][fl.MS_IS_SPECULAR] > 0.5
+
+    nee_active = ~missed & ~mat_specular
+    if parked is not None:
+        nee_active = nee_active & ~parked
+    return {"surf": surf, "wo_w": wo_w, "frame": frame, "mat": mat,
+            "missed": missed, "nee_active": nee_active, "miss_rgb": miss_rgb}
+
+
+def surface_prepare(scene, hit, direction, state, importance, parked=None,
+                    device_type="cuda"):
+    """The shade kernel's arguments, every input and table checked, and
+    its outputs: ``(SurfaceArgs, out)``, ``out`` the (20, P) float buffer
+    (the rows of _LANE_FLOATS, then the sky's RGB), the (P,) int32
+    material rows and the (2, P) bool buffer of ``missed`` and
+    ``nee_active``."""
+    _check_form(importance, "importance", torch.float32, (16, None),
+                "surface")
+    p = importance.shape[1]
+    ins = {"tri": hit["tri"], "hit_u": hit["u"], "hit_v": hit["v"],
+           "dx": direction[0], "dy": direction[1], "dz": direction[2],
+           "bounce": state.bounce, "last_specular": state.last_specular,
+           "importance": importance}
+    forms = dict.fromkeys(ins, (torch.float32, (p,)))
+    forms.update(tri=(torch.int32, (p,)), importance=(torch.float32, (16, p)))
+    if parked is not None:
+        ins["parked"] = parked
+        forms["parked"] = (torch.bool, (p,))
+    _check_inputs("surface", ins, forms, p, 1, device_type)
+    args = SurfaceArgs()
+    _bind(args, "surface", scene, ins, p, device_type, _SURFACE_TABLES,
+          _SURFACE_GETTERS)
+    dev = importance.device
+    out = (torch.empty((_SURFACE_ROWS, p), dtype=torch.float32, device=dev),
+           torch.empty((p,), dtype=torch.int32, device=dev),
+           torch.empty((2, p), dtype=torch.bool, device=dev))
+    args.out, args.mat_id, args.missed = (t.data_ptr() for t in out)
+    args.nee_active = args.missed + p
+    return args, out
+
+
+def _surface_result(out):
+    """:func:`surface_plain`'s dict from :func:`surface_prepare`'s
+    outputs: every lane float a row of the one buffer; ``surf`` holds the
+    ``point``, ``shading_normal``, ``uv`` and ``material_id`` the NEE and
+    BSDF stages and the first-hit G-buffer read, and ``mat`` is None."""
+    f, mat_id, flags = out
+    rows = f.unbind(0)
+    frame = (rows[3:6], rows[6:9], rows[9:12])
+    return {"surf": {"point": rows[0:3], "shading_normal": frame[2],
+                     "uv": rows[15:17], "material_id": mat_id},
+            "wo_w": rows[12:15], "frame": frame, "mat": None,
+            "missed": flags[0], "nee_active": flags[1],
+            "miss_rgb": rows[17:20]}
+
+
+def surface_kernel(scene, hit, direction, state, importance, parked=None):
+    """:func:`surface_plain`'s results from one launch of
+    ``surface_kernel`` on CUDA tensors, with no material record (the NEE
+    and BSDF kernels read the material rows themselves); raises on an
+    input it does not take. A mesh slot's ``bounce`` and ``last_specular``
+    are lane slices of the whole state's, contiguous as (P,) slices are."""
+    args, out = surface_prepare(scene, hit, direction, state, importance,
+                                parked)
+    launch("surface", args, importance.device)
+    return _surface_result(out)
+
+
+def surface(scene, hit, direction, state, importance, parked=None):
+    """The shade stage: :func:`surface_kernel` on CUDA tensors,
+    :func:`surface_plain` on CPU ones."""
+    if importance.is_cuda:
+        return surface_kernel(scene, hit, direction, state, importance,
+                              parked)
+    return surface_plain(scene, hit, direction, state, importance, parked)
 
 
 # ---- the NEE stage ----------------------------------------------------------
@@ -351,7 +576,8 @@ def nee_prepare(scene, hit, wo_w, frame, importance, nee_active, draws,
     forms["nee_active"] = (torch.bool, (p,))
     _check_inputs("nee", ins, forms, p, c, device_type)
     args = NeeArgs()
-    _bind(args, "nee", scene, ins, p, c, device_type)
+    _bind(args, "nee", scene, ins, p, device_type)
+    args.lanes_per_chain = p // c
     args.n_tris = scene.tri_pos_orig.shape[0]
     args.sky_rows = scene.sky_marg_rows.shape[0]
     dev = importance.device
@@ -513,7 +739,8 @@ def bsdf_prepare(scene, state, hit, missed, wo_w, frame, importance,
     _check_inputs("bsdf", ins, forms, p, c, device_type)
     args = BsdfArgs()
     _rows(args, ins.pop("nee_rgb"), p, "nee_r", "nee_g", "nee_b")
-    _bind(args, "bsdf", scene, ins, p, c, device_type)
+    _bind(args, "bsdf", scene, ins, p, device_type)
+    args.lanes_per_chain = p // c
     present = list(scene.mat_families) or [bsdf_mod.FAMILY_LAMBERT]
     args.families = sum(1 << f for f in present[1:])
     args.first_family = present[0]
@@ -572,5 +799,8 @@ def bsdf(scene, state, hit, missed, wo_w, frame, mat, importance, miss_rgb,
                       miss_rgb, nee_rgb, draws, expand, direct_only)
 
 
+surface_kernel.launches = 0
 nee_kernel.launches = 0
 bsdf_kernel.launches = 0
+_WRAPPERS = {"surface": surface_kernel, "nee": nee_kernel,
+             "bsdf": bsdf_kernel}
